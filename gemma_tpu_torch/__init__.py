@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of `gemma_tpu` for NVIDIA Hopper (sm_90a).
+
+The JAX package `gemma_tpu` stays the reference; this package imports
+nothing from it.  Layout mirrors it: `models/` (configs, KV cache, the
+forward pass), `ops/` (elementwise ops, attention references, the i8
+GEMMs and the hand-written CUDA kernels behind them), `engine/` (the
+serving loop) and `utils/`.
+
+Every entry point runs on CUDA unless the caller passes `device="cpu"`;
+on CPU tensors each kernel wrapper takes its plain PyTorch version, on
+CUDA tensors it launches its kernel (built from `csrc/` at first use by
+`ops/_cuda.py`) or raises.
+"""

@@ -1,0 +1,210 @@
+"""The Gemma transformer forward pass (counterpart of
+gemma_tpu/models/gemma.py; reference gemma/gemma.cc TransformerLayer and
+gemma/attention.cc).
+
+`forward(params, tokens, positions, cache, config, ...)` runs a [B, T]
+token step and returns (logits or None, cache); the cache is updated in
+place.  Decode (T == 1) runs the fused layer: the pre-norms ride the GEMM
+prologues, the post-norms and residual adds the K1 epilogue pass, and
+QK norms + RoPE + the i8 row write + attention run in the K4 kernel.
+Prefill keeps the composed path: plain-torch norms, RoPE and the cache
+scatter around the K1/K2 GEMMs and the K5 attention kernel.
+
+Numerics follow the reference:
+  embed: decompress(embedding[token]) * bf16(sqrt(model_dim)) * scale
+  layer: x += postnorm(att(RMSNorm(x))); x += postnorm(ffn(RMSNorm(x)))
+  final: logits = softcap(RMSNorm(x) -> bf16 . embedding^T)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gemma_tpu_torch.models.configs import ModelConfig, PostNormType, \
+    PostQKType, is_vlm
+from gemma_tpu_torch.models.kv_cache import KVCache
+from gemma_tpu_torch.ops import ops
+from gemma_tpu_torch.ops.decode_attention import (
+    RopeSpec, decode_attention_write_packed)
+from gemma_tpu_torch.ops.flash_attention import flash_prefill_attention
+from gemma_tpu_torch.ops.matmul import QuantTensor, gated_ffn, matmul
+
+
+@dataclasses.dataclass
+class LayerParams:
+    """One layer's weights (gemma/weights.h:93-269, post-Fixup).
+
+    The q and kv projections live row-concatenated in `qkv_cat`
+    [(heads + 2*kv_heads) * qkv_dim, model_dim], one GEMM per layer."""
+
+    qkv_cat: QuantTensor
+    att_w: QuantTensor      # [model_dim, heads * qkv_dim]
+    gating1: QuantTensor    # [ff_hidden, model_dim]
+    gating2: QuantTensor    # [ff_hidden, model_dim]
+    linear: QuantTensor     # [model_dim, ff_hidden]
+    pre_att_norm: torch.Tensor
+    pre_ffw_norm: torch.Tensor
+    post_att_norm: torch.Tensor | None = None
+    post_ffw_norm: torch.Tensor | None = None
+    key_norm: torch.Tensor | None = None
+    query_norm: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class Params:
+    embedding: QuantTensor  # [vocab, model_dim]
+    final_norm: torch.Tensor
+    layers: list[LayerParams]
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+
+def embed_tokens(embedding: QuantTensor, tokens: torch.Tensor,
+                 model_dim: int) -> torch.Tensor:
+    """EmbedMMToken (gemma.cc:135-183): rows * bf16(sqrt(dim)) * scale, f32."""
+    emb_scale = ops.embedding_scaling(model_dim) * float(embedding.scale)
+    tok = tokens.long()
+    if embedding.kind in ("bf16", "f32"):
+        rows = embedding.arrays["w"][tok].float()
+    elif embedding.kind == "i8":
+        codes = embedding.arrays["codes"][tok].float()
+        inv = embedding.arrays["inv_scales"][tok]
+        zp = embedding.arrays["zeropoints"][tok]
+        g = inv.shape[-1]
+        shaped = codes.reshape(*codes.shape[:-1], g, codes.shape[-1] // g)
+        rows = (inv[..., None] * (shaped - zp[..., None])).reshape(codes.shape)
+    else:
+        raise NotImplementedError(f"embedding kind {embedding.kind}")
+    return rows * emb_scale
+
+
+def _position_encode(x, positions, inv_timescale, mul, post_qk):
+    pos = positions[..., None]  # broadcast over heads
+    if post_qk == PostQKType.HALF_ROPE:
+        return ops.half_rope(x, pos, inv_timescale, mul)
+    return ops.rope(x, pos, inv_timescale, mul)
+
+
+def transformer_layer(layer: LayerParams, layer_idx: int, x: torch.Tensor,
+                      positions: torch.Tensor, cache: KVCache,
+                      config: ModelConfig, prefix_end=0,
+                      inv_timescale=None, inv_timescale_global=None,
+                      valid=None) -> torch.Tensor:
+    """One TransformerLayer (gemma.cc:83-116). x: [B, T, model_dim] f32."""
+    lc = config.layer_configs[layer_idx]
+    b, t, model_dim = x.shape
+    heads, kv_heads, qkv_dim = lc.heads, lc.kv_heads, lc.qkv_dim
+    fuse = t == 1
+    x_flat = x.reshape(b * t, model_dim)
+    if fuse:
+        a_in, pro = x_flat.contiguous(), layer.pre_att_norm
+    else:
+        a_in = ops.rms_norm(x, layer.pre_att_norm).reshape(
+            b * t, model_dim).to(torch.bfloat16)
+        pro = None
+    ts = inv_timescale_global if (config.is_global_layer(layer_idx) and
+                                  inv_timescale_global is not None) \
+        else inv_timescale
+    query_scale = config.query_scale_value()
+    window = config.attention_window_sizes[layer_idx]
+    is_decode = t == 1 and isinstance(prefix_end, int) and prefix_end == 0
+
+    qkv_all = matmul(a_in, layer.qkv_cat, out_dtype=torch.float32,
+                     prologue_norm=pro)
+    if is_decode:
+        rope = RopeSpec(ts, int(lc.post_qk), query_scale,
+                        key_norm=layer.key_norm if lc.use_qk_norm else None,
+                        query_norm=layer.query_norm if lc.use_qk_norm
+                        else None)
+        att_flat = decode_attention_write_packed(
+            cache, layer_idx, qkv_all, positions, window, heads=heads,
+            att_cap=config.att_cap, valid=valid, rope=rope)
+    else:
+        q = qkv_all[:, :heads * qkv_dim].reshape(b, t, heads, qkv_dim)
+        kv = qkv_all[:, heads * qkv_dim:].reshape(b, t, kv_heads, 2, qkv_dim)
+        k, v = kv[..., 0, :], kv[..., 1, :]
+        if lc.use_qk_norm and layer.key_norm is not None:
+            k = ops.rms_norm(k, layer.key_norm)
+        k = _position_encode(k, positions, ts, 1.0, lc.post_qk)
+        if lc.use_qk_norm and layer.query_norm is not None:
+            q = ops.rms_norm(q, layer.query_norm)
+        q = _position_encode(q, positions, ts, query_scale, lc.post_qk)
+        cache.update(layer_idx, positions, k, v, valid=valid)
+        att = flash_prefill_attention(cache, layer_idx, q, positions, window,
+                                      att_cap=config.att_cap,
+                                      prefix_end=prefix_end)
+        att_flat = att.reshape(b * t, heads * qkv_dim).to(torch.bfloat16)
+
+    post_att = layer.post_att_norm \
+        if lc.post_norm == PostNormType.SCALE else None
+    post_ffw = layer.post_ffw_norm \
+        if lc.post_norm == PostNormType.SCALE else None
+    if fuse:
+        # x + postnorm(att . W), then the FFN with its norm as prologue.
+        x_flat = matmul(att_flat, layer.att_w, out_dtype=torch.float32,
+                        epilogue_norm=post_att, add=x_flat.contiguous())
+        activated = gated_ffn(x_flat, layer.gating1, layer.gating2,
+                              out_dtype=torch.bfloat16,
+                              prologue_norm=layer.pre_ffw_norm)
+        out = matmul(activated, layer.linear, out_dtype=torch.float32,
+                     epilogue_norm=post_ffw, add=x_flat)
+        return out.reshape(b, t, model_dim)
+    att_sums = matmul(att_flat, layer.att_w, out_dtype=torch.float32)
+    att_sums = att_sums.reshape(b, t, model_dim)
+    if post_att is not None:
+        att_sums = ops.rms_norm(att_sums, post_att)
+    x = x + att_sums
+    y = ops.rms_norm(x, layer.pre_ffw_norm).reshape(b * t, model_dim)
+    activated = gated_ffn(y.to(torch.bfloat16), layer.gating1, layer.gating2,
+                          out_dtype=torch.bfloat16)
+    ffw_out = matmul(activated, layer.linear, out_dtype=torch.float32)
+    ffw_out = ffw_out.reshape(b, t, model_dim)
+    if post_ffw is not None:
+        ffw_out = ops.rms_norm(ffw_out, post_ffw)
+    return x + ffw_out
+
+
+def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+            cache: KVCache, config: ModelConfig, prefix_end=0,
+            return_logits: str = "all", valid: torch.Tensor | None = None):
+    """Run the stack over a [B, T] token step (gemma.py:289-381).
+
+    return_logits: "all" -> [B, T, vocab]; "last" -> [B, vocab] for the
+    final token (final norm as the head GEMM's prologue); "none" -> None.
+    Returns (logits or None, cache); the cache is updated in place."""
+    if return_logits in ("top1", "topk"):
+        raise NotImplementedError(
+            f"return_logits={return_logits!r} needs the fused head kernel "
+            "(the TPU's _top1_kernel / _topk_kernel), a later slice; use "
+            "'last' and ops.sampling.top1")
+    lc = config.layer_configs[0]
+    device = params.device
+    x = embed_tokens(params.embedding, tokens, config.model_dim)
+    half = lc.post_qk == PostQKType.HALF_ROPE
+    inv_ts = torch.from_numpy(ops.create_inv_timescale(lc.qkv_dim, half)).to(
+        device)
+    inv_ts_g = None
+    if is_vlm(config.model):
+        inv_ts_g = torch.from_numpy(ops.create_inv_timescale(
+            lc.qkv_dim, half, base_frequency=1e6)).to(device)
+    for layer_idx, layer in enumerate(params.layers):
+        x = transformer_layer(layer, layer_idx, x, positions, cache, config,
+                              prefix_end, inv_ts, inv_ts_g, valid)
+    if return_logits == "none":
+        return None, cache
+    if return_logits == "last":
+        x1 = x[:, -1, :].contiguous()
+        logits = matmul(x1, params.embedding, out_dtype=torch.float32,
+                        prologue_norm=params.final_norm)
+        return ops.soft_cap(config.final_cap, logits), cache
+    if return_logits != "all":
+        raise ValueError(return_logits)
+    x_bf = ops.rms_norm(x, params.final_norm).to(torch.bfloat16)
+    b, t, _ = x_bf.shape
+    logits = matmul(x_bf.reshape(b * t, -1), params.embedding,
+                    out_dtype=torch.float32)
+    return ops.soft_cap(config.final_cap, logits).reshape(b, t, -1), cache

@@ -8,9 +8,9 @@ Phases (any failure exits non-zero before the result line):
      build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed;
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving path (Gemma2-2B, batch 4), each error printed beside its
-     tolerance, each timed with CUDA events beside its plain version and
-     its bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16,
-     the H100 SXM data-sheet peaks);
+     tolerance, each timed with CUDA events over a CUDA graph beside its
+     plain version and its bound (bytes over 3.35 TB/s or operations over
+     989 TFLOP/s bf16, the H100 SXM data-sheet peaks);
   3. a 2-layer model at Gemma2-2B width (synthetic i8 weights, i8 KV):
      prefill + one decode step on the card through the kernels vs the
      plain path on the CPU, last logits within the stated tolerance;
@@ -20,8 +20,9 @@ Phases (any failure exits non-zero before the result line):
      (17, 130, 300, 700 prompt tokens, 32 new tokens each).  Every kernel
      launch count is zeroed before and read after, checked against the
      per-layer schedule, and the plain versions are made to raise during
-     the run; decode's first-step logits are checked against a
-     prefill-only forward;
+     the run; a few decode steps under torch.profiler must show the same
+     launches per kernel as the counts; decode's first-step logits are
+     checked against a prefill-only forward;
   5. one `kernels` JSON line, then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
@@ -47,11 +48,7 @@ def fail(msg: str) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
-                    help="comma-separated phases to run (debugging)")
-    args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",")}
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
 
     try:
         import torch
@@ -82,28 +79,23 @@ def main() -> int:
     print(f"[1] built {len(list(_cuda.CSRC.glob('*.cu')))} sources in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
-    results = {}
-    if 2 in phases:
-        results = phase_kernels(torch)
-    if 3 in phases:
-        phase_two_layers(torch)
-    counts = {}
-    if 4 in phases:
-        counts = phase_main_path(torch)
+    results = phase_kernels(torch)
+    phase_two_layers(torch)
+    counts = phase_main_path(torch)
 
     line = []
     for k in _cuda.all_kernels():
-        r = results.get(k.name, {})
+        r = results[k.name]
         line.append({
             "name": k.name, "route": "cuda",
             "source": f"gemma_tpu_torch/csrc/{k.source}",
             "replaces": REPLACES[k.name],
-            "launches": counts.get(k.name),
-            "max_abs_err": r.get("max_abs_err"),
-            "ms": r.get("ms"), "plain_ms": r.get("plain_ms"),
-            "bound_ms": r.get("bound_ms"), "bound_by": r.get("bound_by"),
+            "launches": counts[k.name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "library_note": LIBRARY_NOTE[k.name],
-            "case": r.get("case"), "cases": r.get("cases"),
+            "case": r["case"], "cases": r["cases"],
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
@@ -141,46 +133,32 @@ LIBRARY_NOTE = {
 }
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 2) -> tuple[float, str]:
+def time_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
     """Device time of one call of `fn`: `iters` calls captured in a CUDA
     graph, replayed and timed with CUDA events, so host-side Python between
-    launches is not counted.  Returns (ms, "graph"), or (ms, "eager") with
-    launches back to back from the host when the calls cannot be captured."""
+    launches is not counted.  A call that cannot be captured fails the run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(iters):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(3):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / (3 * iters)
-        del graph
-        return ms, "graph"
-    except RuntimeError as e:
-        print(f"    (graph capture failed: {str(e).splitlines()[0][:120]}; "
-              "timing eagerly)", flush=True)
-        torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters, "eager"
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -197,21 +175,20 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
     err = float((got - want).abs().max())
     ok = err <= tol
     b_ms, b_by = bound(nbytes, ops)
-    k_ms, k_how = time_ms(torch, kern, iters)
-    p_ms, p_how = time_ms(torch, plain, max(3, iters // 4), warmup=1)
+    k_ms = time_ms(torch, kern, iters)
+    p_ms = time_ms(torch, plain, max(3, iters // 4), warmup=1)
     print(f"[2] {name:24s} {case:44s} max_abs_err {err:.4g} (tol {tol:.4g}) "
-          f"kernel {k_ms:.4f} ms ({k_how}) plain {p_ms:.4f} ms ({p_how}) "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
           f"bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         fail(f"{name} [{case}] disagrees with its plain version: {err} > {tol}")
     entry = results.setdefault(name, {"cases": []})
     c = {"case": case, "max_abs_err": err, "tol": tol, "ms": k_ms,
-         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-         "timing": f"{k_how}/{p_how}"}
+         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
     entry["cases"].append(c)
     if primary:
-        entry.update({k: v for k, v in c.items() if k not in ("tol", "timing")})
+        entry.update({k: v for k, v in c.items() if k != "tol"})
 
 
 def phase_kernels(torch):
@@ -298,6 +275,19 @@ def phase_kernels(torch):
            want, rel_tol(want, 1e-3), f, p,
            m_pre * d * 2 + w_qkv.nbytes() + m_pre * 4096 * 4,
            2 * m_pre * 4096 * d, iters=5)
+    # Prefill att_w and linear: plain bf16 A, f32 out, no epilogue (the
+    # prefill branch norms and adds in plain torch).
+    for name, k_in in (("att_w", 2048), ("linear", ff)):
+        w = synth_quant(gen, d, k_in, dev)
+        a = randn(m_pre, k_in, s=1.0).to(torch.bfloat16)
+        f = lambda: mm.matmul(a, w)  # noqa: E731
+        p = lambda: mm.matmul_plain(a, w)  # noqa: E731
+        want = p()
+        record(res, torch, "matmul_i8",
+               f"prefill {name} M=2048 K={k_in} N={d}", f(), want,
+               rel_tol(want, 1e-3), f, p,
+               m_pre * k_in * 2 + w.nbytes() + m_pre * d * 4,
+               2 * m_pre * d * k_in, iters=5)
 
     # --- K2 ---  (bf16 output: one bf16 ulp, 2^-8 relative, plus the
     # GEMM's f32 reorder; 1e-2 of max|out| bounds it)
@@ -364,25 +354,27 @@ def phase_kernels(torch):
                want, rel_tol(want, 1e-2), f, p, nbytes,
                4 * live * (heads // kvh) * kvh * hd, primary=layer == 1)
 
-    # --- K5: a 512-token chunk after 512 prefilled positions ---
+    # --- K5: the two 512-token prefill rounds (positions 0..511, then
+    # 512..1023) on both pools ---
     t = 512
-    positions = (torch.arange(t, device=dev) + 512)[None].repeat(b, 1)
     q = randn(b, t, heads, hd, s=0.1)
-    for layer, pool_name in ((1, "global"), (0, "local")):
-        window = cfg.attention_window_sizes[layer]
-        f = lambda: fa.flash_prefill_attention(  # noqa: E731
-            cache, layer, q, positions, window, cfg.att_cap)
-        p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
-            cache, layer, q, positions, window, cfg.att_cap)
-        want = p()
-        ring = cache.pool(layer)[2]
-        pairs = int(attention_mask(positions, ring, window).sum()) * heads
-        nbytes = (2 * q.numel() * 4
-                  + b * kvh * min(1024, ring) * (2 * hd + 8))
-        record(res, torch, "flash_attention_i8",
-               f"B=4 T=512 at pos 512 {pool_name} pool", f(), want,
-               rel_tol(want, 1e-2), f, p, nbytes, 4 * pairs * hd, iters=5,
-               primary=layer == 1)
+    for start in (0, 512):
+        positions = (torch.arange(t, device=dev) + start)[None].repeat(b, 1)
+        for layer, pool_name in ((1, "global"), (0, "local")):
+            window = cfg.attention_window_sizes[layer]
+            f = lambda: fa.flash_prefill_attention(  # noqa: E731
+                cache, layer, q, positions, window, cfg.att_cap)
+            p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
+                cache, layer, q, positions, window, cfg.att_cap)
+            want = p()
+            ring = cache.pool(layer)[2]
+            pairs = int(attention_mask(positions, ring, window).sum()) * heads
+            nbytes = (2 * q.numel() * 4
+                      + b * kvh * min(start + t, ring) * (2 * hd + 8))
+            record(res, torch, "flash_attention_i8",
+                   f"B=4 T=512 at pos {start} {pool_name} pool", f(), want,
+                   rel_tol(want, 1e-2), f, p, nbytes, 4 * pairs * hd,
+                   iters=5, primary=(start, layer) == (512, 1))
     return res
 
 
@@ -428,12 +420,29 @@ def phase_two_layers(torch):
         fail("2-layer model disagrees between the card and the CPU")
 
 
+# The device functions of each counted kernel, as the profiler names them
+# (mm_i8_kernel's last template argument is GATED).
+def _port_kernel(device_name: str) -> str | None:
+    if device_name.startswith("void mm_i8_kernel<"):
+        return "gated_i8" if "true>" in device_name else "matmul_i8"
+    for fn, name in (("prenorm_kernel(", "matmul_i8_prenorm"),
+                     ("postnorm_add_kernel(", "matmul_i8_postnorm_add"),
+                     ("decode_attention_i8_kernel<", "decode_attention_i8"),
+                     ("flash_attention_i8_kernel<", "flash_attention_i8")):
+        if fn in device_name:
+            return name
+    return None
+
+
 def profile_decode(torch, engine, prompts, cfg, steps: int = 4):
     """Device time by kernel over a few decode steps (torch.profiler), beside
-    the host wall time of the same steps: the device's idle share."""
+    the host wall time of the same steps: the device's idle share.  The
+    profiler's own count of each kernel's device launches must equal what
+    the launch counters gained over the same steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from gemma_tpu_torch.models.gemma import forward
+    from gemma_tpu_torch.ops import _cuda
     from gemma_tpu_torch.ops.sampling import top1
 
     cache = engine.new_cache(len(prompts))
@@ -441,6 +450,7 @@ def profile_decode(torch, engine, prompts, cfg, steps: int = 4):
     prev = torch.tensor(last, device="cuda")[:, None]
     pos = torch.tensor([len(p) - 1 for p in prompts], device="cuda")[:, None]
     torch.cuda.synchronize()
+    before = {k.name: k.launches for k in _cuda.all_kernels()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -451,13 +461,19 @@ def profile_decode(torch, engine, prompts, cfg, steps: int = 4):
             pos = pos + 1
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
+    counted = {k.name: k.launches - before[k.name] for k in _cuda.all_kernels()}
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {name: 0 for name in counted}
+    for e in kern:
+        name = _port_kernel(e.key)
+        if name is not None:
+            seen[name] += e.count
+    print(f"[4] {steps} decode steps: launches by counter {json.dumps(counted)}"
+          f", by profiler {json.dumps(seen)}", flush=True)
+    if seen != counted:
+        fail("the launch counters disagree with the profiler's device trace")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    if busy <= 0:
-        print("[4] decode device time by kernel: not measured (the profiler "
-              "recorded no device time)", flush=True)
-        return
     print(f"[4] decode profile, {steps} steps: host wall {wall / steps:.3f} "
           f"ms/step, device busy {busy / steps:.3f} ms/step, idle share "
           f"{1 - busy / wall:.3f}", flush=True)

@@ -330,7 +330,9 @@ extern "C" int gemma_decode_attention_i8(
     const float* qnorm, int8_t* pool, float* scales, const int* pos,
     const bool* valid, __nv_bfloat16* out, int batch, int n_layers, int layer,
     int kvh, int heads, int s_alloc, int d, int ring, int window,
-    int pe_mode, float qscale, float att_cap, cudaStream_t st) {
+    int pe_mode, float qscale, float att_cap, int* launched,
+    cudaStream_t st) {
+  *launched = 0;
   DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, scales, pos, valid, out,
                n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
                qscale, att_cap};
@@ -342,5 +344,6 @@ extern "C" int gemma_decode_attention_i8(
   else if (d == 128 && g == 1) launch_dec<128, 1>(p, batch, st);
   else if (d == 128 && g == 4) launch_dec<128, 4>(p, batch, st);
   else return (int)cudaErrorInvalidValue;
+  *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -232,13 +232,15 @@ __global__ void __launch_bounds__(256) flash_attention_i8_kernel(FlashArgs p) {
 }
 
 template <int D>
-static int launch_flash(const FlashArgs& p, int batch, cudaStream_t st) {
+static int launch_flash(const FlashArgs& p, int batch, int* launched,
+                        cudaStream_t st) {
   constexpr int bytes = flash_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_attention_i8_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.tg + FR - 1) / FR, p.kvh, batch);
   flash_attention_i8_kernel<D><<<grid, 256, bytes, st>>>(p);
+  *launched = 1;
   return (int)cudaGetLastError();
 }
 
@@ -246,10 +248,11 @@ extern "C" int gemma_flash_attention_i8(
     const float* q, const int8_t* pool, const float* scales, const int* base,
     const int* newest, const int* prefix_end, float* out, int batch,
     int n_layers, int layer, int kvh, int tg, int groups, int s_alloc, int d,
-    int ring, int window, float att_cap, cudaStream_t st) {
+    int ring, int window, float att_cap, int* launched, cudaStream_t st) {
+  *launched = 0;
   FlashArgs p = {q, pool, scales, base, newest, prefix_end, out, n_layers,
                  layer, kvh, tg, groups, s_alloc, ring, window, att_cap};
-  if (d == 256) return launch_flash<256>(p, batch, st);
-  if (d == 128) return launch_flash<128>(p, batch, st);
+  if (d == 256) return launch_flash<256>(p, batch, launched, st);
+  if (d == 128) return launch_flash<128>(p, batch, launched, st);
   return (int)cudaErrorInvalidValue;
 }

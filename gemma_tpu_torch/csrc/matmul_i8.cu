@@ -16,6 +16,8 @@
 //   postnorm_add_kernel  out = add + postnorm(C) over whole rows: the post
 //                      norm needs all N = 2304 outputs of a row, which
 //                      blocks that split N cannot see.
+// Each entry reports through `launched` which of them it put on the stream
+// (kLaunched* bits), so the caller counts the launches that happened.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   decode (M = B <= 16) is bytes-bound on the weights: N*K code bytes +
@@ -297,6 +299,9 @@ __global__ void __launch_bounds__(256) postnorm_add_kernel(
   }
 }
 
+// Bits of an entry's `launched` report: its own kernel, then the passes.
+constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
+
 template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>
 static void launch_mm(const MMArgs& p, cudaStream_t st) {
   constexpr int BN = (WARPS / KSPLIT) * 8 * NT;
@@ -308,9 +313,10 @@ static void launch_mm(const MMArgs& p, cudaStream_t st) {
 // when a prologue norm is given (a is then f32).
 static const __nv_bfloat16* operand_a(const void* a, const float* norm,
                                       __nv_bfloat16* a_scratch, int M, int K,
-                                      cudaStream_t st) {
+                                      int* launched, cudaStream_t st) {
   if (norm == nullptr) return static_cast<const __nv_bfloat16*>(a);
   prenorm_kernel<<<M, 256, 0, st>>>(static_cast<const float*>(a), norm, a_scratch, K);
+  *launched |= kLaunchedPrenorm;
   return a_scratch;
 }
 
@@ -322,10 +328,11 @@ extern "C" int gemma_matmul_i8(const void* a, const float* norm,
                                const float* post_w, const float* add,
                                __nv_bfloat16* a_scratch, float* y, void* out,
                                int M, int N, int K, int out_bf16,
-                               cudaStream_t st) {
+                               int* launched, cudaStream_t st) {
   const bool post = post_w != nullptr || add != nullptr;
+  *launched = 0;
   MMArgs p = {};
-  p.a = operand_a(a, norm, a_scratch, M, K, st);
+  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   p.codes[0] = p.codes[1] = codes;
   p.inv[0] = p.inv[1] = inv;
   p.zp[0] = p.zp[1] = zp;
@@ -337,7 +344,11 @@ extern "C" int gemma_matmul_i8(const void* a, const float* norm,
     launch_mm<1, 1, 8, 8, false>(p, st);
   else
     launch_mm<2, 4, 1, 4, false>(p, st);
-  if (post) postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
+  *launched |= kLaunchedSelf;
+  if (post) {
+    postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
+    *launched |= kLaunchedPostnorm;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -347,9 +358,10 @@ extern "C" int gemma_gated_i8(const void* a, const float* norm,
                               const int8_t* codes2, const float* inv2,
                               const float* zp2, float scale2,
                               __nv_bfloat16* a_scratch, void* out, int M,
-                              int N, int K, cudaStream_t st) {
+                              int N, int K, int* launched, cudaStream_t st) {
+  *launched = 0;
   MMArgs p = {};
-  p.a = operand_a(a, norm, a_scratch, M, K, st);
+  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   p.codes[0] = codes1; p.codes[1] = codes2;
   p.inv[0] = inv1; p.inv[1] = inv2;
   p.zp[0] = zp1; p.zp[1] = zp2;
@@ -359,20 +371,24 @@ extern "C" int gemma_gated_i8(const void* a, const float* norm,
     launch_mm<1, 1, 8, 8, true>(p, st);
   else
     launch_mm<2, 2, 1, 4, true>(p, st);
+  *launched |= kLaunchedSelf;
   return (int)cudaGetLastError();
 }
 
 // The two passes alone, for checking each against its plain version.
 extern "C" int gemma_prenorm_bf16(const float* a, const float* w,
                                   __nv_bfloat16* out, int M, int K,
-                                  cudaStream_t st) {
+                                  int* launched, cudaStream_t st) {
   prenorm_kernel<<<M, 256, 0, st>>>(a, w, out, K);
+  *launched = kLaunchedSelf;
   return (int)cudaGetLastError();
 }
 
 extern "C" int gemma_postnorm_add(const float* y, const float* w,
                                   const float* add, void* out, int M, int N,
-                                  int out_bf16, cudaStream_t st) {
+                                  int out_bf16, int* launched,
+                                  cudaStream_t st) {
   postnorm_add_kernel<<<M, 256, 0, st>>>(y, w, add, out, N, out_bf16);
+  *launched = kLaunchedSelf;
   return (int)cudaGetLastError();
 }

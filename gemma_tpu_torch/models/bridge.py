@@ -24,6 +24,7 @@ from gemma_tpu_torch.models.configs import ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.models.kv_cache import KVCache
 from gemma_tpu_torch.ops.matmul import QuantTensor, concat_rows
+from gemma_tpu_torch.utils.basics import resolve_device
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -41,7 +42,10 @@ def quant_tensor_from_numpy(qt: dict, device) -> QuantTensor:
 
 
 def params_from_numpy(tree: dict, config: ModelConfig,
-                      device="cpu") -> Params:
+                      device=None) -> Params:
+    """The port's Params on `device` (CUDA unless the caller names one)."""
+    device = resolve_device(device)
+
     def norm(a):
         return None if a is None else tensor_from_numpy(
             np.asarray(a, np.float32), device)
@@ -73,9 +77,12 @@ def params_from_numpy(tree: dict, config: ModelConfig,
                   final_norm=norm(tree["final_norm"]), layers=layers)
 
 
-def kv_cache_from_numpy(tree: dict, device="cpu") -> KVCache:
+def kv_cache_from_numpy(tree: dict, device=None) -> KVCache:
     """tree: kv, seq_len, kv_local, seq_len_local, layer_map, local_slack,
-    kv_scale, kv_local_scale (arrays or None)."""
+    kv_scale, kv_local_scale (arrays or None).  On `device`, CUDA unless
+    the caller names one."""
+    device = resolve_device(device)
+
     def arr(name):
         a = tree.get(name)
         return None if a is None else tensor_from_numpy(a, device)

@@ -29,7 +29,7 @@ import torch
 
 from gemma_tpu_torch.models.configs import ModelConfig
 from gemma_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
-from gemma_tpu_torch.utils.basics import round_up
+from gemma_tpu_torch.utils.basics import resolve_device, round_up
 
 LOCAL_RING_SLACK = 256
 
@@ -77,7 +77,9 @@ class KVCache:
                seq_len: int | None = None, kind: str = "bf16",
                split_local: bool = True,
                local_slack: int = LOCAL_RING_SLACK,
-               device: str | torch.device = "cpu") -> "KVCache":
+               device: str | torch.device | None = None) -> "KVCache":
+        """Zeroed pools on `device` (CUDA unless the caller names one)."""
+        device = resolve_device(device)
         dtype = _DTYPES[kind]
         quant = kind == "i8"
         lc = config.layer_configs[0]

@@ -8,9 +8,15 @@ All sources compile in parallel, one `nvcc` each.  The libraries are
 loaded with ctypes; every C entry returns `cudaGetLastError()` after its
 launch, and `Kernel.launch` raises when that is not 0.
 
-Each `Kernel` carries `launches`, a plain integer that its wrapper adds
-one to per launch of that kernel and nowhere else; `chip_smoke.py` zeroes and reads
-them around the main path to show the path ran through the kernels.
+Each `Kernel` carries `launches`, a plain integer that grows by one per
+launch of that kernel and nowhere else.  Every C entry reports, through a
+trailing `int* launched` before the stream, a bitmask of the kernels it
+put on the stream: bit 0 its own, bit i + 1 the i-th of the `passes` it
+was declared with (the GEMM entries chain norm passes in the same call).
+`Kernel.launch` adds to the counts from that report alone, so a count says
+what ran, not what the wrapper asked for.  `chip_smoke.py` zeroes and
+reads the counts around the main path to show the path ran through the
+kernels.
 Nothing here runs at import: the CPU tests import every module, on
 machines with neither `nvcc` nor a card.
 """
@@ -107,32 +113,47 @@ def library(source: str) -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of one `csrc/` source, with its launch count."""
+    """One C entry point of one `csrc/` source, with its launch count.
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+    passes: the Kernels (other C kernels) this entry may launch besides
+    its own, in the bit order of its `launched` report."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list,
+                 passes: tuple["Kernel", ...] = ()):
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.passes = passes
         self.launches = 0
         self._fn = None
 
     def _bind(self):
         if self._fn is None:
             fn = getattr(library(self.source), self.symbol)
-            fn.argtypes = self.argtypes + [P]  # trailing: the CUDA stream
+            # trailing: the `launched` report, then the CUDA stream
+            fn.argtypes = self.argtypes + [ctypes.POINTER(I), P]
             fn.restype = I
             self._fn = fn
         return self._fn
 
     def launch(self, *args) -> None:
         fn = self._bind()
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+        launched = I(0)
+        err = fn(*args, ctypes.byref(launched), _stream())
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
-        self.launches += 1
+        bits = launched.value
+        if bits >> (1 + len(self.passes)):
+            raise RuntimeError(f"{self.symbol} reported launches {bits:#x} "
+                               "beyond its declared passes")
+        for i, k in enumerate((self,) + self.passes):
+            k.launches += (bits >> i) & 1
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -27,21 +27,23 @@ from gemma_tpu_torch.ops.ops import rms_norm
 
 GROUP = 128
 
-# One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass];
-# the wrapper counts each pass it asks for on the pass's own Kernel.
-MATMUL_I8 = _cuda.Kernel(
-    "matmul_i8", "matmul_i8.cu", "gemma_matmul_i8",
-    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 5 + [_cuda.I] * 4)
-GATED_I8 = _cuda.Kernel(
-    "gated_i8", "matmul_i8.cu", "gemma_gated_i8",
-    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 3 + [_cuda.F]
-    + [_cuda.P] * 2 + [_cuda.I] * 3)
 PRENORM = _cuda.Kernel(
     "matmul_i8_prenorm", "matmul_i8.cu", "gemma_prenorm_bf16",
     [_cuda.P] * 3 + [_cuda.I] * 2)
 POSTNORM_ADD = _cuda.Kernel(
     "matmul_i8_postnorm_add", "matmul_i8.cu", "gemma_postnorm_add",
     [_cuda.P] * 4 + [_cuda.I] * 3)
+# One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass]
+# and reports which of them it launched; each is counted on its own Kernel.
+MATMUL_I8 = _cuda.Kernel(
+    "matmul_i8", "matmul_i8.cu", "gemma_matmul_i8",
+    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 5 + [_cuda.I] * 4,
+    passes=(PRENORM, POSTNORM_ADD))
+GATED_I8 = _cuda.Kernel(
+    "gated_i8", "matmul_i8.cu", "gemma_gated_i8",
+    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 3 + [_cuda.F]
+    + [_cuda.P] * 2 + [_cuda.I] * 3,
+    passes=(PRENORM,))
 
 
 @dataclasses.dataclass
@@ -267,8 +269,6 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
         float(w.scale), _cuda.ptr(epilogue_norm), _cuda.ptr(add),
         _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(), m, w.n, w.k,
         int(out_dtype == torch.bfloat16))
-    PRENORM.launches += norm is not None
-    POSTNORM_ADD.launches += post
     return out
 
 
@@ -293,5 +293,4 @@ def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
         w2.arrays["codes"].data_ptr(), w2.arrays["inv_scales"].data_ptr(),
         w2.arrays["zeropoints"].data_ptr(), float(w2.scale),
         _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n, w1.k)
-    PRENORM.launches += norm is not None
     return out

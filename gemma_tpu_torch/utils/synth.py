@@ -21,6 +21,7 @@ import torch
 from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.ops.matmul import QuantTensor
+from gemma_tpu_torch.utils.basics import resolve_device
 
 
 def synth_quant(gen: torch.Generator, n: int, k: int, device,
@@ -42,8 +43,10 @@ def synth_quant(gen: torch.Generator, n: int, k: int, device,
 
 
 def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
-                 device="cuda") -> Params:
-    """Full Params with synthetic weights, qkv row-concatenated."""
+                 device=None) -> Params:
+    """Full Params with synthetic weights, qkv row-concatenated, on
+    `device` (CUDA unless the caller names one)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d = config.model_dim

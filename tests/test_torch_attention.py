@@ -58,7 +58,7 @@ def test_decode_packed_matches_jax_kernel(n_pos, window, post_qk, with_norms,
     codes.  An invalid slot's output is unspecified and not compared."""
     rng = np.random.default_rng(100 + n_pos + window + 7 * post_qk)
     jcache = _prefilled(rng, n_pos)
-    tcache = kv_cache_from_numpy(flatten_cache(jcache))
+    tcache = kv_cache_from_numpy(flatten_cache(jcache), "cpu")
     qkv = rng.normal(0, 1, (B, (H + 2 * KVH) * D)).astype(np.float32)
     positions = np.full((B, 1), n_pos, np.int32)
     valid = np.array([[True], [False]]) if with_valid else None
@@ -113,7 +113,7 @@ def test_flash_prefill_matches_jax_kernel(window, prefix, start):
     rng = np.random.default_rng(window + prefix + start)
     t = 16
     jcache = _prefilled(rng, start + t)
-    tcache = kv_cache_from_numpy(flatten_cache(jcache))
+    tcache = kv_cache_from_numpy(flatten_cache(jcache), "cpu")
     q = rng.normal(0, 1, (B, t, H, D)).astype(np.float32)
     positions = np.tile(np.arange(start, start + t, dtype=np.int32), (B, 1))
     pe_j = jnp.full((B,), prefix, jnp.int32) if prefix else 0

@@ -35,7 +35,7 @@ def engines():
     jc, tc = small_configs(num_layers=2, seq=SEQ, windows=(16, SEQ))
     rng = np.random.default_rng(7)
     jparams = jax_i8_params(jc, rng)
-    tparams = params_from_numpy(flatten_params(jparams), tc)
+    tparams = params_from_numpy(flatten_params(jparams), tc, "cpu")
     jeng = JEngine(jparams, jc, JRuntime(
         prefill_tbatch_size=16, seq_len=SEQ, decode_chunk=1, kv_kind="i8",
         top_k=1, verbosity=0))
@@ -52,7 +52,7 @@ def _teacher_logits(jc, tc, jparams, tparams, seq):
     want, _ = j_forward(jparams, jnp.asarray(seq, jnp.int32)[None],
                         jnp.arange(len(seq), dtype=jnp.int32)[None], jcache,
                         jc, return_logits="all")
-    tcache = TKVCache.create(tc, 1, SEQ, kind="i8")
+    tcache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
     got, _ = t_forward(tparams, torch.tensor(seq)[None],
                        torch.arange(len(seq))[None], tcache, tc,
                        return_logits="all")
@@ -103,6 +103,33 @@ def test_engine_defaults_to_cuda(engines):
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             GemmaEngine(tparams, tc)
+
+
+@pytest.mark.parametrize("entry", ["kv_cache", "synth", "params", "cache_tree"])
+def test_entry_points_default_to_cuda(engines, entry):
+    """Every entry point that makes tensors puts them on CUDA unless the
+    caller names a device, and raises when CUDA is absent."""
+    from gemma_tpu_torch.models.bridge import kv_cache_from_numpy
+    from gemma_tpu_torch.utils.synth import synth_params
+
+    jc, tc, jparams, *_ = engines
+    make = {
+        "kv_cache": lambda dev: TKVCache.create(tc, 1, SEQ, kind="i8",
+                                                device=dev).kv,
+        "synth": lambda dev: synth_params(tc, seed=0,
+                                          device=dev).embedding.arrays["codes"],
+        "params": lambda dev: params_from_numpy(
+            flatten_params(jparams), tc, dev).final_norm,
+        "cache_tree": lambda dev: kv_cache_from_numpy(
+            {"kv": np.zeros((1, 2, 2, 1, 32, 8), np.int8), "seq_len": 16},
+            dev).kv,
+    }[entry]
+    assert make("cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make(None).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(None)
 
 
 @pytest.mark.parametrize("kw,match", [

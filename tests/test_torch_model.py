@@ -35,7 +35,7 @@ def model():
     jc, tc = small_configs(num_layers=LAYERS, seq=SEQ, windows=(16, SEQ))
     rng = np.random.default_rng(42)
     jparams = jax_i8_params(jc, rng)
-    tparams = params_from_numpy(flatten_params(jparams), tc)
+    tparams = params_from_numpy(flatten_params(jparams), tc, "cpu")
     tokens = rng.integers(2, jc.vocab_size, T).astype(np.int32)
     return jc, tc, jparams, tparams, tokens
 
@@ -43,7 +43,7 @@ def model():
 def _caches(jc, tc, slack):
     kw = {} if slack is None else {"local_slack": slack}
     jcache = JKVCache.create(jc, 1, SEQ, kind="i8", **kw)
-    tcache = TKVCache.create(tc, 1, SEQ, kind="i8", **kw)
+    tcache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu", **kw)
     assert (jcache.kv_local is None) == (tcache.kv_local is None)
     return jcache, tcache
 
@@ -120,16 +120,16 @@ def test_decode_matches_prefill(model, slack):
     last logits == the prefill path's last row, within the i8-KV bound."""
     _, tc, _, tparams, tokens = model
     kw = {} if slack is None else {"local_slack": slack}
-    cache = TKVCache.create(tc, 1, SEQ, kind="i8", **kw)
+    cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu", **kw)
     full = _run_torch(tparams, tc, cache, tokens, PREFILL)[-1]
-    cache = TKVCache.create(tc, 1, SEQ, kind="i8", **kw)
+    cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu", **kw)
     got = _run_torch(tparams, tc, cache, tokens, ALL, "last")[-1]
     assert _max_rel(got[0].numpy(), full[0, -1].numpy()) <= TOL
 
 
 def test_fused_heads_raise(model):
     _, tc, _, tparams, tokens = model
-    cache = TKVCache.create(tc, 1, SEQ, kind="i8")
+    cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
     with pytest.raises(NotImplementedError, match="_top1_kernel"):
         t_forward(tparams, torch.from_numpy(tokens[:1])[None],
                   torch.zeros(1, 1, dtype=torch.int64), cache, tc,

@@ -7,23 +7,38 @@ Phases (any failure exits non-zero before the result line):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, and the
      build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed;
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
-     the serving path (Gemma2-2B, batch 4), each error printed beside its
+     the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
      plain version and its bound (bytes over 3.35 TB/s or operations over
-     989 TFLOP/s bf16, the H100 SXM data-sheet peaks);
-  3. a 2-layer model at Gemma2-2B width (synthetic i8 weights, i8 KV):
-     prefill + one decode step on the card through the kernels vs the
-     plain path on the CPU, last logits within the stated tolerance;
-  4. the main path: Gemma2-2B at full depth, synthetic i8 weights made on
-     the card, RuntimeConfig(seq_len=8192, kv_kind="i8", decode_chunk=1,
-     top_k=1); `GemmaEngine.generate_batch` answers 4 ragged requests
-     (17, 130, 300, 700 prompt tokens, 32 new tokens each).  Every kernel
-     launch count is zeroed before and read after, checked against the
-     per-layer schedule, and the plain versions are made to raise during
-     the run; a few decode steps under torch.profiler must show the same
-     launches per kernel as the counts; decode's first-step logits are
-     checked against a prefill-only forward;
-  5. one `kernels` JSON line, then nvidia-smi's line, then the result line.
+     989 TFLOP/s bf16, the H100 SXM data-sheet peaks): the i8 GEMMs and
+     their norm passes, the gated GEMM, the fused greedy head (with and
+     without its prob and an allowed mask, and a mask that bans every
+     column), decode attention and prefill attention over i8, bf16 and f32
+     KV pools;
+  3. a 2-layer model at Gemma2-2B width (synthetic i8 weights): prefill +
+     one decode step over an i8 cache, last logits on the card vs the
+     plain path on the CPU; then `generate_batch` with a bf16 cache and
+     decode_chunk=4 on both, tokens and probs compared;
+  4. the serving paths at full depth (Gemma2-2B, 26 layers, synthetic i8
+     weights made on the card), 4 ragged requests (17, 130, 300, 700
+     prompt tokens).  For each path every kernel launch count is zeroed
+     before the counted run and read after, checked against the path's
+     per-layer schedule, and every plain version is made to raise:
+       A. `GemmaEngine.generate_batch` with the default RuntimeConfig (bf16
+          KV, decode_chunk=4, stream_probs): 32 new tokens, 3 runs
+          (medians reported); two chunks under torch.profiler must show
+          the launches the counters show, and one chunk runs with
+          CUDA's sync debug mode set to error (no host sync inside a
+          chunk); each first token is checked against a prefill-only
+          forward;
+       B. `generate_fast` with an i8 KV cache, 32 steps, whose tokens must
+          equal generate_batch's with kv_kind="i8", decode_chunk=4;
+       C. slice 1's path: kv_kind="i8", decode_chunk=1 (the head as the
+          i8 GEMM, picked on the host), decode logits checked against a
+          prefill-only forward;
+       D. kv_kind="f32", decode_chunk=4, 8 new tokens;
+  5. one `kernels` JSON line (launches summed over the counted runs of
+     4A-D), then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -113,9 +128,20 @@ REPLACES = {
     "matmul_i8_postnorm_add":
         "gemma_tpu/ops/matmul.py:612-626 (_mm_kernel post-norm + add epilogue)",
     "gated_i8": "gemma_tpu/ops/matmul.py:629 (_gated_kernel)",
+    "top1_i8": "gemma_tpu/ops/matmul.py:1228 (_top1_kernel)",
     "decode_attention_i8":
         "gemma_tpu/ops/decode_attention.py:545 (_decode_fused_packed_kernel)",
+    "decode_attention_bf16":
+        "gemma_tpu/ops/decode_attention.py:545 (_decode_fused_packed_kernel, "
+        "bf16 pool)",
+    "decode_attention_f32":
+        "gemma_tpu/ops/decode_attention.py:545 (_decode_fused_packed_kernel, "
+        "f32 pool)",
     "flash_attention_i8": "gemma_tpu/ops/flash_attention.py:39 (_flash_kernel)",
+    "flash_attention_bf16":
+        "gemma_tpu/ops/flash_attention.py:39 (_flash_kernel, bf16 pool)",
+    "flash_attention_f32":
+        "gemma_tpu/ops/flash_attention.py:39 (_flash_kernel, f32 pool)",
 }
 LIBRARY_NOTE = {
     "matmul_i8": "no single PyTorch call applies the per-128-group i8 affine "
@@ -126,10 +152,21 @@ LIBRARY_NOTE = {
                               "form and no residual add in one call",
     "gated_i8": "no single PyTorch call computes gelu(A.W1^T)*(A.W2^T) over "
                 "i8 group-quantized weights",
+    "top1_i8": "no single PyTorch call computes the argmax and softmax prob "
+               "of soft-capped logits of i8 group-quantized weights without "
+               "the logits",
     "decode_attention_i8": "scaled_dot_product_attention has no i8 per-row "
                            "scales, ring mask, soft cap or in-place row write",
+    "decode_attention_bf16": "scaled_dot_product_attention has no ring mask, "
+                             "soft cap, RoPE or in-place row write",
+    "decode_attention_f32": "scaled_dot_product_attention has no ring mask, "
+                            "soft cap, RoPE or in-place row write",
     "flash_attention_i8": "scaled_dot_product_attention has no i8 per-row "
                           "scales or soft cap",
+    "flash_attention_bf16": "scaled_dot_product_attention has no soft cap "
+                            "(and no ring-window mask short of a dense one)",
+    "flash_attention_f32": "scaled_dot_product_attention has no soft cap "
+                           "(and no ring-window mask short of a dense one)",
 }
 
 
@@ -311,71 +348,192 @@ def phase_kernels(torch):
            m_pre * d * 2 + 2 * g1.nbytes() + m_pre * ff * 2,
            4 * m_pre * ff * d, iters=5)
 
-    # --- K4: B=4 over both pools of a seq_len=8192 i8 cache ---
+    phase_top1(torch, res, x, w_head, fnorm, cfg)
+
+    # --- K4: B=4 over both pools of a seq_len=8192 cache of each kind ---
     heads, kvh, hd = 8, 4, 256
-    cache = KVCache.create(cfg, b, 8192, kind="i8", local_slack=512,
-                           device=dev)
-    for pool, sc in ((cache.kv, cache.kv_scale),
-                     (cache.kv_local, cache.kv_local_scale)):
-        pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
-                                 device=dev, dtype=torch.int8))
-        sc.copy_(randn(*sc.shape, s=0.02).abs_())
     its = torch.from_numpy(create_inv_timescale(hd)).to(dev)
     rope = da.RopeSpec(its, 0, cfg.query_scale_value())
     pos = torch.tensor([[300], [450], [600], [700]], device=dev)
     valid = torch.tensor([[True], [True], [False], [True]], device=dev)
     qkv = randn(b, (heads + 2 * kvh) * hd, s=2.0)
+    caches = {}
+    for kind in ("i8", "bf16", "f32"):
+        cache = KVCache.create(cfg, b, 8192, kind=kind, local_slack=512,
+                               device=dev)
+        for pool, sc in ((cache.kv, cache.kv_scale),
+                         (cache.kv_local, cache.kv_local_scale)):
+            if kind == "i8":
+                pool.copy_(torch.randint(-127, 128, pool.shape,
+                                         generator=gen, device=dev,
+                                         dtype=torch.int8))
+                sc.copy_(randn(*sc.shape, s=0.02).abs_())
+            else:
+                pool.copy_(randn(*pool.shape, s=0.5))
+        caches[kind] = cache
     # Tolerance: both compute an exact softmax; exp/sum rounding in another
     # order can move a bf16-rounded probability by one ulp (2^-8), and the
-    # output is bf16: 1e-2 of max|out|.
-    for layer, pool_name in ((1, "global ring 8192"), (0, "local ring 4608")):
-        window = cfg.attention_window_sizes[layer]
-        ck, cp = cache.copy(), cache.copy()
-        f = lambda: da.decode_attention_write_packed(  # noqa: E731
-            ck, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
-        p = lambda: da.decode_attention_write_packed_plain(  # noqa: E731
-            cp, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
-        got, want = f(), p()
-        pk, _, ring = ck.pool(layer)
-        pp = cp.pool(layer)[0]
-        code_diff = (pk.int() - pp.int()).abs()
-        n_off = int((code_diff > 0).sum())
-        if int(code_diff.max()) > 1:
-            fail(f"decode_attention_i8 [{pool_name}]: pool codes differ by "
-                 f"{int(code_diff.max())}")
-        sc_err = float((ck.pool_scale(layer) - cp.pool_scale(layer)).abs().max())
-        print(f"[2] decode_attention_i8 {pool_name}: {n_off} pool codes one "
-              f"off, scale max err {sc_err:.3g}", flush=True)
-        live = sum(min(int(q) + 1, window, ring) for q in pos[:, 0])
-        nbytes = (live * kvh * (2 * hd + 8) + qkv.numel() * 4
-                  + b * heads * hd * 2 + b * kvh * 2 * (hd + 4))
-        record(res, torch, "decode_attention_i8",
-               f"B=4 {pool_name} live {live} rows (1 invalid slot)", got,
-               want, rel_tol(want, 1e-2), f, p, nbytes,
-               4 * live * (heads // kvh) * kvh * hd, primary=layer == 1)
+    # output is bf16: 1e-2 of max|out|.  Written rows: the kernel and the
+    # plain version round RoPE alike (-fmad=false); i8 codes may move by
+    # one, bf16 rows by one bf16 ulp (2^-7 relative), f32 rows by 1e-5.
+    for kind, cache in caches.items():
+        name = f"decode_attention_{kind}"
+        item = cache.kv.element_size()
+        for layer, pool_name in ((1, "global ring 8192"),
+                                 (0, "local ring 4608")):
+            window = cfg.attention_window_sizes[layer]
+            ck, cp = cache.copy(), cache.copy()
+            f = lambda: da.decode_attention_write_packed(  # noqa: E731
+                ck, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
+            p = lambda: da.decode_attention_write_packed_plain(  # noqa: E731
+                cp, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
+            got, want = f(), p()
+            pk, idx, ring = ck.pool(layer)
+            pp = cp.pool(layer)[0]
+            if kind == "i8":
+                code_diff = (pk[:, idx].int() - pp[:, idx].int()).abs()
+                row_err = float(code_diff.max())
+                row_tol = 1.0
+                sc_err = float((ck.pool_scale(layer)
+                                - cp.pool_scale(layer)).abs().max())
+                print(f"[2] {name} {pool_name}: "
+                      f"{int((code_diff > 0).sum())} pool codes one off, "
+                      f"scale max err {sc_err:.3g}", flush=True)
+            else:
+                a, w = pk[:, idx].float(), pp[:, idx].float()
+                rel = 2 ** -7 if kind == "bf16" else 1e-5
+                row_err = float(((a - w).abs() - rel * w.abs()).max())
+                row_tol = 1e-6
+                print(f"[2] {name} {pool_name}: written rows max excess "
+                      f"over {rel:.3g} relative {row_err:.3g}", flush=True)
+            if row_err > row_tol:
+                fail(f"{name} [{pool_name}]: written rows differ from the "
+                     f"plain version's ({row_err} > {row_tol})")
+            live = sum(min(int(q) + 1, window, ring) for q in pos[:, 0])
+            row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
+            nbytes = (live * kvh * row_bytes + qkv.numel() * 4
+                      + b * heads * hd * 2 + b * kvh * row_bytes)
+            record(res, torch, name,
+                   f"B=4 {pool_name} live {live} rows (1 invalid slot)", got,
+                   want, rel_tol(want, 1e-2), f, p, nbytes,
+                   4 * live * (heads // kvh) * kvh * hd, primary=layer == 1)
 
     # --- K5: the two 512-token prefill rounds (positions 0..511, then
-    # 512..1023) on both pools ---
+    # 512..1023) on both pools of each kind.  Tolerance: the exact softmax
+    # of both, probabilities rounded to bf16 alike (i8, bf16 pools: 1e-2 of
+    # max|out| covers a flipped bf16 probability) or not at all (f32:
+    # summation order only, 1e-4). ---
     t = 512
     q = randn(b, t, heads, hd, s=0.1)
-    for start in (0, 512):
-        positions = (torch.arange(t, device=dev) + start)[None].repeat(b, 1)
-        for layer, pool_name in ((1, "global"), (0, "local")):
-            window = cfg.attention_window_sizes[layer]
-            f = lambda: fa.flash_prefill_attention(  # noqa: E731
-                cache, layer, q, positions, window, cfg.att_cap)
-            p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
-                cache, layer, q, positions, window, cfg.att_cap)
-            want = p()
-            ring = cache.pool(layer)[2]
-            pairs = int(attention_mask(positions, ring, window).sum()) * heads
-            nbytes = (2 * q.numel() * 4
-                      + b * kvh * min(start + t, ring) * (2 * hd + 8))
-            record(res, torch, "flash_attention_i8",
-                   f"B=4 T=512 at pos {start} {pool_name} pool", f(), want,
-                   rel_tol(want, 1e-2), f, p, nbytes, 4 * pairs * hd,
-                   iters=5, primary=(start, layer) == (512, 1))
+    for kind, cache in caches.items():
+        name = f"flash_attention_{kind}"
+        item = cache.kv.element_size()
+        for start in (0, 512):
+            positions = (torch.arange(t, device=dev) + start)[None].repeat(b, 1)
+            for layer, pool_name in ((1, "global"), (0, "local")):
+                window = cfg.attention_window_sizes[layer]
+                f = lambda: fa.flash_prefill_attention(  # noqa: E731
+                    cache, layer, q, positions, window, cfg.att_cap)
+                p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
+                    cache, layer, q, positions, window, cfg.att_cap)
+                want = p()
+                ring = cache.pool(layer)[2]
+                pairs = int(attention_mask(positions, ring, window).sum()) \
+                    * heads
+                row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
+                nbytes = (2 * q.numel() * 4
+                          + b * kvh * min(start + t, ring) * row_bytes)
+                record(res, torch, name,
+                       f"B=4 T=512 at pos {start} {pool_name} pool", f(),
+                       want, rel_tol(want, 1e-4 if kind == "f32" else 1e-2),
+                       f, p, nbytes, 4 * pairs * hd, iters=5,
+                       primary=(start, layer) == (512, 1))
     return res
+
+
+def phase_top1(torch, res, x, w_head, fnorm, cfg):
+    """K3 at the decode head's shape: M=4, N=256000, K=2304, i8, with the
+    final-norm prologue; need_prob on and off, an allowed mask of about
+    1/8 of the vocab, and a mask that bans every column.
+
+    Tolerance: tokens equal wherever the plain version's top1-top2 margin
+    exceeds 1e-4 of max|logit| (the kernel's logits move by ~1e-6 of it,
+    as K1's do; closer pairs are capped ties, which either may break);
+    probs within 1e-4 relative (the same exp sum in another order)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    n = cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.125
+    banned = torch.zeros(n, dtype=torch.bool, device="cuda")
+    cases = [("prob", True, None), ("no prob", False, None),
+             ("prob, mask 1/8", True, mask),
+             ("no prob, mask 1/8", False, mask),
+             ("prob, all banned", True, banned)]
+    for label, need_prob, allowed in cases:
+        kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm,
+                  allowed_mask=allowed, need_prob=need_prob)
+        f = lambda: mm.matmul_top1(x, w_head, **kw)  # noqa: E731
+        p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
+        (tok, prob), (want_tok, want_prob) = f(), p()
+        logits = mm.matmul_plain(x, w_head, prologue_norm=fnorm)
+        if need_prob:
+            logits = cfg.final_cap * torch.tanh(logits / cfg.final_cap)
+        if allowed is not None:
+            logits = logits.masked_fill(~allowed, float("-inf"))
+        top2 = logits.topk(2, dim=-1).values
+        scale = float(logits[torch.isfinite(logits)].abs().max()) \
+            if bool(torch.isfinite(logits).any()) else 1.0
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * scale
+        if allowed is banned:
+            clear = torch.ones_like(clear)
+            if not (bool((tok == 0).all()) and bool((want_tok == 0).all())):
+                fail(f"top1_i8 [{label}]: a row with no allowed column "
+                     f"gave tokens {tok.tolist()} / {want_tok.tolist()}")
+        bad = int(((tok != want_tok) & clear).sum())
+        print(f"[2] top1_i8 {label}: tokens {tok.tolist()} (plain "
+              f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
+              f"margin, {bad} differ", flush=True)
+        if bad or not bool(clear.any()):
+            fail(f"top1_i8 [{label}]: tokens differ from the plain version")
+        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + w_head.nbytes()
+                  + (n if allowed is not None else 0) + 2 * x.shape[0] * 4)
+        record(res, torch, "top1_i8",
+               f"M=4 K=2304 N=256000 (+prenorm pass), {label}", prob,
+               want_prob, 1e-4 * float(want_prob.abs().max()), f, p, nbytes,
+               2 * x.shape[0] * n * x.shape[1], iters=5,
+               primary=label == "prob")
+    # The block count is a tuning constant: more blocks lengthen the last
+    # block's serial merge of their states, fewer leave SMs idle.
+    # A batch above 16 rows takes a second row of blocks (grid.y = 2).
+    x20 = torch.randn(20, x.shape[1], generator=gen, device="cuda") * 30
+    tok, prob = mm.matmul_top1(x20, w_head, final_cap=cfg.final_cap,
+                               prologue_norm=fnorm)
+    want_tok, want_prob = mm.matmul_top1_plain(
+        x20, w_head, final_cap=cfg.final_cap, prologue_norm=fnorm)
+    logits = mm.matmul_plain(x20, w_head, prologue_norm=fnorm)
+    top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)).topk(2).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
+    bad = int(((tok != want_tok) & clear).sum())
+    err = float(((prob - want_prob).abs() / want_prob).max())
+    print(f"[2] top1_i8 M=20: {bad} of {int(clear.sum())} tokens with a "
+          f"clear margin differ, prob max relative err {err:.3g} (tol 1e-4)",
+          flush=True)
+    if bad or not bool(clear.any()) or err > 1e-4:
+        fail("top1_i8 [M=20] disagrees with its plain version")
+
+    def head():
+        return mm.matmul_top1(x, w_head, final_cap=cfg.final_cap,
+                              prologue_norm=fnorm)
+
+    chosen = mm.TOP1_BLOCKS
+    sweep = []
+    for blocks in (264, 528, 1056, 2112, 4224):
+        mm.TOP1_BLOCKS = blocks
+        sweep.append(f"{blocks}: {time_ms(torch, head, 5):.4f}")
+    mm.TOP1_BLOCKS = chosen
+    print(f"[2] top1_i8 prob, ms by TOP1_BLOCKS (the port uses {chosen}): "
+          f"{', '.join(sweep)}", flush=True)
 
 
 def phase_two_layers(torch):
@@ -418,50 +576,98 @@ def phase_two_layers(torch):
           f"max|logit| {scale:.4g})", flush=True)
     if err > tol:
         fail("2-layer model disagrees between the card and the CPU")
+    two_layer_chunks(torch, cfg, params, params_cpu, tokens[0].tolist())
+
+
+def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
+                     new_tokens: int = 8):
+    """generate_batch with the default RuntimeConfig (bf16 KV,
+    decode_chunk=4) on the card and on the CPU.  Logit tolerance: 5e-3 of
+    max|logit|, the CPU suite's bound between the port's paths (the i8
+    check above measures the card-vs-CPU gap).  Tokens must agree up to
+    the first step whose CPU teacher-forced top1-top2 margin is within
+    twice it; probs within twice it in log space (log p = -log sum
+    exp(x - max) moves by at most twice the logit error)."""
+    import math
+
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig
+    from gemma_tpu_torch.models.gemma import forward
+
+    out = {}
+    for dev, prm in (("cuda", params), ("cpu", params_cpu)):
+        engine = GemmaEngine(prm, cfg, RuntimeConfig(seq_len=8192),
+                             device=dev)
+        probs = []
+        toks = engine.generate_batch(
+            [prompt], max_generated_tokens=new_tokens,
+            stream_token=lambda q, p, t, pr: probs.append(pr) or True)[0]
+        out[dev] = (toks, probs[len(prompt):])
+    (tc, pc), (tk, pk) = out["cpu"], out["cuda"]
+    seq = prompt + tc
+    engine = GemmaEngine(params_cpu, cfg, RuntimeConfig(seq_len=8192),
+                         device="cpu")
+    logits, _ = forward(params_cpu, torch.tensor([seq]),
+                        torch.arange(len(seq))[None], engine.new_cache(1),
+                        cfg, return_logits="all")
+    logit_tol = 5e-3 * float(logits.abs().max())
+    top2 = logits[0, len(prompt) - 1:-1].topk(2, dim=-1).values
+    clear = int(((top2[:, 0] - top2[:, 1]) > 2 * logit_tol).long().cumprod(0)
+                .sum())
+    err = max(abs(math.log(a) - math.log(b)) for a, b in
+              zip(pk[:clear], pc[:clear])) if clear else 0.0
+    print(f"[3] 2-layer generate_batch, bf16 KV, decode_chunk=4: card "
+          f"{tk}, CPU {tc}; {clear} steps with a clear margin, log-prob "
+          f"max err {err:.4g} (tol {2 * logit_tol:.4g})", flush=True)
+    if tk[:clear] != tc[:clear] or err > 2 * logit_tol or not clear:
+        fail("2-layer decode chunks disagree between the card and the CPU")
 
 
 # The device functions of each counted kernel, as the profiler names them
-# (mm_i8_kernel's last template argument is GATED).
+# (mm_i8_kernel's last template argument is GATED; the attention kernels
+# carry their pool type in their names).
 def _port_kernel(device_name: str) -> str | None:
     if device_name.startswith("void mm_i8_kernel<"):
         return "gated_i8" if "true>" in device_name else "matmul_i8"
     for fn, name in (("prenorm_kernel(", "matmul_i8_prenorm"),
                      ("postnorm_add_kernel(", "matmul_i8_postnorm_add"),
-                     ("decode_attention_i8_kernel<", "decode_attention_i8"),
-                     ("flash_attention_i8_kernel<", "flash_attention_i8")):
+                     ("top1_i8_kernel(", "top1_i8")):
         if fn in device_name:
             return name
+    for kind in ("i8", "bf16", "f32"):
+        for op in ("decode_attention", "flash_attention"):
+            if f"{op}_{kind}_kernel<" in device_name:
+                return f"{op}_{kind}"
     return None
 
 
-def profile_decode(torch, engine, prompts, cfg, steps: int = 4):
-    """Device time by kernel over a few decode steps (torch.profiler), beside
-    the host wall time of the same steps: the device's idle share.  The
-    profiler's own count of each kernel's device launches must equal what
-    the launch counters gained over the same steps."""
+def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4):
+    """Device time by kernel over `chunks` decode chunks of k steps
+    (torch.profiler), beside the host wall time of the same chunks: the
+    device's idle share.  The profiler's own count of each kernel's
+    device launches must equal what the launch counters gained over the
+    same chunks.  One more chunk then runs with CUDA's sync debug mode
+    set to error: a host sync inside a chunk fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gemma_tpu_torch.models.gemma import forward
     from gemma_tpu_torch.ops import _cuda
-    from gemma_tpu_torch.ops.sampling import top1
 
     cache = engine.new_cache(len(prompts))
     cache, last = engine.prefill(prompts, cache)
-    prev = torch.tensor(last, device="cuda")[:, None]
-    pos = torch.tensor([len(p) - 1 for p in prompts], device="cuda")[:, None]
+    prev = torch.tensor(last, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([len(p) - 1 for p in prompts], dtype=torch.int32,
+                       device="cuda")
     torch.cuda.synchronize()
-    before = {k.name: k.launches for k in _cuda.all_kernels()}
+    before = {kn.name: kn.launches for kn in _cuda.all_kernels()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            logits, cache = forward(engine.params, prev, pos, cache, cfg,
-                                    return_logits="last")
-            prev = top1(logits)[0][:, None]
-            pos = pos + 1
+        for _ in range(chunks):
+            toks, _ = engine._decode_steps(prev, pos, cache, k)
+            prev, pos = toks[:, -1].contiguous(), pos + k
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
-    counted = {k.name: k.launches - before[k.name] for k in _cuda.all_kernels()}
+    counted = {kn.name: kn.launches - before[kn.name]
+               for kn in _cuda.all_kernels()}
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     seen = {name: 0 for name in counted}
@@ -469,17 +675,29 @@ def profile_decode(torch, engine, prompts, cfg, steps: int = 4):
         name = _port_kernel(e.key)
         if name is not None:
             seen[name] += e.count
-    print(f"[4] {steps} decode steps: launches by counter {json.dumps(counted)}"
-          f", by profiler {json.dumps(seen)}", flush=True)
+    steps = chunks * k
+    print(f"[4A] {chunks} chunks of {k}: launches by counter "
+          f"{json.dumps(counted)}, by profiler {json.dumps(seen)}",
+          flush=True)
     if seen != counted:
         fail("the launch counters disagree with the profiler's device trace")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"[4] decode profile, {steps} steps: host wall {wall / steps:.3f} "
-          f"ms/step, device busy {busy / steps:.3f} ms/step, idle share "
-          f"{1 - busy / wall:.3f}", flush=True)
+    print(f"[4A] decode profile, {steps} steps in chunks of {k}: host wall "
+          f"{wall / steps:.3f} ms/step, device busy {busy / steps:.3f} "
+          f"ms/step, idle share {1 - busy / wall:.3f}", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[4]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
-              f"{e.count // steps:4d}/step  {e.key[:90]}", flush=True)
+        print(f"[4A]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count / steps:6.2f}/step  {e.key[:90]}", flush=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._decode_steps(prev, pos, cache, k)
+    except RuntimeError as e:
+        fail(f"a decode chunk synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[4A] one chunk of {k} under sync debug mode 'error': no host "
+          "sync", flush=True)
 
 
 def _to_device(params, dev):
@@ -502,35 +720,17 @@ def _to_device(params, dev):
                         final_norm=mv(params.final_norm), layers=layers)
 
 
-def phase_main_path(torch, new_tokens: int = 32) -> dict:
-    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig, TimingInfo
-    from gemma_tpu_torch.models.configs import config_gemma2_2b
-    from gemma_tpu_torch.models.gemma import forward
+def counted_run(torch, fn):
+    """fn() with every launch count zeroed just before and read just after,
+    and every plain version made to raise meanwhile: (fn(), counts)."""
     from gemma_tpu_torch.ops import _cuda
     from gemma_tpu_torch.ops import decode_attention as da
     from gemma_tpu_torch.ops import flash_attention as fa
     from gemma_tpu_torch.ops import matmul as mm
-    from gemma_tpu_torch.utils.synth import synth_params
-
-    cfg = config_gemma2_2b()
-    n_layers = cfg.num_layers
-    t0 = time.monotonic()
-    params = synth_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"[4] Gemma2-2B {n_layers} layers, synthetic i8 weights on the card "
-          f"({sum(lp.qkv_cat.nbytes() + lp.att_w.nbytes() + lp.gating1.nbytes() * 2 + lp.linear.nbytes() for lp in params.layers) / 1e9 + params.embedding.nbytes() / 1e9:.2f} GB) "
-          f"in {time.monotonic() - t0:.2f} s", flush=True)
-    rt = RuntimeConfig(seq_len=8192, kv_kind="i8", decode_chunk=1, top_k=1)
-    engine = GemmaEngine(params, cfg, rt)
-    gen = torch.Generator().manual_seed(3)
-    lens = (17, 130, 300, 700)
-    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
-               for n in lens]
-    # Warm-up request (first launches, allocator), then the counted run.
-    engine.generate_batch([p[:40] for p in prompts], max_generated_tokens=2)
 
     plain = {(mm, "matmul_plain"), (mm, "gated_ffn_plain"),
-             (mm, "postnorm_add_plain"),
+             (mm, "postnorm_add_plain"), (mm, "prenorm_plain"),
+             (mm, "matmul_top1_plain"),
              (da, "decode_attention_write_packed_plain"),
              (fa, "flash_prefill_attention_plain")}
     saved = {(mod, n): getattr(mod, n) for mod, n in plain}
@@ -542,59 +742,186 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     for mod, n in plain:
         setattr(mod, n, forbidden)
     try:
-        for k in kernels:
-            k.launches = 0
-        timing = TimingInfo()
-        outs = engine.generate_batch(prompts, max_generated_tokens=new_tokens,
-                                     timing_info=timing)
+        for kn in kernels:
+            kn.launches = 0
+        out = fn()
         torch.cuda.synchronize()
-        counts = {k.name: k.launches for k in kernels}
+        counts = {kn.name: kn.launches for kn in kernels}
     finally:
-        for (mod, n), fn in saved.items():
-            setattr(mod, n, fn)
+        for (mod, n), f in saved.items():
+            setattr(mod, n, f)
+    return out, counts
 
-    chunk = engine.prefill_chunk(len(prompts), max(lens))
-    rounds = -(-(max(lens) - 1) // chunk)
-    steps = timing.decode_steps
-    L = n_layers
-    want = {"matmul_i8": rounds * 3 * L + steps * (3 * L + 1),
-            "matmul_i8_prenorm": steps * (2 * L + 1),
-            "matmul_i8_postnorm_add": steps * 2 * L,
-            "gated_i8": (rounds + steps) * L,
-            "decode_attention_i8": steps * L,
-            "flash_attention_i8": rounds * L}
-    print(f"[4] prefill chunk {chunk} x {rounds} rounds, {steps} decode "
-          f"steps; launches {json.dumps(counts)}", flush=True)
+
+def check_counts(label, counts, want):
+    want = {name: want.get(name, 0) for name in counts}
+    print(f"[{label}] launches {json.dumps(counts)}", flush=True)
     if counts != want:
-        fail(f"launch counts {counts} != schedule {want}")
-    for qi, o in enumerate(outs):
-        if not o or any(not (0 <= tok < cfg.vocab_size) for tok in o):
-            fail(f"request {qi}: bad tokens {o}")
-    # The same request twice more: host-clock times vary from run to run
-    # on a shared host, so report medians over the three runs.
-    timings = [timing]
+        fail(f"path {label}: launch counts {counts} != schedule {want}")
+
+
+def timed_runs(torch, engine, prompts, new_tokens, label, first):
+    """Two more runs of the same requests; medians over the three."""
+    from gemma_tpu_torch.engine import TimingInfo
+
+    timings = [first]
     for _ in range(2):
         timings.append(TimingInfo())
         engine.generate_batch(prompts, max_generated_tokens=new_tokens,
                               timing_info=timings[-1])
     for i, tm in enumerate(timings):
-        print(f"[4] run {i}: prefill {tm.prefill_tokens} tokens in "
+        print(f"[{label}] run {i}: prefill {tm.prefill_tokens} tokens in "
               f"{tm.prefill_duration:.4f} s = "
               f"{tm.prefill_tokens_per_second:.1f} tok/s; decode "
               f"{tm.generated_tokens} tokens in {tm.generate_duration:.4f} s "
               f"= {tm.generate_tokens_per_second:.1f} tok/s", flush=True)
     step_ms = sorted(x * 1e3 for tm in timings for x in tm.decode_step_seconds)
-    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
-    print(f"[4] median of 3 runs (batch 4): prefill "
-          f"{med([t.prefill_tokens_per_second for t in timings]):.1f} tok/s, "
-          f"decode {med([t.generate_tokens_per_second for t in timings]):.1f}"
-          f" tok/s; decode step wall median {med(step_ms):.3f} ms, p90 "
+    print(f"[{label}] median of 3 runs (batch {len(prompts)}): prefill "
+          f"{_med([t.prefill_tokens_per_second for t in timings]):.1f} tok/s, "
+          f"decode {_med([t.generate_tokens_per_second for t in timings]):.1f}"
+          f" tok/s; decode step wall median {_med(step_ms):.3f} ms, p90 "
           f"{step_ms[int(0.9 * len(step_ms))]:.3f} ms over {len(step_ms)} "
-          "steps", flush=True)
-    print(f"[4] first tokens: {[o[:8] for o in outs]}", flush=True)
+          "chunk entries", flush=True)
 
-    profile_decode(torch, engine, prompts, cfg)
 
+def _med(v):
+    return sorted(v)[len(v) // 2]
+
+
+def check_first_tokens(torch, engine, prompts, outs, cfg, label):
+    """Each request's first decoded token equals the argmax of a
+    prefill-only forward's last logits wherever their top1-top2 margin
+    exceeds the i8-KV logit tolerance of test_parity_full.py (2e-2 of
+    max|logit|); the decode step's own logits differ from those by the
+    path's rounding, not by more."""
+    from gemma_tpu_torch.models.gemma import forward
+
+    checked = 0
+    for qi, p in enumerate(prompts):
+        ref, _ = forward(engine.params, torch.tensor([p], device="cuda"),
+                         torch.arange(len(p), device="cuda")[None],
+                         engine.new_cache(1), cfg, return_logits="last")
+        top2 = ref[0].topk(2)
+        margin = float(top2.values[0] - top2.values[1])
+        tol = 2e-2 * float(ref.abs().max())
+        print(f"[{label}] request {qi} ({len(p)} tokens): first token "
+              f"{outs[qi][0]}, prefill argmax {int(top2.indices[0])}, "
+              f"margin {margin:.4g} (tol {tol:.4g})", flush=True)
+        if margin > tol:
+            checked += 1
+            if outs[qi][0] != int(top2.indices[0]):
+                fail(f"path {label}: request {qi}'s first token disagrees "
+                     "with a prefill-only forward")
+    if not checked:
+        fail(f"path {label}: no request had a clear first-step margin")
+
+
+def phase_main_path(torch, new_tokens: int = 32) -> dict:
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig, TimingInfo
+    from gemma_tpu_torch.models.configs import config_gemma2_2b
+    from gemma_tpu_torch.models.gemma import forward
+    from gemma_tpu_torch.utils.synth import synth_params
+
+    cfg = config_gemma2_2b()
+    L = cfg.num_layers
+    t0 = time.monotonic()
+    params = synth_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[4] Gemma2-2B {L} layers, synthetic i8 weights on the card "
+          f"({sum(lp.qkv_cat.nbytes() + lp.att_w.nbytes() + lp.gating1.nbytes() * 2 + lp.linear.nbytes() for lp in params.layers) / 1e9 + params.embedding.nbytes() / 1e9:.2f} GB) "
+          f"in {time.monotonic() - t0:.2f} s", flush=True)
+    gen = torch.Generator().manual_seed(3)
+    lens = (17, 130, 300, 700)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    totals: dict = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] = totals.get(name, 0) + c
+
+    def schedule(engine, steps, kind, head_k3, kv="bf16"):
+        """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
+        and prefill attention per layer; a decode step 3 GEMMs (+ the i8
+        GEMM head on one-step chunks), the gated GEMM, 2 prologue and 2
+        epilogue passes per layer (+ the head's prologue), decode
+        attention per layer, and the fused head on multi-step chunks."""
+        chunk = engine.prefill_chunk(len(prompts), max(lens))
+        rounds = -(-(max(lens) - 1) // chunk)
+        return {"matmul_i8": rounds * 3 * L + steps * 3 * L
+                + (0 if head_k3 else steps),
+                "matmul_i8_prenorm": steps * (2 * L + 1),
+                "matmul_i8_postnorm_add": steps * 2 * L,
+                "gated_i8": (rounds + steps) * L,
+                "top1_i8": steps if head_k3 else 0,
+                f"decode_attention_{kv}": steps * L,
+                f"flash_attention_{kv}": rounds * L}, rounds, chunk
+
+    # --- A: the default RuntimeConfig ---
+    engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192))
+    rt = engine.runtime
+    print(f"[4A] RuntimeConfig: kv_kind {rt.kv_kind}, decode_chunk "
+          f"{rt.decode_chunk}, stream_probs {rt.stream_probs}", flush=True)
+    engine.generate_batch([p[:40] for p in prompts], max_generated_tokens=6)
+    timing = TimingInfo()
+    outs, counts = counted_run(torch, lambda: engine.generate_batch(
+        prompts, max_generated_tokens=new_tokens, timing_info=timing))
+    want, rounds, chunk = schedule(engine, timing.decode_steps, "A", True)
+    print(f"[4A] prefill chunk {chunk} x {rounds} rounds, "
+          f"{timing.decode_steps} decode steps", flush=True)
+    check_counts("4A", counts, want)
+    add(counts)
+    for qi, o in enumerate(outs):
+        if not o or any(not (0 <= tok < cfg.vocab_size) for tok in o):
+            fail(f"path A, request {qi}: bad tokens {o}")
+    print(f"[4A] first tokens: {[o[:8] for o in outs]}", flush=True)
+    timed_runs(torch, engine, prompts, new_tokens, "4A", timing)
+    profile_chunks(torch, engine, prompts)
+    check_first_tokens(torch, engine, prompts, outs, cfg, "4A")
+
+    # --- B: generate_fast over an i8 KV cache, against generate_batch ---
+    engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                    kv_kind="i8"))
+    engine.generate_fast([p[:40] for p in prompts], 4)
+    fast, counts = counted_run(
+        torch, lambda: engine.generate_fast(prompts, new_tokens))
+    want, _, _ = schedule(engine, new_tokens, "B", True, kv="i8")
+    check_counts("4B", counts, want)
+    add(counts)
+    ref = engine.generate_batch(prompts, max_generated_tokens=new_tokens)
+    for qi, o in enumerate(ref):
+        if fast[qi, :len(o)].tolist() != o:
+            fail(f"path B: generate_fast request {qi} {fast[qi].tolist()} "
+                 f"!= generate_batch {o}")
+    walls, pre = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        engine.prefill(prompts, engine.new_cache(len(prompts)))
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        engine.generate_fast(prompts, new_tokens)
+        torch.cuda.synchronize()
+        pre.append(t1 - t0)
+        walls.append(time.monotonic() - t1)
+    dec = [w - p for w, p in zip(walls, pre)]
+    print(f"[4B] generate_fast batch {len(prompts)} x {new_tokens} steps "
+          f"(i8 KV): tokens equal generate_batch's; wall median "
+          f"{_med(walls):.4f} s, of which prefill {_med(pre):.4f} s; decode "
+          f"{len(prompts) * new_tokens / _med(dec):.1f} tok/s "
+          f"({_med(dec) / new_tokens * 1e3:.3f} ms/step), medians of 3",
+          flush=True)
+
+    # --- C: slice 1's path, i8 KV and one step per dispatch ---
+    engine = GemmaEngine(params, cfg, RuntimeConfig(
+        seq_len=8192, kv_kind="i8", decode_chunk=1))
+    timing = TimingInfo()
+    outs, counts = counted_run(torch, lambda: engine.generate_batch(
+        prompts, max_generated_tokens=new_tokens, timing_info=timing))
+    want, _, _ = schedule(engine, timing.decode_steps, "C", False, kv="i8")
+    check_counts("4C", counts, want)
+    add(counts)
+    timed_runs(torch, engine, prompts, new_tokens, "4C", timing)
     # Decode's first-step logits vs a prefill-only forward over the same
     # tokens (i8-KV tolerance of test_parity_full.py: 2e-2 of max|logit|).
     for qi in (0, 2):
@@ -604,17 +931,31 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         dec, _ = forward(params, torch.tensor([[p[-1]]], device="cuda"),
                          torch.tensor([[len(p) - 1]], device="cuda"), cache,
                          cfg, return_logits="last")
-        cache = engine.new_cache(1)
         ref, _ = forward(params, torch.tensor([p], device="cuda"),
-                         torch.arange(len(p), device="cuda")[None], cache,
-                         cfg, return_logits="last")
+                         torch.arange(len(p), device="cuda")[None],
+                         engine.new_cache(1), cfg, return_logits="last")
         err = float((dec - ref).abs().max())
         tol = 2e-2 * float(ref.abs().max())
-        print(f"[4] request {qi} ({len(p)} tokens): decode-step vs prefill "
-              f"last logits max_abs_err {err:.4g} (tol {tol:.4g})", flush=True)
+        print(f"[4C] request {qi} ({len(p)} tokens): decode-step vs prefill "
+              f"last logits max_abs_err {err:.4g} (tol {tol:.4g})",
+              flush=True)
         if not torch.isfinite(dec).all() or err > tol:
             fail(f"request {qi}: decode logits disagree with prefill")
-    return counts
+
+    # --- D: an f32 KV cache ---
+    engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                    kv_kind="f32"))
+    timing = TimingInfo()
+    outs, counts = counted_run(torch, lambda: engine.generate_batch(
+        prompts, max_generated_tokens=8, timing_info=timing))
+    want, _, _ = schedule(engine, timing.decode_steps, "D", True, kv="f32")
+    check_counts("4D", counts, want)
+    add(counts)
+    check_first_tokens(torch, engine, prompts, outs, cfg, "4D")
+    missing = [name for name, c in totals.items() if c == 0]
+    if missing:
+        fail(f"kernels no counted path launched: {missing}")
+    return totals
 
 
 if __name__ == "__main__":

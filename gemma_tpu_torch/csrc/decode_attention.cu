@@ -1,20 +1,24 @@
-// Fused decode attention over an int8 KV ring for Hopper (sm_90a): K4.
+// Fused decode attention over a KV ring for Hopper (sm_90a): K4.
 //
 // Replaces gemma_tpu/ops/decode_attention.py:_decode_fused_packed_kernel
-// (i8 variant, called through _decode_fused_packed_q_pallas).  Per batch
-// row b and KV head h, from the qkv GEMM's f32 row (q heads kv-major,
-// then per-KV-head interleaved K, V):
+// over an i8 pool (called through _decode_fused_packed_q_pallas) and over
+// a bf16 or f32 pool (_decode_fused_packed_pallas).  Per batch row b and
+// KV head h, from the qkv GEMM's f32 row (q heads kv-major, then
+// per-KV-head interleaved K, V):
 //   1. optional (1 + w) RMSNorms of k and q, RoPE or half-RoPE (query
-//      scale folded in as _pe_apply does), int8 quantization of the new
-//      K and V rows (scale = amax/127, inv = 0 when the scale is 0, codes
-//      rounded half to even), written in place at ring row pos % ring
-//      (or the garbage row `ring` for an invalid slot) with
-//      their scale lanes;
+//      scale folded in as _pe_apply does), then the new K and V rows in
+//      the pool's type, written in place at ring row pos % ring (or the
+//      garbage row `ring` for an invalid slot): i8 codes (scale =
+//      amax/127, inv = 0 when the scale is 0, codes rounded half to even)
+//      with their scale lanes, or the rows rounded to bf16, or as they are;
 //   2. attention of the G query heads over the ring with the new row
-//      substituted: scores (bf16 q . codes) * scale_k, soft cap, window
+//      substituted: scores q . k (times scale_k for i8), soft cap, window
 //      mask, an exact softmax (pass 1 finds each row's max and
-//      denominator, pass 2 recomputes the scores), probabilities *
-//      scale_v rounded to bf16 before the V product, bf16 out [B, H*D].
+//      denominator, pass 2 recomputes the scores), probabilities (times
+//      scale_v for i8) rounded to the compute type before the V product,
+//      bf16 out [B, H*D].  The compute type is f32 for an f32 pool and
+//      bf16 otherwise (decode_attention.py:662-663): q, the new row and the
+//      probabilities round to it.
 // Rows the mask rules out (outside the window, or never written yet) are
 // skipped: the walk covers absolute positions
 // max(pos-window+1, pos-ring+1, 0)..pos.  No panel is staged whole, so
@@ -29,12 +33,13 @@
 // reads a row another block is writing.
 //
 // What bounds it on an H100: bytes.  Per call it must read the live K and
-// V codes and scales, (2*D + 8) bytes per live row per (b, h), plus the
-// qkv row and the output; at B=4, 4 KV heads, D=256 and 700 live rows
-// that is 5.8 MB -> 1.7 us at 3.35 TB/s.  This design reads K twice and
-// runs B*KVH*8 blocks; a single online-softmax pass and vectorized row
-// loads are left for later.  Built with -fmad=false so RoPE and the
-// norms round like the plain version's separate multiplies and adds.
+// V rows, 2*D*sizeof(T) bytes per live row per (b, h) (+ 8 for i8's
+// scales), plus the qkv row and the output; at B=4, 4 KV heads, D=256 and
+// 700 live rows that is 5.8 MB (i8), 11.5 MB (bf16) or 23 MB (f32) ->
+// 1.7, 3.4 or 6.9 us at 3.35 TB/s.  This design reads K twice and runs
+// B*KVH*8 blocks; a single online-softmax pass is left for later.  Built
+// with -fmad=false so RoPE and the norms round like the plain version's
+// separate multiplies and adds.
 
 #include <cooperative_groups.h>
 
@@ -47,8 +52,8 @@ struct DecArgs {
   const float* inv_ts;  // [D/2] (rope) or [D/4] (half rope)
   const float* knorm;   // [D] or null
   const float* qnorm;   // [D] or null
-  int8_t* pool;         // [B, NL, 2, KVH, S_alloc, D]
-  float* scales;        // [B, NL, 2, KVH, 1, S_alloc]
+  void* pool;           // [B, NL, 2, KVH, S_alloc, D] of the pool's type
+  float* scales;        // [B, NL, 2, KVH, 1, S_alloc] (i8 pools), else null
   const int* pos;       // [B] position of the new token
   const bool* valid;    // [B] or null; an invalid slot writes the garbage row
   __nv_bfloat16* out;   // [B, heads*D]
@@ -125,10 +130,21 @@ __host__ __device__ constexpr int dec_warps() { return G >= 4 ? 8 : 16; }
 // and combines through distributed shared memory.
 constexpr int CL = 8;
 
-template <int D, int G>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
-    decode_attention_i8_kernel(DecArgs p) {
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float x) { return (int8_t)x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+
+template <typename T, int D, int G>
+__device__ __forceinline__ void decode_attention_body(const DecArgs& p) {
   namespace cg = cooperative_groups;
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   cg::cluster_group cluster = cg::this_cluster();
   constexpr int NW = dec_warps<G>();
   constexpr int DPL = D / 32;  // elements per lane
@@ -165,29 +181,32 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32
   const size_t plane = (size_t)p.s_alloc * D;  // one (b, l, kv, h) panel
   const size_t kbase = ((((size_t)b * p.n_layers + p.layer) * 2 + 0) * p.kvh + h);
   const size_t vbase = ((((size_t)b * p.n_layers + p.layer) * 2 + 1) * p.kvh + h);
-  int8_t* kpan = p.pool + kbase * plane;
-  int8_t* vpan = p.pool + vbase * plane;
-  float* ksc = p.scales + kbase * p.s_alloc;
-  float* vsc = p.scales + vbase * p.s_alloc;
+  T* kpan = static_cast<T*>(p.pool) + kbase * plane;
+  T* vpan = static_cast<T*>(p.pool) + vbase * plane;
   const int row = (p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring;
-  const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
-  const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
-  const float new_sk = ka / 127.0f, new_sv = va / 127.0f;
-  if (tid < D) {
-    const float ck = rintf(sk[tid] * (new_sk > 0.f ? 1.0f / new_sk : 0.f));
-    const float cv = rintf(sv[tid] * (new_sv > 0.f ? 1.0f / new_sv : 0.f));
-    if (rank == 0) {
-      kpan[(size_t)row * D + tid] = (int8_t)ck;
-      vpan[(size_t)row * D + tid] = (int8_t)cv;
+  float new_sk = 1.f, new_sv = 1.f;  // the new row's scales (i8)
+  if constexpr (kQuant) {
+    const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
+    const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
+    new_sk = ka / 127.0f;
+    new_sv = va / 127.0f;
+    if (tid < D) {
+      sk[tid] = rintf(sk[tid] * (new_sk > 0.f ? 1.0f / new_sk : 0.f));
+      sv[tid] = rintf(sv[tid] * (new_sv > 0.f ? 1.0f / new_sv : 0.f));
     }
-    sk[tid] = ck;  // the new row's codes, as exact floats
-    sv[tid] = cv;
+    if (rank == 0 && tid == 0) {
+      p.scales[kbase * p.s_alloc + row] = new_sk;
+      p.scales[vbase * p.s_alloc + row] = new_sv;
+    }
+  } else if (tid < D) {
+    sk[tid] = cdt_round<T>(sk[tid]);  // the row in the pool's type
+    sv[tid] = cdt_round<T>(sv[tid]);
   }
-  if (rank == 0 && tid == 0) {
-    ksc[row] = new_sk;
-    vsc[row] = new_sv;
+  if (tid < D && rank == 0) {
+    kpan[(size_t)row * D + tid] = from_f32<T>(sk[tid]);
+    vpan[(size_t)row * D + tid] = from_f32<T>(sv[tid]);
   }
-  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = bf16_round(sq[i]);
+  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = cdt_round<T>(sq[i]);
   __syncthreads();
 
   float qr[G][DPL];
@@ -201,32 +220,29 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32
   const int first = p_lo + rank * NW + warp;  // this warp's rows: every
   constexpr int STEP = CL * NW;               // STEP-th live position
   const float cap = p.att_cap;
+  const float* ksc = kQuant ? p.scales + kbase * p.s_alloc : nullptr;
+  const float* vsc = kQuant ? p.scales + vbase * p.s_alloc : nullptr;
 
-  auto load_codes = [&](const int8_t* pan, const float* fresh, int s, float* c) {
+  auto load_row = [&](const T* pan, const float* fresh, int s, float* c) {
     if (s == row) {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) c[i] = fresh[lane * DPL + i];
       return;
     }
-    const int8_t* src = pan + (size_t)s * D + lane * DPL;
-    if constexpr (DPL == 8) {
-      const uint2 w = *reinterpret_cast<const uint2*>(src);
-      i8x4_to_f32(w.x, c);
-      i8x4_to_f32(w.y, c + 4);
-    } else {
-      i8x4_to_f32(*reinterpret_cast<const uint32_t*>(src), c);
-    }
+    const T* src = pan + (size_t)s * D + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
   };
   auto score = [&](int s, float* out_sc) {
     float c[DPL];
-    load_codes(kpan, sk, s, c);
-    const float sk_s = s == row ? new_sk : ksc[s];
+    load_row(kpan, sk, s, c);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float d = 0.f;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) d += qr[g][i] * c[i];
-      float v = warp_sum(d) * sk_s;
+      float v = warp_sum(d);
+      if constexpr (kQuant) v *= s == row ? new_sk : ksc[s];
       if (cap != 0.f) v = cap * tanhf(v / cap);
       out_sc[g] = v;
     }
@@ -273,7 +289,8 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32
     l[g] = ll;
   }
 
-  // Pass 2: normalized probabilities * scale_v, rounded to bf16, times V.
+  // Pass 2: normalized probabilities (* scale_v for i8), rounded to the
+  // compute type, times V.
   float acc[G][DPL];
 #pragma unroll
   for (int g = 0; g < G; ++g)
@@ -285,11 +302,13 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32
     float sc[G];
     score(s, sc);
     float c[DPL];
-    load_codes(vpan, sv, s, c);
-    const float sv_s = s == row ? new_sv : vsc[s];
+    load_row(vpan, sv, s, c);
+    const float sv_s = kQuant ? (s == row ? new_sv : vsc[s]) : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float pr = bf16_round(expf(sc[g] - m[g]) / l[g] * sv_s);
+      float pr = expf(sc[g] - m[g]) / l[g];
+      if constexpr (kQuant) pr *= sv_s;
+      pr = cdt_round<T>(pr);
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[g][i] += pr * c[i];
     }
@@ -320,9 +339,48 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32
   cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
 }
 
+// One kernel name per pool type, so a profiler trace tells them apart.
 template <int D, int G>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
+    decode_attention_i8_kernel(DecArgs p) {
+  decode_attention_body<int8_t, D, G>(p);
+}
+template <int D, int G>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
+    decode_attention_bf16_kernel(DecArgs p) {
+  decode_attention_body<__nv_bfloat16, D, G>(p);
+}
+template <int D, int G>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
+    decode_attention_f32_kernel(DecArgs p) {
+  decode_attention_body<float, D, G>(p);
+}
+
+template <typename T, int D, int G>
 static void launch_dec(const DecArgs& p, int batch, cudaStream_t st) {
-  decode_attention_i8_kernel<D, G><<<batch * p.kvh * CL, dec_warps<G>() * 32, 0, st>>>(p);
+  const dim3 grid(batch * p.kvh * CL), block(dec_warps<G>() * 32);
+  if constexpr (std::is_same<T, int8_t>::value)
+    decode_attention_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    decode_attention_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
+  else
+    decode_attention_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+}
+
+template <typename T>
+static int dispatch_dec(const DecArgs& p, int batch, int d, int* launched,
+                        cudaStream_t st) {
+  *launched = 0;
+  const int g = p.heads / p.kvh;
+  if (d == 256 && g == 2) launch_dec<T, 256, 2>(p, batch, st);
+  else if (d == 256 && g == 1) launch_dec<T, 256, 1>(p, batch, st);
+  else if (d == 256 && g == 4) launch_dec<T, 256, 4>(p, batch, st);
+  else if (d == 128 && g == 2) launch_dec<T, 128, 2>(p, batch, st);
+  else if (d == 128 && g == 1) launch_dec<T, 128, 1>(p, batch, st);
+  else if (d == 128 && g == 4) launch_dec<T, 128, 4>(p, batch, st);
+  else return (int)cudaErrorInvalidValue;
+  *launched = 1;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int gemma_decode_attention_i8(
@@ -332,18 +390,33 @@ extern "C" int gemma_decode_attention_i8(
     int kvh, int heads, int s_alloc, int d, int ring, int window,
     int pe_mode, float qscale, float att_cap, int* launched,
     cudaStream_t st) {
-  *launched = 0;
   DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, scales, pos, valid, out,
                n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
                qscale, att_cap};
-  const int g = heads / kvh;
-  if (d == 256 && g == 2) launch_dec<256, 2>(p, batch, st);
-  else if (d == 256 && g == 1) launch_dec<256, 1>(p, batch, st);
-  else if (d == 256 && g == 4) launch_dec<256, 4>(p, batch, st);
-  else if (d == 128 && g == 2) launch_dec<128, 2>(p, batch, st);
-  else if (d == 128 && g == 1) launch_dec<128, 1>(p, batch, st);
-  else if (d == 128 && g == 4) launch_dec<128, 4>(p, batch, st);
-  else return (int)cudaErrorInvalidValue;
-  *launched = 1;
-  return (int)cudaGetLastError();
+  return dispatch_dec<int8_t>(p, batch, d, launched, st);
+}
+
+extern "C" int gemma_decode_attention_bf16(
+    const float* qkv, const float* inv_ts, const float* knorm,
+    const float* qnorm, __nv_bfloat16* pool, const int* pos,
+    const bool* valid, __nv_bfloat16* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window,
+    int pe_mode, float qscale, float att_cap, int* launched,
+    cudaStream_t st) {
+  DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, nullptr, pos, valid, out,
+               n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
+               qscale, att_cap};
+  return dispatch_dec<__nv_bfloat16>(p, batch, d, launched, st);
+}
+
+extern "C" int gemma_decode_attention_f32(
+    const float* qkv, const float* inv_ts, const float* knorm,
+    const float* qnorm, float* pool, const int* pos, const bool* valid,
+    __nv_bfloat16* out, int batch, int n_layers, int layer, int kvh,
+    int heads, int s_alloc, int d, int ring, int window, int pe_mode,
+    float qscale, float att_cap, int* launched, cudaStream_t st) {
+  DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, nullptr, pos, valid, out,
+               n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
+               qscale, att_cap};
+  return dispatch_dec<float>(p, batch, d, launched, st);
 }

@@ -1,8 +1,9 @@
-// i8-weight GEMMs for Hopper (sm_90a): K1 and K2 of the port.
+// i8-weight GEMMs for Hopper (sm_90a): K1, K2 and K3 of the port.
 //
 // Replaces gemma_tpu/ops/matmul.py:_mm_kernel (K1, with _acc_step's i8
-// branch, the _norm_a prologue and the post-norm + residual epilogue) and
-// matmul.py:_gated_kernel (K2).  Computes
+// branch, the _norm_a prologue and the post-norm + residual epilogue),
+// matmul.py:_gated_kernel (K2) and matmul.py:_top1_kernel (K3, the fused
+// greedy head; see top1_i8_kernel below).  Computes
 //   C[M, N] = scale * A[M, K] . dequant(B)[N, K]^T,   dequant = inv*(c - zp)
 // per 128-wide K group g, applied to the OUTPUT as the TPU kernel does:
 //   C += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g)
@@ -24,7 +25,9 @@
 //   8*N*K/128 scale bytes, e.g. qkv 4096x2304 = 9.9 MB -> 2.9 us, the
 //   logits head 256000x2304 = 608 MB -> 182 us;
 //   prefill (M = 4*512) is operations-bound: 2*M*N*K, e.g. the gated FFN
-//   2*2*2048*9216*2304 = 174 GFLOP -> 176 us.
+//   2*2*2048*9216*2304 = 174 GFLOP -> 176 us;
+//   the greedy head (K3) reads the logits GEMM's codes and scales,
+//   590 MB + 37 MB at N = 256000, and writes no logits: 187 us.
 // Simple design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
 // shared-memory staging.  Each warp owns a (16*MT) x (8*NT) output tile;
 // a lane loads 2 x 16 B of codes per B row per group and converts them to
@@ -37,6 +40,8 @@
 // are latency-bound (waves of short blocks), not bandwidth-bound; left for
 // later: TMA/cp.async multi-stage pipelines with persistent blocks,
 // wgmma for prefill, and fusing the passes.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -79,21 +84,23 @@ __device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
   return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
 }
 
+// The block's (16*MT) x BN output tile at rows m0.., columns nb..: on
+// return the warps with ks == 0 hold the full sums in `acc` (mma.sync
+// fragment layout: lane (gid, t) has rows gid and gid + 8 of each 16-row
+// tile, columns 2t and 2t + 1 of each 8-column tile).  Every thread of
+// the block must call it (it synchronizes), with the same m0 and nb.
 template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>
-__global__ void __launch_bounds__(WARPS * 32) mm_i8_kernel(MMArgs p) {
+__device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
+                                        float (&acc)[GATED ? 2 : 1][MT][NT][4]) {
   constexpr int NB = GATED ? 2 : 1;
   constexpr int TILES = WARPS / KSPLIT;
-  constexpr int BM = 16 * MT;
-  constexpr int BN = TILES * 8 * NT;
   constexpr int FRAG = NB * MT * NT * 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, t = lane & 3;
   const int ks = warp % KSPLIT, tile = warp / KSPLIT;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN + tile * 8 * NT;
+  const int n0 = nb + tile * 8 * NT;
   const int M = p.M, N = p.N, K = p.K, G = K / 128;
 
-  float acc[NB][MT][NT][4];
   float part[NB][MT][NT][4];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
@@ -197,6 +204,7 @@ __global__ void __launch_bounds__(WARPS * 32) mm_i8_kernel(MMArgs p) {
   if constexpr (KSPLIT > 1) {
     __shared__ float red[TILES][KSPLIT > 1 ? KSPLIT - 1 : 1][FRAG][32];
     float* flat = &acc[0][0][0][0];
+    __syncthreads();  // a previous call's ks == 0 warps have read `red`
     if (ks > 0) {
 #pragma unroll
       for (int e = 0; e < FRAG; ++e) red[tile][ks - 1][e][lane] = flat[e];
@@ -208,6 +216,23 @@ __global__ void __launch_bounds__(WARPS * 32) mm_i8_kernel(MMArgs p) {
         for (int e = 0; e < FRAG; ++e) flat[e] += red[tile][r][e][lane];
     }
   }
+}
+
+template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+__global__ void __launch_bounds__(WARPS * 32) mm_i8_kernel(MMArgs p) {
+  constexpr int NB = GATED ? 2 : 1;
+  constexpr int TILES = WARPS / KSPLIT;
+  constexpr int BM = 16 * MT;
+  constexpr int BN = TILES * 8 * NT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int ks = warp % KSPLIT, tile = warp / KSPLIT;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN + tile * 8 * NT;
+  const int M = p.M, N = p.N;
+
+  float acc[NB][MT][NT][4];
+  mm_tile<MT, NT, KSPLIT, WARPS, GATED>(p, m0, blockIdx.x * BN, acc);
   if (ks != 0) return;
 
 #pragma unroll
@@ -299,6 +324,143 @@ __global__ void __launch_bounds__(256) postnorm_add_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: the fused greedy head (replaces matmul.py:_top1_kernel).
+//
+// (token, prob) per row of softcap(scale * A . B^T) over all N columns
+// without writing the [M, N] logits.  Masked columns (allowed mask 0) and
+// columns past N are -inf: they leave the argmax and the sum.  Each block
+// walks `tpb` consecutive 8-column tiles (mm_tile, the decode GEMM's
+// 16x8 tile with 8 warps splitting K) and keeps, per row, the online
+// state (max m, sum s of exp(x - m), lowest index at m); the block's
+// states go to `part`, and the last block to finish (an atomic ticket)
+// merges them: s = sum_i s_i * exp(m_i - M), ties to the lowest index.
+// prob = 1 / max(s, 1e-30) (the winner's own term is exp(0) = 1); a row
+// with no live column gives token 0 (matmul.py:1303-1331).
+// need_prob = 0 skips the cap and the exp: argmax of the raw logits,
+// prob 1.0 (matmul.py:1243-1253).
+struct Top1Args {
+  MMArgs mm;
+  float cap;
+  const uint8_t* mask;  // [N] 0/1, or null
+  int need_prob;
+  int tpb;              // 8-column tiles per block
+  float* part_m;        // [M, gridDim.x]
+  float* part_s;
+  int* part_i;
+  int* ticket;          // zero before the launch; the last block re-zeroes it
+  int* tok;             // [M]
+  float* prob;          // [M]
+};
+
+struct Top1State {
+  float m, s;
+  int i;
+};
+
+// The merge of two online states (commutative; ties to the lowest index).
+__device__ __forceinline__ Top1State top1_merge(Top1State a, Top1State b,
+                                                bool need_prob) {
+  Top1State r;
+  r.m = fmaxf(a.m, b.m);
+  r.i = a.m > b.m ? a.i : b.m > a.m ? b.i : min(a.i, b.i);
+  r.s = 0.f;
+  if (need_prob) {
+    if (a.m != -INFINITY) r.s += a.s * expf(a.m - r.m);
+    if (b.m != -INFINITY) r.s += b.s * expf(b.m - r.m);
+  }
+  return r;
+}
+
+__device__ __forceinline__ Top1State top1_shfl(Top1State x, int mask) {
+  Top1State y;
+  y.m = __shfl_xor_sync(0xffffffffu, x.m, mask);
+  y.s = __shfl_xor_sync(0xffffffffu, x.s, mask);
+  y.i = __shfl_xor_sync(0xffffffffu, x.i, mask);
+  return y;
+}
+
+constexpr int kTop1Warps = 8;  // the decode GEMM's 8-way K split, one tile
+
+__global__ void __launch_bounds__(kTop1Warps * 32) top1_i8_kernel(Top1Args q) {
+  const MMArgs& p = q.mm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * 16;
+  const bool need_prob = q.need_prob != 0;
+  const bool capped = need_prob && q.cap != 0.f;
+  Top1State st[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) st[h] = {-INFINITY, 0.f, INT_MAX};
+
+  for (int c = 0; c < q.tpb; ++c) {
+    const int nb = (blockIdx.x * q.tpb + c) * 8;
+    if (nb >= p.N) break;  // uniform over the block
+    float acc[1][1][1][4];
+    mm_tile<1, 1, kTop1Warps, kTop1Warps, false>(p, m0, nb, acc);
+    if (warp != 0) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // columns in increasing order
+        const int col = nb + 2 * t + e;
+        if (col >= p.N || (q.mask != nullptr && q.mask[col] == 0)) continue;
+        float v = acc[0][0][0][2 * h + e] * p.scale[0];
+        if (capped) v = q.cap * tanhf(v / q.cap);
+        Top1State& s = st[h];
+        if (v > s.m) {
+          if (need_prob) s.s = s.s * expf(s.m - v) + 1.f;
+          s.m = v;
+          s.i = col;
+        } else if (need_prob) {
+          s.s += expf(v - s.m);
+        }
+      }
+    }
+  }
+
+  __shared__ bool is_last;
+  if (warp == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // The 4 lanes of a row (t = 0..3) saw interleaved columns.
+      st[h] = top1_merge(st[h], top1_shfl(st[h], 1), need_prob);
+      st[h] = top1_merge(st[h], top1_shfl(st[h], 2), need_prob);
+      const int row = m0 + gid + 8 * h;
+      if (t == 0 && row < p.M) {
+        const size_t at = (size_t)row * gridDim.x + blockIdx.x;
+        q.part_m[at] = st[h].m;
+        q.part_s[at] = st[h].s;
+        q.part_i[at] = st[h].i;
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(q.ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The last block: one warp per row merges the row's gridDim.x states.
+  for (int row = warp; row < p.M; row += kTop1Warps) {
+    Top1State r = {-INFINITY, 0.f, INT_MAX};
+    for (int bx = lane; bx < (int)gridDim.x; bx += 32) {
+      const size_t at = (size_t)row * gridDim.x + bx;
+      r = top1_merge(r, {__ldcg(q.part_m + at), __ldcg(q.part_s + at),
+                         __ldcg(q.part_i + at)}, need_prob);
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) r = top1_merge(r, top1_shfl(r, o), need_prob);
+    if (lane == 0) {
+      q.tok[row] = r.m == -INFINITY ? 0 : r.i;
+      q.prob[row] = need_prob ? 1.0f / fmaxf(r.s, 1e-30f) : 1.0f;
+    }
+  }
+  if (threadIdx.x == 0) *q.ticket = 0;
+}
+
 // Bits of an entry's `launched` report: its own kernel, then the passes.
 constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
 
@@ -371,6 +533,39 @@ extern "C" int gemma_gated_i8(const void* a, const float* norm,
     launch_mm<1, 1, 8, 8, true>(p, st);
   else
     launch_mm<2, 2, 1, 4, true>(p, st);
+  *launched |= kLaunchedSelf;
+  return (int)cudaGetLastError();
+}
+
+// The greedy head: (tok, prob) of softcap(scale * A . B^T), A RMS-normalized
+// first when `norm` is given (then a is f32 and a_scratch bf16 [M, K]).
+// part_*: [M, blocks] scratch; ticket: one int, zero between calls.  At
+// most `blocks` blocks (per 16 rows) split the 8-column tiles evenly.
+extern "C" int gemma_top1_i8(const void* a, const float* norm,
+                             const int8_t* codes, const float* inv,
+                             const float* zp, float scale, float cap,
+                             const uint8_t* mask, int need_prob,
+                             __nv_bfloat16* a_scratch, float* part_m,
+                             float* part_s, int* part_i, int* ticket,
+                             int* tok, float* prob, int M, int N, int K,
+                             int blocks, int* launched, cudaStream_t st) {
+  *launched = 0;
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  Top1Args q = {};
+  q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  q.mm.codes[0] = q.mm.codes[1] = codes;
+  q.mm.inv[0] = q.mm.inv[1] = inv;
+  q.mm.zp[0] = q.mm.zp[1] = zp;
+  q.mm.scale[0] = q.mm.scale[1] = scale;
+  q.mm.M = M; q.mm.N = N; q.mm.K = K;
+  q.cap = cap; q.mask = mask; q.need_prob = need_prob;
+  q.part_m = part_m; q.part_s = part_s; q.part_i = part_i;
+  q.ticket = ticket; q.tok = tok; q.prob = prob;
+  const int tiles = (N + 7) / 8;
+  const int want = min(blocks, tiles);
+  q.tpb = (tiles + want - 1) / want;
+  const dim3 grid((tiles + q.tpb - 1) / q.tpb, (M + 15) / 16);
+  top1_i8_kernel<<<grid, kTop1Warps * 32, 0, st>>>(q);
   *launched |= kLaunchedSelf;
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,8 @@ class TimingInfo:
     prefill_tokens: int = 0
     generated_tokens: int = 0
     decode_steps: int = 0
-    # Host wall seconds of each decode step (each ends in a device sync).
+    # Host wall seconds per decode step: one entry per chunk of k steps
+    # (each chunk ends in a device sync), its wall time over k.
     decode_step_seconds: list = dataclasses.field(default_factory=list)
     time_to_first_token: float = 0.0
     prefill_duration: float = 0.0

@@ -3,10 +3,12 @@ gemma_tpu/models/gemma.py; reference gemma/gemma.cc TransformerLayer and
 gemma/attention.cc).
 
 `forward(params, tokens, positions, cache, config, ...)` runs a [B, T]
-token step and returns (logits or None, cache); the cache is updated in
-place.  Decode (T == 1) runs the fused layer: the pre-norms ride the GEMM
-prologues, the post-norms and residual adds the K1 epilogue pass, and
-QK norms + RoPE + the i8 row write + attention run in the K4 kernel.
+token step and returns (logits, (token, prob) or None; cache); the cache
+is updated in place.  Decode (T == 1) runs the fused layer: the pre-norms
+ride the GEMM prologues, the post-norms and residual adds the K1 epilogue
+pass, and QK norms + RoPE + the row write + attention run in the K4
+kernel.  The greedy head (return_logits="top1") is K3, with the final
+norm as its prologue.
 Prefill keeps the composed path: plain-torch norms, RoPE and the cache
 scatter around the K1/K2 GEMMs and the K5 attention kernel.
 
@@ -19,6 +21,7 @@ Numerics follow the reference:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -29,7 +32,8 @@ from gemma_tpu_torch.ops import ops
 from gemma_tpu_torch.ops.decode_attention import (
     RopeSpec, decode_attention_write_packed)
 from gemma_tpu_torch.ops.flash_attention import flash_prefill_attention
-from gemma_tpu_torch.ops.matmul import QuantTensor, gated_ffn, matmul
+from gemma_tpu_torch.ops.matmul import (QuantTensor, gated_ffn, matmul,
+                                        matmul_top1)
 
 
 @dataclasses.dataclass
@@ -168,34 +172,52 @@ def transformer_layer(layer: LayerParams, layer_idx: int, x: torch.Tensor,
     return x + ffw_out
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_timescale(qkv_dim: int, half: bool, base: float,
+                   device: torch.device) -> torch.Tensor:
+    """RoPE inverse timescales on `device`, made once: a host-to-device
+    copy per step would synchronize the host with the card."""
+    return torch.from_numpy(ops.create_inv_timescale(
+        qkv_dim, half, base_frequency=base)).to(device)
+
+
 def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, config: ModelConfig, prefix_end=0,
-            return_logits: str = "all", valid: torch.Tensor | None = None):
+            return_logits: str = "all", valid: torch.Tensor | None = None,
+            top1_mask: torch.Tensor | None = None,
+            top1_need_prob: bool = True):
     """Run the stack over a [B, T] token step (gemma.py:289-381).
 
     return_logits: "all" -> [B, T, vocab]; "last" -> [B, vocab] for the
-    final token (final norm as the head GEMM's prologue); "none" -> None.
-    Returns (logits or None, cache); the cache is updated in place."""
-    if return_logits in ("top1", "topk"):
+    final token (final norm as the head GEMM's prologue); "top1" ->
+    (token int32 [B], prob f32 [B]), the greedy head fused into the logits
+    GEMM (K3), constrained by top1_mask [vocab] bool when given;
+    top1_need_prob=False returns the raw-logits argmax with prob 1.0;
+    "none" -> None.  Returns (that, cache); the cache is updated in
+    place."""
+    if return_logits == "topk":
         raise NotImplementedError(
-            f"return_logits={return_logits!r} needs the fused head kernel "
-            "(the TPU's _top1_kernel / _topk_kernel), a later slice; use "
-            "'last' and ops.sampling.top1")
+            "return_logits='topk' needs the fused top-k head (the TPU's "
+            "_topk_kernel, K6), the sampled-decode slice")
     lc = config.layer_configs[0]
     device = params.device
     x = embed_tokens(params.embedding, tokens, config.model_dim)
     half = lc.post_qk == PostQKType.HALF_ROPE
-    inv_ts = torch.from_numpy(ops.create_inv_timescale(lc.qkv_dim, half)).to(
-        device)
+    inv_ts = _inv_timescale(lc.qkv_dim, half, 10000.0, device)
     inv_ts_g = None
     if is_vlm(config.model):
-        inv_ts_g = torch.from_numpy(ops.create_inv_timescale(
-            lc.qkv_dim, half, base_frequency=1e6)).to(device)
+        inv_ts_g = _inv_timescale(lc.qkv_dim, half, 1e6, device)
     for layer_idx, layer in enumerate(params.layers):
         x = transformer_layer(layer, layer_idx, x, positions, cache, config,
                               prefix_end, inv_ts, inv_ts_g, valid)
     if return_logits == "none":
         return None, cache
+    if return_logits == "top1":
+        head = matmul_top1(x[:, -1, :].contiguous(), params.embedding,
+                           final_cap=config.final_cap,
+                           prologue_norm=params.final_norm,
+                           allowed_mask=top1_mask, need_prob=top1_need_prob)
+        return head, cache
     if return_logits == "last":
         x1 = x[:, -1, :].contiguous()
         logits = matmul(x1, params.embedding, out_dtype=torch.float32,

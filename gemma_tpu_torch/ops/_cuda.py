@@ -179,6 +179,10 @@ def all_kernels() -> list[Kernel]:
     from gemma_tpu_torch.ops import decode_attention, flash_attention, matmul
 
     return [matmul.MATMUL_I8, matmul.PRENORM, matmul.POSTNORM_ADD,
-            matmul.GATED_I8,
+            matmul.GATED_I8, matmul.TOP1_I8,
             decode_attention.DECODE_ATTENTION_I8,
-            flash_attention.FLASH_ATTENTION_I8]
+            decode_attention.DECODE_ATTENTION_BF16,
+            decode_attention.DECODE_ATTENTION_F32,
+            flash_attention.FLASH_ATTENTION_I8,
+            flash_attention.FLASH_ATTENTION_BF16,
+            flash_attention.FLASH_ATTENTION_F32]

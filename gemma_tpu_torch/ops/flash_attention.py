@@ -2,10 +2,11 @@
 gemma_tpu/ops/flash_attention.py:flash_prefill_attention; reference
 gemma/flash_attention.{h,cc}).
 
-On CUDA tensors with an i8 cache it launches csrc/flash_attention.cu (K5);
-on CPU tensors it runs the plain dense version (ops/attention.py) over the
-same mask.  Positions must be contiguous per query
-(positions[b, i] == positions[b, 0] + i), which chunked prefill guarantees.
+On CUDA tensors it launches the kernel of csrc/flash_attention.cu (K5)
+for the pool's type (i8, bf16 or f32); on CPU tensors it runs the plain
+dense version (ops/attention.py) over the same mask.  Positions must be
+contiguous per query (positions[b, i] == positions[b, 0] + i), which
+chunked prefill guarantees.
 """
 
 from __future__ import annotations
@@ -20,6 +21,16 @@ from gemma_tpu_torch.ops.attention import (attention_mask,
 FLASH_ATTENTION_I8 = _cuda.Kernel(
     "flash_attention_i8", "flash_attention.cu", "gemma_flash_attention_i8",
     [_cuda.P] * 7 + [_cuda.I] * 10 + [_cuda.F])
+# bf16 and f32 pools: the same entry without the scales pointer.
+FLASH_ATTENTION_BF16 = _cuda.Kernel(
+    "flash_attention_bf16", "flash_attention.cu",
+    "gemma_flash_attention_bf16", [_cuda.P] * 6 + [_cuda.I] * 10 + [_cuda.F])
+FLASH_ATTENTION_F32 = _cuda.Kernel(
+    "flash_attention_f32", "flash_attention.cu",
+    "gemma_flash_attention_f32", [_cuda.P] * 6 + [_cuda.I] * 10 + [_cuda.F])
+_KERNELS = {torch.int8: FLASH_ATTENTION_I8,
+            torch.bfloat16: FLASH_ATTENTION_BF16,
+            torch.float32: FLASH_ATTENTION_F32}
 
 
 def _prefix(prefix_end, b, device):
@@ -52,18 +63,19 @@ def flash_prefill_attention(cache, layer_idx, q, positions, window,
     if not q.is_cuda:
         return flash_prefill_attention_plain(cache, layer_idx, q, positions,
                                              window, att_cap, prefix_end)
-    if not cache.quantized:
-        raise NotImplementedError(
-            "prefill attention over a bf16/f32 KV cache (K5's non-i8 "
-            "variant) is a later slice")
     pool, idx, ring = cache.pool(layer_idx)
     sc = cache.pool_scale(layer_idx)
     b, t, heads, d = q.shape
     _, n_layers, _, kvh, s_alloc, _ = pool.shape
     groups = heads // kvh
-    _cuda.check(pool, "pool", torch.int8)
-    _cuda.check(sc, "pool_scale", torch.float32,
-                (b, n_layers, 2, kvh, 1, s_alloc))
+    kernel = _KERNELS.get(pool.dtype)
+    if kernel is None:
+        raise ValueError(f"no prefill attention kernel for a {pool.dtype} "
+                         "pool")
+    _cuda.check(pool, "pool", pool.dtype)
+    if kernel is FLASH_ATTENTION_I8:
+        _cuda.check(sc, "pool_scale", torch.float32,
+                    (b, n_layers, 2, kvh, 1, s_alloc))
     # [B, T, KVH, G, D] -> [B, KVH, T*G, D], rows t-major.
     qg = (q.float().reshape(b, t, kvh, groups, d).permute(0, 2, 1, 3, 4)
           .reshape(b, kvh, t * groups, d).contiguous())
@@ -71,8 +83,9 @@ def flash_prefill_attention(cache, layer_idx, q, positions, window,
     newest = positions.amax(dim=-1).to(torch.int32).contiguous()
     pe = _prefix(prefix_end, b, q.device).contiguous()
     out = torch.empty_like(qg)
-    FLASH_ATTENTION_I8.launch(
-        qg.data_ptr(), pool.data_ptr(), sc.data_ptr(), base.data_ptr(),
+    scales = () if sc is None else (sc.data_ptr(),)
+    kernel.launch(
+        qg.data_ptr(), pool.data_ptr(), *scales, base.data_ptr(),
         newest.data_ptr(), pe.data_ptr(), out.data_ptr(), b, n_layers, idx,
         kvh, t * groups, groups, s_alloc, d, ring, int(window),
         float(att_cap))

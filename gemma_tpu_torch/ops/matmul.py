@@ -10,7 +10,8 @@ and `zeropoints` f32 [N, K/128], dequant = inv * (c - zp)) and the dense
 
 Every GEMM has a kernel path and a plain path.  For CUDA tensors the
 wrappers launch the hand-written kernels of csrc/matmul_i8.cu (K1 with
-its norm prologue and post-norm passes, K2) or raise; for CPU tensors
+its norm prologue and post-norm passes, K2, and K3, the fused greedy
+head `matmul_top1`) or raise; for CPU tensors
 they take the plain versions below, which compute the same function with
 the same group affine applied to the output:
     out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g).
@@ -23,7 +24,7 @@ import dataclasses
 import torch
 
 from gemma_tpu_torch.ops import _cuda
-from gemma_tpu_torch.ops.ops import rms_norm
+from gemma_tpu_torch.ops.ops import rms_norm, soft_cap
 
 GROUP = 128
 
@@ -44,6 +45,19 @@ GATED_I8 = _cuda.Kernel(
     [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 3 + [_cuda.F]
     + [_cuda.P] * 2 + [_cuda.I] * 3,
     passes=(PRENORM,))
+TOP1_I8 = _cuda.Kernel(
+    "top1_i8", "matmul_i8.cu", "gemma_top1_i8",
+    [_cuda.P] * 5 + [_cuda.F] * 2 + [_cuda.P] + [_cuda.I] + [_cuda.P] * 7
+    + [_cuda.I] * 4,
+    passes=(PRENORM,))
+# K3's blocks per 16 rows: each walks N / (8 * TOP1_BLOCKS) 8-column tiles
+# and leaves one online state per row for the last block to merge.  528
+# is one wave on an H100 (132 SMs x 4 blocks of 8 warps at 57 registers);
+# more blocks lengthen the last block's merge (chip_smoke.py sweeps it).
+TOP1_BLOCKS = 528
+# One zeroed int per device, counted up by K3's blocks and reset by the
+# last one: K3 launches on one device must not overlap (one stream).
+_top1_tickets: dict[torch.device, torch.Tensor] = {}
 
 
 @dataclasses.dataclass
@@ -166,6 +180,28 @@ def postnorm_add_plain(y, weight=None, add=None, out_dtype=torch.float32):
     return out.to(out_dtype)
 
 
+def matmul_top1_plain(a, w, *, final_cap, prologue_norm=None,
+                      allowed_mask=None, need_prob=True):
+    """K3's function in plain PyTorch (matmul.py:1640-1725): per row, the
+    argmax (ties to the lowest index) of softcap(scale * A.B^T) with banned
+    columns at -inf, and prob = 1 / max(s, 1e-30), s the sum of
+    exp(logit - max).  need_prob=False: argmax of the raw logits, prob 1.
+    A row with no allowed column gives token 0."""
+    logits = matmul_plain(a, w, prologue_norm=prologue_norm)
+    if need_prob:
+        logits = soft_cap(final_cap, logits)
+    if allowed_mask is not None:
+        logits = logits.masked_fill(~allowed_mask.bool(), float("-inf"))
+    m = logits.amax(dim=-1)
+    empty = m == float("-inf")
+    token = torch.where(empty, 0, logits.argmax(dim=-1)).to(torch.int32)
+    if not need_prob:
+        return token, torch.ones_like(m)
+    safe_m = torch.where(empty, 0.0, m)
+    s = torch.exp(logits - safe_m[:, None]).sum(dim=-1)
+    return token, 1.0 / s.clamp_min(1e-30)
+
+
 def gated_ffn_plain(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
     """K2's function in plain PyTorch: gelu_tanh(x.W1^T) * (x.W2^T)."""
     if prologue_norm is not None:
@@ -270,6 +306,44 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
         _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(), m, w.n, w.k,
         int(out_dtype == torch.bfloat16))
     return out
+
+
+def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
+                need_prob=True):
+    """(token int32 [M], prob f32 [M]) = Top1OfSoftmax(softcap(scale *
+    A . W^T)) without the [M, N] logits (matmul.py:1640-1725, K3).
+
+    allowed_mask: [N] bool, banned columns leave the argmax and the sum;
+    prologue_norm: the final RMSNorm weight [K] (A then arrives f32);
+    need_prob=False: raw-logits argmax, prob 1.0."""
+    if not a.is_cuda:
+        return matmul_top1_plain(a, w, final_cap=final_cap,
+                                 prologue_norm=prologue_norm,
+                                 allowed_mask=allowed_mask,
+                                 need_prob=need_prob)
+    _check_i8(w, "matmul_top1")
+    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
+    m = a.shape[0]
+    if allowed_mask is not None:
+        allowed_mask = allowed_mask.to(torch.bool).contiguous()
+        _cuda.check(allowed_mask, "allowed_mask", torch.bool, (w.n,))
+    ticket = _top1_tickets.get(a.device)
+    if ticket is None:
+        ticket = _top1_tickets[a.device] = torch.zeros(
+            1, dtype=torch.int32, device=a.device)
+    part = torch.empty(2, m, TOP1_BLOCKS, dtype=torch.float32,
+                       device=a.device)
+    part_i = torch.empty(m, TOP1_BLOCKS, dtype=torch.int32, device=a.device)
+    tok = torch.empty(m, dtype=torch.int32, device=a.device)
+    prob = torch.empty(m, dtype=torch.float32, device=a.device)
+    TOP1_I8.launch(
+        a.data_ptr(), _cuda.ptr(norm), w.arrays["codes"].data_ptr(),
+        w.arrays["inv_scales"].data_ptr(), w.arrays["zeropoints"].data_ptr(),
+        float(w.scale), float(final_cap), _cuda.ptr(allowed_mask),
+        int(need_prob), _cuda.ptr(a_scratch), part[0].data_ptr(),
+        part[1].data_ptr(), part_i.data_ptr(), ticket.data_ptr(),
+        tok.data_ptr(), prob.data_ptr(), m, w.n, w.k, TOP1_BLOCKS)
+    return tok, prob
 
 
 def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):

@@ -8,6 +8,10 @@ from __future__ import annotations
 
 import torch
 
+# Large-negative filler for masked-out logits (finite, so the softmax of
+# a fully masked row cannot NaN); ops/attention.py's mask value.
+NEG_INF = -2.3819763e38
+
 
 def top1(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(token, prob) per row of [B, V] logits: the argmax (ties go to the

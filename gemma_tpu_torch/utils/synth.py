@@ -8,10 +8,10 @@ JAX synth for the same seed; tests that compare the two packages carry
 one set of weights across with models/bridge.py instead.
 
 The layout and byte counts are the JAX synth's, but the group scales are
-set so the dequantized weights have rms ~1/sqrt(K) (and embedding rows
-~0.25): the JAX synth's |N(0, 0.05)| + 0.01 scales give weights of rms
-~3.7, which saturate every soft cap at Gemma2 width, so checks of the
-logits (decode vs prefill, card vs CPU) would compare ties.
+set so the dequantized weights have rms ~1/sqrt(K) (embedding rows:
+EMBEDDING_RMS): the JAX synth's |N(0, 0.05)| + 0.01 scales give weights
+of rms ~3.7, which saturate every soft cap at Gemma2 width, so checks of
+the logits (decode vs prefill, card vs CPU) would compare ties.
 """
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.ops.matmul import QuantTensor
 from gemma_tpu_torch.utils.basics import resolve_device
+
+# The (tied) embedding rows' rms: the logits spread about EMBEDDING_RMS *
+# sqrt(model_dim), 2.4 at Gemma2-2B width.  At 0.25 (a spread of 12) the
+# largest logits crowd the final soft cap of 30, which squeezes their gaps
+# below the tolerances of the checks that compare greedy tokens.
+EMBEDDING_RMS = 0.05
 
 
 def synth_quant(gen: torch.Generator, n: int, k: int, device,
@@ -72,5 +78,5 @@ def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
             query_norm=norm(q) if lc.use_qk_norm else None,
         ))
     return Params(embedding=synth_quant(gen, config.vocab_size, d, device,
-                                        kind, rms=0.25),
+                                        kind, rms=EMBEDDING_RMS),
                   final_norm=norm(d), layers=layers)

@@ -1,7 +1,8 @@
 """The port's engine (gemma_tpu_torch/engine, plain path on CPU) vs the JAX
 package's GemmaEngine on the same bridged i8 weights: greedy decode with
 decode_chunk=1, an i8 KV cache and ragged prompts prefilled in 16-token
-rounds with padded slots."""
+rounds with padded slots.  tests/test_torch_decode.py covers the default
+runtime (decode chunks through the fused head, bf16 KV)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,9 +134,7 @@ def test_entry_points_default_to_cuda(engines, entry):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(decode_chunk=4), "_top1_kernel"),
     (dict(top_k=40), "top-k"),
-    (dict(kv_kind="bf16"), "i8 KV"),
 ])
 def test_later_slices_raise(engines, kw, match):
     _, tc, _, tparams, *_ = engines
@@ -144,7 +143,13 @@ def test_later_slices_raise(engines, kw, match):
 
 
 def test_accept_token_raises(engines):
+    """An exception raised by the accept_token callback reaches the
+    caller (the host loop neither swallows it nor falls back)."""
     *_, teng, prompts = engines
-    with pytest.raises(NotImplementedError, match="accept_token"):
+
+    def accept(token, logit):
+        raise KeyError("rejected by the caller")
+
+    with pytest.raises(KeyError, match="rejected by the caller"):
         teng.generate_batch(prompts[:1], max_generated_tokens=2,
-                            accept_token=lambda t, p: True)
+                            accept_token=accept)

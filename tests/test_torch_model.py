@@ -128,9 +128,36 @@ def test_decode_matches_prefill(model, slack):
 
 
 def test_fused_heads_raise(model):
+    """The fused top-k head (K6) is the sampled-decode slice's."""
     _, tc, _, tparams, tokens = model
     cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
-    with pytest.raises(NotImplementedError, match="_top1_kernel"):
+    with pytest.raises(NotImplementedError, match="_topk_kernel"):
         t_forward(tparams, torch.from_numpy(tokens[:1])[None],
                   torch.zeros(1, 1, dtype=torch.int64), cache, tc,
-                  return_logits="top1")
+                  return_logits="topk")
+
+
+@pytest.mark.parametrize("need_prob", [True, False])
+def test_top1_head_matches_jax(model, need_prob):
+    """Prefill T-1 tokens, then one decode step through the fused greedy
+    head in both packages: the same token where JAX's capped margin
+    clears the i8-KV logit bound, and probs within it (the prob moves
+    with exp of the logit error: ~2e-2 relative at most here)."""
+    jc, tc, jparams, tparams, tokens = model
+    jcache, tcache = _caches(jc, tc, 16)
+    _, jcache = _run_jax(jparams, jc, jcache, tokens[:-1], ALL[:-1], "none")
+    _run_torch(tparams, tc, tcache, tokens[:-1], ALL[:-1], "none")
+    logits, _ = j_forward(jparams, jnp.asarray(tokens[-1:])[None],
+                          jnp.asarray([[T - 1]], jnp.int32), jcache, jc,
+                          return_logits="last")
+    (jt, jp), _ = j_forward(jparams, jnp.asarray(tokens[-1:])[None],
+                            jnp.asarray([[T - 1]], jnp.int32), jcache, jc,
+                            return_logits="top1", top1_need_prob=need_prob)
+    (tt, tp), _ = t_forward(tparams, torch.from_numpy(tokens[-1:])[None],
+                            torch.tensor([[T - 1]]), tcache, tc,
+                            return_logits="top1", top1_need_prob=need_prob)
+    assert tt.dtype == torch.int32 and tt.shape == (1,)
+    top2 = np.sort(np.asarray(logits[0]))[-2:]
+    assert top2[1] - top2[0] > TOL * np.abs(np.asarray(logits)).max()
+    assert int(tt[0]) == int(jt[0])
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=2e-2)

@@ -9,25 +9,29 @@ Phases (any failure exits non-zero before the result line):
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
-     plain version and its bound (bytes over 3.35 TB/s or operations over
-     989 TFLOP/s bf16, the H100 SXM data-sheet peaks): the i8 GEMMs and
-     their norm passes, the gated GEMM, the fused greedy head (with and
-     without its prob and an allowed mask, and a mask that bans every
-     column), decode attention and prefill attention over i8, bf16 and f32
-     KV pools;
-  3. a 2-layer model at Gemma2-2B width (synthetic i8 weights): prefill +
+     plain version, its bound (bytes over 3.35 TB/s or operations over
+     989 TFLOP/s bf16, the H100 SXM data-sheet peaks) and, for the dense
+     GEMMs, torch.nn.functional.linear on the same inputs: the GEMMs and
+     their norm passes, the gated GEMM and the fused greedy head for i8,
+     sfp, bf16 and f32 weights (kind nuq runs the sfp kernels), the fused
+     top-k head for the same kinds (k_top 2, 64, 128; M = 4 and 20; an
+     allowed mask; fewer live columns than k_top; saturated ties) with its
+     merge pass alone, the draw kernel, decode attention and prefill
+     attention over i8, bf16 and f32 KV pools;
+  3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
-     plain path on the CPU; then `generate_batch` with a bf16 cache and
-     decode_chunk=4 on both, tokens and probs compared;
-  4. the serving paths at full depth (Gemma2-2B, 26 layers, synthetic i8
-     weights made on the card), 4 ragged requests (17, 130, 300, 700
-     prompt tokens).  For each path every kernel launch count is zeroed
-     before the counted run and read after, checked against the path's
-     per-layer schedule, and every plain version is made to raise:
+     plain path on the CPU, for i8 and for sfp weights; `generate_batch`
+     with a bf16 cache and decode_chunk=4 on both, tokens and probs
+     compared; and sampled steps (the top-k head and the draw) on both;
+  4. the serving paths at Gemma2-2B width, synthetic weights made on the
+     card, 4 ragged requests (17, 130, 300, 700 prompt tokens).  For each
+     path every kernel launch count is zeroed before the counted run and
+     read after, checked against the path's per-layer schedule, and every
+     plain version is made to raise.  At 26 layers:
        A. `GemmaEngine.generate_batch` with the default RuntimeConfig (bf16
-          KV, decode_chunk=4, stream_probs): 32 new tokens, 3 runs
-          (medians reported); two chunks under torch.profiler must show
-          the launches the counters show, and one chunk runs with
+          KV, decode_chunk=4, stream_probs), i8 weights: 32 new tokens, 3
+          runs (medians reported); two chunks under torch.profiler must
+          show the launches the counters show, and one chunk runs with
           CUDA's sync debug mode set to error (no host sync inside a
           chunk); each first token is checked against a prefill-only
           forward;
@@ -37,8 +41,19 @@ Phases (any failure exits non-zero before the result line):
           i8 GEMM, picked on the host), decode logits checked against a
           prefill-only forward;
        D. kv_kind="f32", decode_chunk=4, 8 new tokens;
-  5. one `kernels` JSON line (launches summed over the counted runs of
-     4A-D), then nvidia-smi's line, then the result line.
+       E. sampled serving: top_k=64, temperature=0.8, seed=1, i8 weights,
+          32 new tokens through the fused top-k head and the draw kernel;
+          a chunk under sync debug mode "error"; the same seed gives the
+          same tokens, and query 0 gets at batch 4 the tokens it gets
+          alone;
+       F. sfp weights, default (greedy) runtime, 32 new tokens; then 8
+          sampled tokens;
+       G. bf16 weights, sampled, 8 new tokens; then 8 greedy tokens;
+     and at 4 layers:
+       H. f32 weights, 4 greedy and 4 sampled tokens;
+  5. every timed case as one JSON line, one `kernels` JSON line (each
+     kernel's primary case; launches summed over the counted runs of
+     4A-H), then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -53,6 +68,11 @@ import subprocess
 import sys
 import time
 
+# The synth's default embedding makes the last prompt token's own logit
+# lead all others by ~10, so a sampler always draws it.  The sampled paths
+# use embedding rows of this rms instead: the top 64 logits then lie
+# within ~1 of each other and the draw decides the token.
+FLAT_EMBEDDING_RMS = 0.012
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 
@@ -98,6 +118,10 @@ def main() -> int:
     phase_two_layers(torch)
     counts = phase_main_path(torch)
 
+    # Every timed case of every kernel, on a line of its own; the `kernels`
+    # line below carries each kernel's primary case and stays short.
+    print("[5] cases " + json.dumps(
+        {name: r["cases"] for name, r in results.items()}), flush=True)
     line = []
     for k in _cuda.all_kernels():
         r = results[k.name]
@@ -109,8 +133,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None, "library_note": LIBRARY_NOTE[k.name],
-            "case": r["case"], "cases": r["cases"],
+            "library_ms": r.get("library_ms"),
+            "library_note": LIBRARY_NOTE[k.name],
+            "case": r["case"],
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
@@ -120,15 +145,20 @@ def main() -> int:
     return 0
 
 
+WEIGHT_KINDS = ("i8", "sfp", "bf16", "f32")  # kind nuq runs sfp's kernels
+_CODEC_OF = {"i8": "_acc_step :539 (i8)", "sfp": "_acc_step :473 + "
+             "_sfp_tile_to_bf16 :417 (sfp and nuq)",
+             "bf16": "_acc_step :471 (bf16)", "f32": "_acc_step :471 (f32)"}
 REPLACES = {
-    "matmul_i8": "gemma_tpu/ops/matmul.py:577 (_mm_kernel)",
-    "matmul_i8_prenorm":
+    "matmul_prenorm":
         "gemma_tpu/ops/matmul.py:563 (_norm_a, the _mm_kernel/_gated_kernel "
         "prologue)",
-    "matmul_i8_postnorm_add":
+    "matmul_postnorm_add":
         "gemma_tpu/ops/matmul.py:612-626 (_mm_kernel post-norm + add epilogue)",
-    "gated_i8": "gemma_tpu/ops/matmul.py:629 (_gated_kernel)",
-    "top1_i8": "gemma_tpu/ops/matmul.py:1228 (_top1_kernel)",
+    "topk_merge": "gemma_tpu/ops/matmul.py:1423 (_topk_kernel, its running "
+                  "list across the sequential N grid)",
+    "draw_topk": "gemma_tpu/ops/sampling.py:57 (_draw_from_topk: XLA ops in "
+                 "the JAX package, no TPU kernel)",
     "decode_attention_i8":
         "gemma_tpu/ops/decode_attention.py:545 (_decode_fused_packed_kernel)",
     "decode_attention_bf16":
@@ -144,17 +174,14 @@ REPLACES = {
         "gemma_tpu/ops/flash_attention.py:39 (_flash_kernel, f32 pool)",
 }
 LIBRARY_NOTE = {
-    "matmul_i8": "no single PyTorch call applies the per-128-group i8 affine "
-                 "(and the norm prologue) of this GEMM",
-    "matmul_i8_prenorm": "torch.nn.functional.rms_norm has no (1 + w) form "
-                         "and no bf16 rounding of its f32 result in one call",
-    "matmul_i8_postnorm_add": "torch.nn.functional.rms_norm has no (1 + w) "
-                              "form and no residual add in one call",
-    "gated_i8": "no single PyTorch call computes gelu(A.W1^T)*(A.W2^T) over "
-                "i8 group-quantized weights",
-    "top1_i8": "no single PyTorch call computes the argmax and softmax prob "
-               "of soft-capped logits of i8 group-quantized weights without "
-               "the logits",
+    "matmul_prenorm": "torch.nn.functional.rms_norm has no (1 + w) form "
+                      "and no bf16 rounding of its f32 result in one call",
+    "matmul_postnorm_add": "torch.nn.functional.rms_norm has no (1 + w) "
+                           "form and no residual add in one call",
+    "topk_merge": "no single PyTorch call merges sorted (value, index) "
+                  "lists by value then index",
+    "draw_topk": "torch.multinomial draws from torch's own generator, not "
+                 "from a (seed, query, position) counter stream",
     "decode_attention_i8": "scaled_dot_product_attention has no i8 per-row "
                            "scales, ring mask, soft cap or in-place row write",
     "decode_attention_bf16": "scaled_dot_product_attention has no ring mask, "
@@ -168,6 +195,33 @@ LIBRARY_NOTE = {
     "flash_attention_f32": "scaled_dot_product_attention has no soft cap "
                            "(and no ring-window mask short of a dense one)",
 }
+for _kind in WEIGHT_KINDS:
+    _dense = _kind in ("bf16", "f32")
+    _what = {"i8": "i8 group-quantized", "sfp": "SFP-coded"}.get(_kind, _kind)
+    REPLACES[f"matmul_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:577 (_mm_kernel) with {_CODEC_OF[_kind]}")
+    REPLACES[f"gated_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:629 (_gated_kernel) with {_CODEC_OF[_kind]}")
+    REPLACES[f"top1_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:1228 (_top1_kernel) with {_CODEC_OF[_kind]}")
+    REPLACES[f"topk_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:1423 (_topk_kernel) with {_CODEC_OF[_kind]}")
+    LIBRARY_NOTE[f"matmul_{_kind}"] = (
+        "torch.nn.functional.linear on the same A and weights (no prologue, "
+        "scale 1)" if _dense else
+        f"no single PyTorch call multiplies by {_what} weights")
+    LIBRARY_NOTE[f"gated_{_kind}"] = (
+        "gelu(linear(a, w1), approximate='tanh') * linear(a, w2), three "
+        "PyTorch calls" if _dense else
+        f"no single PyTorch call computes gelu(A.W1^T)*(A.W2^T) over {_what} "
+        "weights")
+    LIBRARY_NOTE[f"top1_{_kind}"] = (
+        "no single PyTorch call computes the argmax and softmax prob of "
+        "soft-capped logits without the logits")
+    LIBRARY_NOTE[f"topk_{_kind}"] = (
+        "no single PyTorch call selects the top k of soft-capped, masked "
+        "logits without the logits (torch.topk needs them, and leaves ties "
+        "unordered)")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
@@ -204,7 +258,7 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
-           ops, iters=20, primary=False):
+           ops, iters=20, primary=False, library=None):
     got = got.float()
     want = want.float()
     if not torch.isfinite(got).all():
@@ -214,15 +268,18 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
     b_ms, b_by = bound(nbytes, ops)
     k_ms = time_ms(torch, kern, iters)
     p_ms = time_ms(torch, plain, max(3, iters // 4), warmup=1)
+    l_ms = None if library is None else time_ms(torch, library, iters)
+    lib = "" if l_ms is None else f"library {l_ms:.4f} ms "
     print(f"[2] {name:24s} {case:44s} max_abs_err {err:.4g} (tol {tol:.4g}) "
-          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms {lib}"
           f"bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}",
           flush=True)
     if not ok:
         fail(f"{name} [{case}] disagrees with its plain version: {err} > {tol}")
     entry = results.setdefault(name, {"cases": []})
     c = {"case": case, "max_abs_err": err, "tol": tol, "ms": k_ms,
-         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": l_ms}
     entry["cases"].append(c)
     if primary:
         entry.update({k: v for k, v in c.items() if k != "tol"})
@@ -263,7 +320,7 @@ def phase_kernels(torch):
     p = lambda: mm.prenorm_plain(x, norm)  # noqa: E731
     want = p()
     # bf16 output: a one-ulp flip (2^-8) where the f32 sums reorder.
-    record(res, torch, "matmul_i8_prenorm", "decode M=4 K=2304", f(), want,
+    record(res, torch, "matmul_prenorm", "decode M=4 K=2304", f(), want,
            rel_tol(want, 2 ** -8), f, p, b * d * 4 + d * 4 + b * d * 2, 0,
            primary=True)
     f = lambda: mm.matmul(x, w_qkv, prologue_norm=norm)  # noqa: E731
@@ -290,7 +347,7 @@ def phase_kernels(torch):
         f = lambda: mm.postnorm_add(y.clone(), post, add)  # noqa: E731
         p = lambda: mm.postnorm_add_plain(y, post, add)  # noqa: E731
         want = p()
-        record(res, torch, "matmul_i8_postnorm_add",
+        record(res, torch, "matmul_postnorm_add",
                f"decode {name} M=4 N={d}", f(), want, rel_tol(want, 1e-5),
                f, p, 3 * b * d * 4 + d * 4, 0, primary=name == "att_w")
     w_head = synth_quant(gen, cfg.vocab_size, d, dev)
@@ -349,6 +406,10 @@ def phase_kernels(torch):
            4 * m_pre * ff * d, iters=5)
 
     phase_top1(torch, res, x, w_head, fnorm, cfg)
+    phase_topk(torch, res, "i8", w_head, fnorm, cfg)
+    del w_head
+    phase_codecs(torch, res, cfg)
+    phase_draw(torch, res, cfg)
 
     # --- K4: B=4 over both pools of a seq_len=8192 cache of each kind ---
     heads, kvh, hd = 8, 4, 256
@@ -536,6 +597,323 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg):
           f"{', '.join(sweep)}", flush=True)
 
 
+def check_topk(torch, label, got, want, tol):
+    """K6 against its plain version: values within `tol`, the same live
+    entries, and indices equal wherever both neighbouring plain values are
+    further apart than `tol` (closer pairs are ties either may order).
+    Returns the max value error."""
+    (vals, idxs), (wv, wi) = got, want
+    live = torch.isfinite(wv)
+    if not bool((torch.isfinite(vals) == live).all()):
+        fail(f"{label}: live entries differ from the plain version's")
+    if not bool(((idxs == 0) | live).all()):
+        fail(f"{label}: a dead entry's index is not 0")
+    if not bool(live.any()):
+        return 0.0
+    err = float((vals - wv)[live].abs().max())
+    filled = torch.where(live, wv, torch.full_like(wv, -1e30))
+    gap = (filled[:, :-1] - filled[:, 1:]) > tol
+    pinned = live.clone()
+    pinned[:, 1:] &= gap
+    pinned[:, :-1] &= gap
+    bad = int(((idxs != wi) & pinned).sum())
+    order = bool((vals[:, :-1] >= vals[:, 1:])[live[:, 1:]].all()) \
+        if vals.shape[1] > 1 else True
+    print(f"[2] {label}: value max_abs_err {err:.4g} (tol {tol:.4g}), "
+          f"{int(pinned.sum())} of {int(live.sum())} live entries pinned, "
+          f"{bad} indices differ, descending {order}", flush=True)
+    if err > tol or bad or not order or not bool(pinned.any()):
+        fail(f"{label}: disagrees with the plain version")
+    return err
+
+
+def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
+    """K6 at the decode head's shape (N=256000, K=2304, the final-norm
+    prologue, cap 30) for one weight kind: M = 4 and 20, k_top 2, 64 and
+    128 under a 1-in-8 allowed mask (k_top 64 also without), a mask that
+    leaves fewer live columns than k_top, and an input whose top logits
+    saturate the cap into exact ties.  full=False: M=4, k_top=64 only.
+
+    Tolerance: values within 1e-3 of max|logit| (K1's bound: the same
+    products in another f32 order, and rare one-ulp flips of the
+    bf16-rounded prologue A); indices as `check_topk` says."""
+    import dataclasses
+
+    from gemma_tpu_torch.ops import matmul as mm
+
+    name = f"topk_{kind}"
+    n, d = cfg.vocab_size, cfg.model_dim
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    mask = torch.rand(n, generator=gen, device="cuda") < 0.125
+    xs = {m: torch.randn(m, d, generator=gen, device="cuda") * 30
+          for m in ((4, 20) if full else (4,))}
+    cases = [(4, 64, None), (4, 64, mask)]
+    if full:
+        cases += [(4, 2, mask), (4, 128, mask), (20, 2, mask),
+                  (20, 64, mask), (20, 128, mask)]
+    for m, k_top, allowed in cases:
+        x = xs[m]
+        kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm,
+                  allowed_mask=allowed)
+        f = lambda: mm.matmul_topk(x, w_head, k_top, **kw)  # noqa: E731
+        p = lambda: mm.matmul_topk_plain(x, w_head, k_top, **kw)  # noqa: E731
+        got, want = f(), p()
+        label = (f"M={m} K={d} N={n} k_top={k_top} (+prenorm, merge), "
+                 f"{'mask 1/8' if allowed is not None else 'no mask'}")
+        tol = 1e-3 * float(want[0][torch.isfinite(want[0])].abs().max())
+        check_topk(torch, f"{name} {label}", got, want, tol)
+        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + w_head.nbytes()
+                  + (n if allowed is not None else 0) + m * k_top * 8)
+        record(res, torch, name, label, got[0], want[0], tol, f, p, nbytes,
+               2 * m * n * d, iters=5,
+               primary=(m, k_top, allowed is not None) == (4, 64, False))
+    if not full:
+        return
+    x = xs[4]
+    # Fewer live columns than k_top: the rest is (-inf, index 0).
+    few = torch.zeros(n, dtype=torch.bool, device="cuda")
+    few[[5, 77, 131072, 200000, n - 1]] = True
+    kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm, allowed_mask=few)
+    got = mm.matmul_topk(x, w_head, 8, **kw)
+    want = mm.matmul_topk_plain(x, w_head, 8, **kw)
+    tol = 1e-3 * float(want[0][:, :5].abs().max())
+    check_topk(torch, f"{name} 5 live columns, k_top=8", got, want, tol)
+    if not (bool(torch.isneginf(got[0][:, 5:]).all())
+            and bool((got[1][:, 5:] == 0).all())):
+        fail(f"{name}: dead entries are not (-inf, 0): {got}")
+    # Saturated ties: logits scaled to a spread of 100, where f32 tanh
+    # gives exactly 1 for the top few hundred of a row (x / cap > 9.1), so
+    # the order among those equals is the index order alone.
+    spread = float(mm.matmul_plain(x, w_head, prologue_norm=fnorm).std())
+    hot = dataclasses.replace(w_head, scale=w_head.scale * 100 / spread)
+    kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm)
+    got = mm.matmul_topk(x, hot, 64, **kw)
+    want = mm.matmul_topk_plain(x, hot, 64, **kw)
+    ties = int((want[0] == want[0][:, :1]).sum())
+    print(f"[2] {name} saturated: {ties} of {want[0].numel()} entries tie "
+          f"with their row's maximum; indices equal "
+          f"{bool((got[1] == want[1]).all())}", flush=True)
+    if ties < 64 or not bool((got[1] == want[1]).all()) \
+            or float((got[0] - want[0]).abs().max()) > 1e-3 * cfg.final_cap:
+        fail(f"{name}: saturated ties are not broken by the lower index")
+    if kind != "i8":
+        return
+
+    def head():
+        return mm.matmul_topk(x, w_head, 64, final_cap=cfg.final_cap,
+                              prologue_norm=fnorm)
+
+    chosen = mm.TOPK_BLOCKS
+    sweep = []
+    for blocks in (132, 264, 528, 1056):
+        mm.TOPK_BLOCKS = blocks
+        sweep.append(f"{blocks}: {time_ms(torch, head, 5):.4f}")
+    mm.TOPK_BLOCKS = chosen
+    print(f"[2] {name} k_top=64, ms by TOPK_BLOCKS (the port uses {chosen}): "
+          f"{', '.join(sweep)}", flush=True)
+    # The merge pass alone: 528 sorted lists of 64 per row, exact.
+    m, blocks, k_top = 4, 528, 64
+    pv = torch.sort(torch.randn(m, blocks, k_top, generator=gen,
+                                device="cuda"), dim=-1,
+                    descending=True).values.contiguous()
+    pi = torch.randperm(m * blocks * k_top, generator=gen, device="cuda"
+                        ).to(torch.int32).reshape(m, blocks, k_top)
+    f = lambda: mm.topk_merge(pv, pi, k_top)  # noqa: E731
+    p = lambda: mm.topk_merge_plain(pv, pi, k_top)  # noqa: E731
+    got, want = f(), p()
+    if not bool((got[1] == want[1]).all()):
+        fail("topk_merge: indices differ from the plain version's")
+    record(res, torch, "topk_merge", f"M={m}, {blocks} lists of {k_top}",
+           got[0], want[0], 0.0, f, p,
+           2 * pv.numel() * 4 + 2 * m * k_top * 4, 0, primary=True)
+
+
+def phase_codecs(torch, res, cfg):
+    """K1, K2, K3 and K6 for sfp, bf16 and f32 weights (kind nuq holds SFP
+    bytes and runs the sfp kernels: it is not timed twice), every case
+    with a tensor scale != 1 except the dense prefill cases, which run at
+    scale 1 beside torch.nn.functional.linear on the same inputs.
+
+    Tolerances as for i8: 1e-3 of max|out| for f32 outputs (exact bf16
+    products, f32 sums in another order, rare one-ulp flips of the
+    bf16-rounded prologue A), 1e-2 for the gated GEMM's bf16 output."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.utils.synth import synth_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    d, ff, b, m_pre = cfg.model_dim, 9216, 4, 4 * 512
+    esize = {"sfp": 1, "bf16": 2, "f32": 4}
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def rel_tol(want, rel):
+        return rel * float(want.float().abs().max())
+
+    norm = randn(d, s=0.05)
+    x = randn(b, d, s=30.0)
+    a_pre = randn(m_pre, d).to(torch.bfloat16)
+    nuq = synth_quant(gen, 256, d, dev, "nuq")
+    got = mm.matmul(x, nuq, prologue_norm=norm)
+    want = mm.matmul_plain(x, nuq, prologue_norm=norm)
+    err = float((got - want).abs().max())
+    print(f"[2] kind nuq runs the sfp kernels (matmul_sfp launches "
+          f"{mm.MATMUL['sfp'].launches}): M=4 N=256 max_abs_err {err:.4g}",
+          flush=True)
+    if err > rel_tol(want, 1e-3):
+        fail("kind nuq disagrees with its plain version")
+    for kind in ("sfp", "bf16", "f32"):
+        dense = kind != "sfp"
+
+        def quant(n, k, scale=None, rms=None):
+            w = synth_quant(gen, n, k, dev, kind, rms=rms)
+            if scale is not None:
+                w = dataclasses.replace(w, scale=scale)
+            if w.scale == 1.0 and scale is None:
+                w = dataclasses.replace(w, scale=0.37)
+            return w
+
+        w_qkv = quant(4096, d)
+        f = lambda: mm.matmul(x, w_qkv, prologue_norm=norm)  # noqa: E731
+        p = lambda: mm.matmul_plain(x, w_qkv, prologue_norm=norm)  # noqa
+        want = p()
+        record(res, torch, f"matmul_{kind}",
+               f"decode qkv M=4 K={d} N=4096 (+prenorm pass), scale "
+               f"{w_qkv.scale:.3g}", f(), want, rel_tol(want, 1e-3), f, p,
+               b * d * 4 + d * 4 + w_qkv.nbytes() + b * 4096 * 4,
+               2 * b * 4096 * d, primary=not dense)
+        w_lin = quant(d, ff)
+        a = randn(b, ff, s=3.0).to(torch.bfloat16)
+        post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+        f = lambda: mm.matmul(a, w_lin, epilogue_norm=post, add=add)  # noqa
+        p = lambda: mm.matmul_plain(a, w_lin, epilogue_norm=post,  # noqa
+                                    add=add)
+        want = p()
+        record(res, torch, f"matmul_{kind}",
+               f"decode linear M=4 K={ff} N={d} (+postnorm pass)", f(), want,
+               rel_tol(want, 1e-3), f, p,
+               b * ff * 2 + w_lin.nbytes() + b * d * 4, 2 * b * d * ff)
+        del w_lin
+        # Prefill qkv: dense kinds at scale 1, beside F.linear on the same
+        # A and weights (A cast to the weights' type for f32).
+        w_pre = quant(4096, d, scale=1.0) if dense else w_qkv
+        lib = None
+        if dense:
+            a_lib = a_pre.to(w_pre.arrays["w"].dtype)
+            lib = lambda: F.linear(a_lib, w_pre.arrays["w"])  # noqa: E731
+        f = lambda: mm.matmul(a_pre, w_pre)  # noqa: E731
+        p = lambda: mm.matmul_plain(a_pre, w_pre)  # noqa: E731
+        want = p()
+        record(res, torch, f"matmul_{kind}",
+               f"prefill qkv M=2048 K={d} N=4096, scale {w_pre.scale:.3g}",
+               f(), want, rel_tol(want, 1e-3), f, p,
+               m_pre * d * 2 + w_pre.nbytes() + m_pre * 4096 * 4,
+               2 * m_pre * 4096 * d, iters=5, primary=dense, library=lib)
+        del w_pre, w_qkv
+        g1, g2 = quant(ff, d), quant(ff, d)
+        f = lambda: mm.gated_ffn(x, g1, g2, prologue_norm=norm)  # noqa: E731
+        p = lambda: mm.gated_ffn_plain(x, g1, g2, prologue_norm=norm)  # noqa
+        want = p()
+        record(res, torch, f"gated_{kind}",
+               f"decode M=4 K={d} N={ff} (+prenorm pass), scales "
+               f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
+               b * d * 4 + 2 * g1.nbytes() + b * ff * 2, 4 * b * ff * d,
+               primary=not dense)
+        lib = None
+        if dense:
+            g1, g2 = quant(ff, d, scale=1.0), quant(ff, d, scale=1.0)
+            a_lib = a_pre.to(g1.arrays["w"].dtype)
+            lib = lambda: F.gelu(F.linear(a_lib, g1.arrays["w"]),  # noqa
+                                 approximate="tanh") * F.linear(
+                a_lib, g2.arrays["w"])
+        f = lambda: mm.gated_ffn(a_pre, g1, g2)  # noqa: E731
+        p = lambda: mm.gated_ffn_plain(a_pre, g1, g2)  # noqa: E731
+        want = p()
+        record(res, torch, f"gated_{kind}",
+               f"prefill M=2048 K={d} N={ff}, scales {g1.scale:.3g}", f(),
+               want, rel_tol(want, 1e-2), f, p,
+               m_pre * d * 2 + 2 * g1.nbytes() + m_pre * ff * 2,
+               4 * m_pre * ff * d, iters=5, primary=dense, library=lib)
+        del g1, g2
+        # The heads, at the embedding's size.
+        w_head = quant(cfg.vocab_size, d)
+        fnorm = randn(d, s=0.05)
+        kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm)
+        f = lambda: mm.matmul_top1(x, w_head, **kw)  # noqa: E731
+        p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
+        (tok, prob), (want_tok, want_prob) = f(), p()
+        logits = mm.matmul_plain(x, w_head, prologue_norm=fnorm)
+        top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)
+                ).topk(2).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
+        bad = int(((tok != want_tok) & clear).sum())
+        print(f"[2] top1_{kind}: tokens {tok.tolist()} (plain "
+              f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
+              f"margin, {bad} differ", flush=True)
+        if bad or not bool(clear.any()):
+            fail(f"top1_{kind}: tokens differ from the plain version")
+        n = cfg.vocab_size
+        record(res, torch, f"top1_{kind}",
+               f"M=4 K={d} N={n} (+prenorm pass), prob, scale "
+               f"{w_head.scale:.3g}", prob, want_prob,
+               1e-4 * float(want_prob.abs().max()), f, p,
+               x.numel() * 4 + d * 4 + w_head.nbytes() + 2 * b * 4,
+               2 * b * n * d, iters=5, primary=True)
+        assert w_head.nbytes() == n * d * esize[kind]
+        phase_topk(torch, res, kind, w_head, fnorm, cfg, full=kind != "f32")
+        del w_head
+        torch.cuda.empty_cache()
+
+
+def phase_draw(torch, res, cfg):
+    """The draw kernel against its plain version: rows of a top-k head's
+    shape ([M, k] descending values), T in {0, 0.8, 1, 2}, k in {2, 64,
+    128}.  Probs within 1e-5 relative (the same softmax in another
+    order); tokens equal wherever the plain version's Gumbel-max margin
+    exceeds 1e-4 (log, exp and pow may differ in the last ulp)."""
+    from gemma_tpu_torch.ops import sampling
+    from gemma_tpu_torch.utils.basics import sample_key
+
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    for temperature in (0.0, 0.8, 1.0, 2.0):
+        for m, k in ((4, 64), (20, 2), (20, 128)):
+            vals = torch.sort(torch.randn(m, k, generator=gen, device="cuda")
+                              * 2, dim=-1, descending=True).values.contiguous()
+            idxs = torch.randint(0, cfg.vocab_size, (m, k), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            qi = torch.arange(m, dtype=torch.int32, device="cuda")
+            pos = torch.randint(0, 8192, (m,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            args = (vals, idxs, 20240607, qi, pos, temperature)
+            f = lambda: sampling.sample_stream(*args)  # noqa: E731
+            p = lambda: sampling.sample_stream_plain(*args)  # noqa: E731
+            (tok, prob), (want_tok, want_prob) = f(), p()
+            clear = torch.ones(m, dtype=torch.bool, device="cuda")
+            if temperature != 0.0:
+                pr = torch.softmax(vals, -1)
+                adj = pr ** (1.0 / temperature)
+                score = torch.log(adj / adj.sum(-1, keepdim=True)) \
+                    + sampling.gumbel(sample_key(20240607, qi, pos), k)
+                top2 = score.topk(2).values
+                clear = (top2[:, 0] - top2[:, 1]) > 1e-4
+            bad = int(((tok != want_tok) & clear).sum())
+            case = f"M={m} k={k} T={temperature}"
+            print(f"[2] draw_topk {case}: {int(clear.sum())} rows with a "
+                  f"clear Gumbel margin, {bad} tokens differ", flush=True)
+            if bad or not bool(clear.any()):
+                fail(f"draw_topk [{case}]: tokens differ from the plain "
+                     "version")
+            record(res, torch, "draw_topk", case, prob, want_prob,
+                   1e-5 * float(want_prob.abs().max()), f, p,
+                   m * k * 8 + m * 16, 0,
+                   primary=(m, k, temperature) == (4, 64, 0.8))
+
+
 def phase_two_layers(torch):
     """2 layers at Gemma2-2B width: kernels on the card vs plain on the CPU."""
     import dataclasses
@@ -549,34 +927,120 @@ def phase_two_layers(torch):
     cfg = dataclasses.replace(cfg, num_layers=2,
                               layer_configs=cfg.layer_configs[:2],
                               attention_window_sizes=[64, 8192])
-    params = synth_params(cfg, seed=7, device="cuda")
-    params_cpu = _to_device(params, "cpu")
     gen = torch.Generator().manual_seed(7)
     t = 96
     tokens = torch.randint(2, cfg.vocab_size, (1, t), generator=gen)
-    logits = {}
+    for kind in ("i8", "sfp"):
+        params = synth_params(cfg, kind=kind, seed=7, device="cuda")
+        params_cpu = _to_device(params, "cpu")
+        logits = {}
+        for dev, prm in (("cuda", params), ("cpu", params_cpu)):
+            cache = KVCache.create(cfg, 1, 8192, kind="i8", local_slack=256,
+                                   device=dev)
+            pos = torch.arange(t - 1)[None]
+            forward(prm, tokens[:, :-1].to(dev), pos.to(dev), cache, cfg,
+                    return_logits="none")
+            out, _ = forward(prm, tokens[:, -1:].to(dev),
+                             torch.tensor([[t - 1]], device=dev), cache, cfg,
+                             return_logits="last")
+            logits[dev] = out.float().cpu()
+        if not torch.isfinite(logits["cuda"]).all():
+            fail(f"2-layer {kind} model: non-finite logits on the card")
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        scale = float(logits["cpu"].abs().max())
+        # i8-KV full-forward tolerance of the JAX suite (test_parity_full.py).
+        tol = 2e-2 * scale
+        print(f"[3] 2-layer full-width {kind} weights, prefill {t - 1} + "
+              f"decode 1: card vs CPU plain last-logit max_abs_err {err:.4g} "
+              f"(tol {tol:.4g}, max|logit| {scale:.4g})", flush=True)
+        if err > tol:
+            fail(f"2-layer {kind} model disagrees between the card and the "
+                 "CPU")
+        if kind == "i8":
+            two_layer_chunks(torch, cfg, params, params_cpu,
+                             tokens[0].tolist())
+            # Sampled steps want a flat head: see FLAT_EMBEDDING_RMS.
+            flat = synth_params(cfg, seed=7, device="cuda",
+                                embedding_rms=FLAT_EMBEDDING_RMS)
+            two_layer_sampled(torch, cfg, flat, _to_device(flat, "cpu"),
+                              tokens[0].tolist())
+            del flat
+
+
+def two_layer_sampled(torch, cfg, params, params_cpu, prompt, steps: int = 4,
+                      top_k: int = 64, temperature: float = 0.8,
+                      seed: int = 1):
+    """Sampled steps on the card and on the CPU, teacher-forced by the
+    CPU's tokens so every step compares like with like: the fused top-k
+    head's values within 5e-3 of max|logit| (the bound of the greedy chunk
+    check above) and its indices wherever both neighbouring CPU values
+    are further apart than twice that; the drawn token wherever the CPU's
+    Gumbel-max margin exceeds 4 tol / T (each score moves by at most
+    2 tol / T with the values; entries that swap places below that margin
+    cannot win) and both lists hold the same index at the winning place."""
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig
+    from gemma_tpu_torch.models.gemma import forward
+    from gemma_tpu_torch.ops import sampling
+    from gemma_tpu_torch.utils.basics import sample_key
+
+    state = {}
     for dev, prm in (("cuda", params), ("cpu", params_cpu)):
-        cache = KVCache.create(cfg, 1, 8192, kind="i8", local_slack=256,
-                               device=dev)
-        pos = torch.arange(t - 1)[None]
-        forward(prm, tokens[:, :-1].to(dev), pos.to(dev), cache, cfg,
-                return_logits="none")
-        out, _ = forward(prm, tokens[:, -1:].to(dev),
-                         torch.tensor([[t - 1]], device=dev), cache, cfg,
-                         return_logits="last")
-        logits[dev] = out.float().cpu()
-    if not torch.isfinite(logits["cuda"]).all():
-        fail("2-layer model: non-finite logits on the card")
-    err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    scale = float(logits["cpu"].abs().max())
-    # i8-KV full-forward tolerance of the JAX suite (test_parity_full.py).
-    tol = 2e-2 * scale
-    print(f"[3] 2-layer full-width prefill {t - 1} + decode 1: card vs CPU "
-          f"plain last-logit max_abs_err {err:.4g} (tol {tol:.4g}, "
-          f"max|logit| {scale:.4g})", flush=True)
-    if err > tol:
-        fail("2-layer model disagrees between the card and the CPU")
-    two_layer_chunks(torch, cfg, params, params_cpu, tokens[0].tolist())
+        engine = GemmaEngine(prm, cfg, RuntimeConfig(seq_len=8192),
+                             device=dev)
+        cache = engine.new_cache(1)
+        engine.prefill([prompt], cache)
+        state[dev] = (prm, cache)
+    prev, pos = prompt[-1], len(prompt) - 1
+    pinned_total = drawn = 0
+    for step in range(steps):
+        heads = {}
+        for dev, (prm, cache) in state.items():
+            (vals, idxs), _ = forward(
+                prm, torch.tensor([[prev]], device=dev),
+                torch.tensor([[pos]], device=dev), cache, cfg,
+                return_logits="topk", top_k_n=top_k)
+            qi = torch.zeros(1, dtype=torch.int32, device=dev)
+            at = torch.tensor([pos + 1], dtype=torch.int32, device=dev)
+            tok, prob = sampling.sample_stream(vals, idxs, seed, qi, at,
+                                               temperature)
+            heads[dev] = (vals.cpu(), idxs.cpu(), int(tok[0]), float(prob[0]))
+        (cv, ci, ctok, _), (kv, ki, ktok, _) = heads["cpu"], heads["cuda"]
+        tol = 5e-3 * float(cv.abs().max())
+        err = float((kv - cv).abs().max())
+        gap = (cv[:, :-1] - cv[:, 1:]) > 2 * tol
+        pinned = torch.ones_like(cv, dtype=torch.bool)
+        pinned[:, 1:] &= gap
+        pinned[:, :-1] &= gap
+        bad = int(((ki != ci) & pinned).sum())
+        pr = torch.softmax(cv, -1) ** (1.0 / temperature)
+        score = torch.log(pr / pr.sum(-1, keepdim=True)) + sampling.gumbel(
+            sample_key(seed, 0, pos + 1), top_k)
+        top2 = score.topk(2).values[0]
+        margin = float(top2[0] - top2[1])
+        won = int(score.argmax())
+        decided = int(ki[0, won]) == int(ci[0, won]) \
+            and margin > 4 * tol / temperature
+        print(f"[3] sampled step {step}: top-{top_k} value max_abs_err "
+              f"{err:.4g} (tol {tol:.4g}), {int(pinned.sum())} entries "
+              f"pinned, {bad} indices differ; token card {ktok} CPU {ctok}, "
+              f"Gumbel margin {margin:.4g} "
+              f"({'decides' if decided else 'too close to call'})",
+              flush=True)
+        if err > tol or bad:
+            fail("the 2-layer top-k head disagrees between the card and "
+                 "the CPU")
+        if decided:
+            drawn += 1
+            if ktok != ctok:
+                fail("a sampled token with a clear Gumbel margin differs "
+                     "between the card and the CPU")
+        pinned_total += int(pinned.sum())
+        prev, pos = ctok, pos + 1
+    if not pinned_total or not drawn:
+        fail("2-layer sampled steps: no top-k entry or no drawn token had "
+             "a clear margin")
+    print(f"[3] 2-layer sampled steps: {drawn} of {steps} tokens decided "
+          "by a clear margin, all equal", flush=True)
 
 
 def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
@@ -623,14 +1087,20 @@ def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
 
 
 # The device functions of each counted kernel, as the profiler names them
-# (mm_i8_kernel's last template argument is GATED; the attention kernels
-# carry their pool type in their names).
+# (mm_<kind>_kernel's last template argument is GATED; the heads and the
+# attention kernels carry their weight or pool type in their names).
 def _port_kernel(device_name: str) -> str | None:
-    if device_name.startswith("void mm_i8_kernel<"):
-        return "gated_i8" if "true>" in device_name else "matmul_i8"
-    for fn, name in (("prenorm_kernel(", "matmul_i8_prenorm"),
-                     ("postnorm_add_kernel(", "matmul_i8_postnorm_add"),
-                     ("top1_i8_kernel(", "top1_i8")):
+    for kind in WEIGHT_KINDS:
+        if device_name.startswith(f"void mm_{kind}_kernel<"):
+            return f"gated_{kind}" if "true>" in device_name \
+                else f"matmul_{kind}"
+        for op in ("top1", "topk"):
+            if f"{op}_{kind}_kernel(" in device_name:
+                return f"{op}_{kind}"
+    for fn, name in (("prenorm_kernel(", "matmul_prenorm"),
+                     ("postnorm_add_kernel(", "matmul_postnorm_add"),
+                     ("topk_merge_kernel(", "topk_merge"),
+                     ("draw_topk_kernel(", "draw_topk")):
         if fn in device_name:
             return name
     for kind in ("i8", "bf16", "f32"):
@@ -640,7 +1110,8 @@ def _port_kernel(device_name: str) -> str | None:
     return None
 
 
-def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4):
+def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
+                   label: str = "4A"):
     """Device time by kernel over `chunks` decode chunks of k steps
     (torch.profiler), beside the host wall time of the same chunks: the
     device's idle share.  The profiler's own count of each kernel's
@@ -676,17 +1147,18 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4):
         if name is not None:
             seen[name] += e.count
     steps = chunks * k
-    print(f"[4A] {chunks} chunks of {k}: launches by counter "
+    print(f"[{label}] {chunks} chunks of {k}: launches by counter "
           f"{json.dumps(counted)}, by profiler {json.dumps(seen)}",
           flush=True)
     if seen != counted:
         fail("the launch counters disagree with the profiler's device trace")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
-    print(f"[4A] decode profile, {steps} steps in chunks of {k}: host wall "
-          f"{wall / steps:.3f} ms/step, device busy {busy / steps:.3f} "
+    print(f"[{label}] decode profile, {steps} steps in chunks of {k}: host "
+          f"wall {wall / steps:.3f} ms/step, device busy {busy / steps:.3f} "
           f"ms/step, idle share {1 - busy / wall:.3f}", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[4A]   {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+        print(f"[{label}]   "
+              f"{e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
               f"{e.count / steps:6.2f}/step  {e.key[:90]}", flush=True)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -696,8 +1168,8 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"[4A] one chunk of {k} under sync debug mode 'error': no host "
-          "sync", flush=True)
+    print(f"[{label}] one chunk of {k} under sync debug mode 'error': no "
+          "host sync", flush=True)
 
 
 def _to_device(params, dev):
@@ -727,10 +1199,12 @@ def counted_run(torch, fn):
     from gemma_tpu_torch.ops import decode_attention as da
     from gemma_tpu_torch.ops import flash_attention as fa
     from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.ops import sampling
 
     plain = {(mm, "matmul_plain"), (mm, "gated_ffn_plain"),
              (mm, "postnorm_add_plain"), (mm, "prenorm_plain"),
-             (mm, "matmul_top1_plain"),
+             (mm, "matmul_top1_plain"), (mm, "matmul_topk_plain"),
+             (mm, "topk_merge_plain"), (sampling, "sample_stream_plain"),
              (da, "decode_attention_write_packed_plain"),
              (fa, "flash_prefill_attention_plain")}
     saved = {(mod, n): getattr(mod, n) for mod, n in plain}
@@ -817,6 +1291,8 @@ def check_first_tokens(torch, engine, prompts, outs, cfg, label):
 
 
 def phase_main_path(torch, new_tokens: int = 32) -> dict:
+    import dataclasses
+
     from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig, TimingInfo
     from gemma_tpu_torch.models.configs import config_gemma2_2b
     from gemma_tpu_torch.models.gemma import forward
@@ -840,22 +1316,29 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         for name, c in counts.items():
             totals[name] = totals.get(name, 0) + c
 
-    def schedule(engine, steps, kind, head_k3, kv="bf16"):
+    def schedule(engine, steps, head, kv="bf16", wkind="i8"):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
-        and prefill attention per layer; a decode step 3 GEMMs (+ the i8
-        GEMM head on one-step chunks), the gated GEMM, 2 prologue and 2
-        epilogue passes per layer (+ the head's prologue), decode
-        attention per layer, and the fused head on multi-step chunks."""
+        and prefill attention per layer; a decode step 3 GEMMs, the gated
+        GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
+        decode attention per layer, then its head: "top1" the fused greedy
+        head, "topk" the fused top-k head with its merge pass and the
+        draw, "gemm" the head as one more GEMM (one-step chunks)."""
+        layers = len(engine.params.layers)
         chunk = engine.prefill_chunk(len(prompts), max(lens))
         rounds = -(-(max(lens) - 1) // chunk)
-        return {"matmul_i8": rounds * 3 * L + steps * 3 * L
-                + (0 if head_k3 else steps),
-                "matmul_i8_prenorm": steps * (2 * L + 1),
-                "matmul_i8_postnorm_add": steps * 2 * L,
-                "gated_i8": (rounds + steps) * L,
-                "top1_i8": steps if head_k3 else 0,
-                f"decode_attention_{kv}": steps * L,
-                f"flash_attention_{kv}": rounds * L}, rounds, chunk
+        want = {f"matmul_{wkind}": (rounds + steps) * 3 * layers
+                + (steps if head == "gemm" else 0),
+                "matmul_prenorm": steps * (2 * layers + 1),
+                "matmul_postnorm_add": steps * 2 * layers,
+                f"gated_{wkind}": (rounds + steps) * layers,
+                f"decode_attention_{kv}": steps * layers,
+                f"flash_attention_{kv}": rounds * layers}
+        if head == "top1":
+            want[f"top1_{wkind}"] = steps
+        if head == "topk":
+            want.update({f"topk_{wkind}": steps, "topk_merge": steps,
+                         "draw_topk": steps})
+        return want, rounds, chunk
 
     # --- A: the default RuntimeConfig ---
     engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192))
@@ -866,7 +1349,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     timing = TimingInfo()
     outs, counts = counted_run(torch, lambda: engine.generate_batch(
         prompts, max_generated_tokens=new_tokens, timing_info=timing))
-    want, rounds, chunk = schedule(engine, timing.decode_steps, "A", True)
+    want, rounds, chunk = schedule(engine, timing.decode_steps, "top1")
     print(f"[4A] prefill chunk {chunk} x {rounds} rounds, "
           f"{timing.decode_steps} decode steps", flush=True)
     check_counts("4A", counts, want)
@@ -885,7 +1368,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     engine.generate_fast([p[:40] for p in prompts], 4)
     fast, counts = counted_run(
         torch, lambda: engine.generate_fast(prompts, new_tokens))
-    want, _, _ = schedule(engine, new_tokens, "B", True, kv="i8")
+    want, _, _ = schedule(engine, new_tokens, "top1", kv="i8")
     check_counts("4B", counts, want)
     add(counts)
     ref = engine.generate_batch(prompts, max_generated_tokens=new_tokens)
@@ -918,7 +1401,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     timing = TimingInfo()
     outs, counts = counted_run(torch, lambda: engine.generate_batch(
         prompts, max_generated_tokens=new_tokens, timing_info=timing))
-    want, _, _ = schedule(engine, timing.decode_steps, "C", False, kv="i8")
+    want, _, _ = schedule(engine, timing.decode_steps, "gemm", kv="i8")
     check_counts("4C", counts, want)
     add(counts)
     timed_runs(torch, engine, prompts, new_tokens, "4C", timing)
@@ -948,10 +1431,102 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     timing = TimingInfo()
     outs, counts = counted_run(torch, lambda: engine.generate_batch(
         prompts, max_generated_tokens=8, timing_info=timing))
-    want, _, _ = schedule(engine, timing.decode_steps, "D", True, kv="f32")
+    want, _, _ = schedule(engine, timing.decode_steps, "top1", kv="f32")
     check_counts("4D", counts, want)
     add(counts)
     check_first_tokens(torch, engine, prompts, outs, cfg, "4D")
+    def counted_generate(label, engine, head, wkind, n_new, **kw):
+        """One counted generate_batch held to its schedule; (outs, timing)."""
+        timing = TimingInfo()
+        outs, counts = counted_run(torch, lambda: engine.generate_batch(
+            prompts, max_generated_tokens=n_new, timing_info=timing))
+        want, _, _ = schedule(engine, timing.decode_steps, head, wkind=wkind,
+                              **kw)
+        check_counts(label, counts, want)
+        add(counts)
+        for qi, o in enumerate(outs):
+            if not o or any(not (0 <= tok < cfg.vocab_size) for tok in o):
+                fail(f"path {label}, request {qi}: bad tokens {o}")
+        return outs, timing
+
+    sampled = dict(top_k=64, temperature=0.8, seed=1)
+
+    # --- E: sampled serving on the i8 weights, with a flat head so that
+    # the draw, not one dominant logit, decides each token ---
+    from gemma_tpu_torch.utils.synth import synth_quant
+
+    flat_gen = torch.Generator(device="cuda").manual_seed(11)
+    params = dataclasses.replace(params, embedding=synth_quant(
+        flat_gen, cfg.vocab_size, cfg.model_dim, "cuda", "i8",
+        rms=FLAT_EMBEDDING_RMS))
+    engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192, **sampled))
+    engine.generate_batch([p[:40] for p in prompts], max_generated_tokens=6)
+    outs, timing = counted_generate("4E", engine, "topk", "i8", new_tokens)
+    print(f"[4E] top_k 64, temperature 0.8, seed 1, embedding rms "
+          f"{FLAT_EMBEDDING_RMS}: first tokens {[o[:8] for o in outs]}",
+          flush=True)
+    greedy = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192)
+                         ).generate_batch(prompts, max_generated_tokens=8)
+    if all(o[:8] == g for o, g in zip(outs, greedy)):
+        fail("path E: the sampled transcripts equal the greedy ones")
+    timed_runs(torch, engine, prompts, new_tokens, "4E", timing)
+    profile_chunks(torch, engine, prompts, label="4E")
+    again = engine.generate_batch(prompts, max_generated_tokens=new_tokens)
+    if again != outs:
+        fail(f"path E: the same seed gave other tokens: {again} != {outs}")
+    # Query 0 alone (batch 1, the same 512-token prefill chunk) draws from
+    # the same (seed, query 0, position) streams as in the batch of 4.
+    alone = GemmaEngine(params, cfg, RuntimeConfig(
+        seq_len=8192, prefill_tbatch_size=512, **sampled)).generate_batch(
+        prompts[:1], max_generated_tokens=new_tokens)
+    if alone[0] != outs[0]:
+        fail(f"path E: query 0 alone {alone[0]} != in the batch {outs[0]}")
+    other = GemmaEngine(params, cfg, RuntimeConfig(
+        seq_len=8192, **{**sampled, "seed": 2})).generate_batch(
+        prompts, max_generated_tokens=8)
+    if other == [o[:8] for o in outs]:
+        fail("path E: another seed gave the same tokens")
+    print(f"[4E] same seed twice: equal tokens; query 0 alone at batch 1: "
+          f"equal tokens; seed 2 differs", flush=True)
+    del params, engine, greedy
+    torch.cuda.empty_cache()
+
+    # --- F: sfp weights, greedy (the default runtime), then sampled ---
+    # --- G: bf16 weights, sampled, then greedy ---
+    # --- H: f32 weights at 4 layers, greedy and sampled ---
+    short = dataclasses.replace(
+        cfg, num_layers=4, layer_configs=cfg.layer_configs[:4],
+        attention_window_sizes=cfg.attention_window_sizes[:4])
+    for label, wkind, config, runs in (
+            ("4F", "sfp", cfg, (("top1", new_tokens), ("topk", 8))),
+            ("4G", "bf16", cfg, (("topk", 8), ("top1", 8))),
+            ("4H", "f32", short, (("top1", 4), ("topk", 4)))):
+        t0 = time.monotonic()
+        prm = synth_params(config, kind=wkind, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"[{label}] Gemma2-2B width, {config.num_layers} layers, "
+              f"synthetic {wkind} weights on the card in "
+              f"{time.monotonic() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        for i, (head, n_new) in enumerate(runs):
+            rt = RuntimeConfig(seq_len=8192,
+                               **(sampled if head == "topk" else {}))
+            engine = GemmaEngine(prm, config, rt)
+            if i == 0:
+                engine.generate_batch([p[:40] for p in prompts],
+                                      max_generated_tokens=6)
+            outs, timing = counted_generate(
+                f"{label} {'sampled' if head == 'topk' else 'greedy'}",
+                engine, head, wkind, n_new)
+            if i == 0:
+                timed_runs(torch, engine, prompts, n_new, label, timing)
+            if head == "top1":
+                check_first_tokens(torch, engine, prompts, outs, config,
+                                   label)
+        del prm, engine
+        torch.cuda.empty_cache()
+
     missing = [name for name, c in totals.items() if c == 0]
     if missing:
         fail(f"kernels no counted path launched: {missing}")

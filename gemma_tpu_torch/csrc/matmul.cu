@@ -1,0 +1,1161 @@
+// Quantized-weight GEMMs for Hopper (sm_90a): K1, K2, K3 and K6 of the
+// port, each instantiated per weight codec (K7a's decoders).
+//
+// Replaces gemma_tpu/ops/matmul.py:_mm_kernel (K1, with the _norm_a
+// prologue and the post-norm + residual epilogue), matmul.py:_gated_kernel
+// (K2), matmul.py:_top1_kernel (K3, the fused greedy head; see top1_body
+// below), matmul.py:_topk_kernel (K6, the fused top-k head; see topk_body)
+// and, inside all four, matmul.py:_acc_step's i8, sfp/nuq and bf16/f32
+// branches with _sfp_tile_to_bf16 (K7a).  Computes
+//   C[M, N] = scale * A[M, K] . dequant(B)[N, K]^T
+// with A bf16, the B tile turned into bf16 in registers, products
+// accumulated in f32.  The codecs (template parameter CODEC):
+//   i8    codes i8 [N, K] + inv/zp f32 [N, K/128], dequant = inv*(c - zp)
+//         per 128-wide K group g, applied to the OUTPUT as the TPU kernel
+//         does: C += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g), so
+//         the codes feed the tensor cores raw (exact in bf16);
+//   sfp   bytes u8 [N, K] (also kind "nuq", whose device bytes are SFP):
+//         sign = bit 7, v = low 7 bits, bf16 bits 0x3400 + 32 v (v < 64) or
+//         0x3800 + 16 v, 0 for v = 0 (byte 0x80 is -0.0), by 16-bit-lane
+//         integer arithmetic on two values at a time; no group affine;
+//   bf16  [N, K]: the words feed the tensor cores as they are;
+//   f32   [N, K]: rounded to bf16 (nearest even) in registers, as the TPU
+//         kernel's b_tile.astype(a_tile.dtype) does with a bf16 A.
+// The gated variant keeps two accumulators over one A and emits bf16
+// gelu_tanh(C1) * C2 with matmul.py:664-665's constants.  One C entry per
+// GEMM runs up to three kernels on the stream:
+//   prenorm_kernel     A f32 -> bf16 RMSNorm(A) (f32 mean over the logical
+//                      K, (1 + w)), once per row instead of in every block;
+//   mm_<kind>_kernel   the GEMM (or gated GEMM);
+//   postnorm_add_kernel  out = add + postnorm(C) over whole rows: the post
+//                      norm needs all N = 2304 outputs of a row, which
+//                      blocks that split N cannot see.
+// Each entry reports through `launched` which of them it put on the stream
+// (kLaunched* bits), so the caller counts the launches that happened.
+//
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
+//   decode (M = B <= 16) is bytes-bound on the weights: N*K*esize bytes (+
+//   8*N*K/128 scale bytes for i8), e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us,
+//   the logits head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16)
+//   -> 182, 176, 352 us;
+//   prefill (M = 4*512) is operations-bound: 2*M*N*K, e.g. the gated FFN
+//   2*2*2048*9216*2304 = 174 GFLOP -> 176 us, whatever the codec;
+//   the heads (K3, K6) read the logits GEMM's weights and write no logits.
+// Simple design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
+// shared-memory staging.  Each warp owns a (16*MT) x (8*NT) output tile
+// and walks K in chunks of 64 bytes per B row (128, 64 or 32 elements at
+// 1, 2 or 4 bytes each): a lane loads 2 x 16 B per B row per chunk, so the
+// registers in flight are the same for every codec, and converts in
+// registers (byte permutes and adds for i8, common.cuh).  The K of a chunk
+// are permuted identically on A and B (a sum over k does not care) so each
+// lane's bytes are contiguous.  At M <= 16 eight warps split the chunks of
+// one 16x8 tile (reduced through shared memory) and the next chunk's bytes
+// are prefetched into registers.  Measured on the card, the decode GEMMs
+// are latency-bound (waves of short blocks), not bandwidth-bound; left for
+// later: TMA/cp.async multi-stage pipelines with persistent blocks,
+// wgmma for prefill, and fusing the passes.
+
+#include <climits>
+
+#include "common.cuh"
+
+using namespace gemma;
+
+enum : int { kI8 = 0, kSfp = 1, kBf16 = 2, kF32 = 3 };
+
+// A codec's element size and what follows from it: a lane loads 16 bytes
+// (kEpl elements) from each half of a chunk, the 4 lanes of a B row cover
+// 64 bytes per half, so a chunk spans 8 * kEpl of K in kEpl / 2 steps of
+// mma.sync m16n8k16 (each lane brings 4 consecutive K per step).
+template <int CODEC>
+struct Codec {
+  static constexpr int kEsize = CODEC == kBf16 ? 2 : CODEC == kF32 ? 4 : 1;
+  static constexpr int kEpl = 16 / kEsize;
+  static constexpr int kChunk = 8 * kEpl;  // 128, 64, 32 elements
+  static constexpr int kSteps = kEpl / 2;  // 8, 4, 2
+};
+
+struct MMArgs {
+  const __nv_bfloat16* a;  // [M, K]
+  const void* codes[2];    // [N, K] of the codec's element
+  const float* inv[2];     // i8 only: [N, K/128]
+  const float* zp[2];      // i8 only: [N, K/128]
+  float scale[2];
+  void* out;  // [M, N], f32 or bf16
+  int M, N, K;
+  int out_bf16;
+};
+
+template <int CODEC, int NB, int NT>
+__device__ __forceinline__ void load_b(uint4 (&dst)[NB][NT][2],
+                                       const MMArgs& p, int n0, int gid,
+                                       int t, int c) {
+  using C = Codec<CODEC>;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + gid;
+      if (n < p.N) {
+        const char* src = static_cast<const char*>(p.codes[b]) +
+            ((size_t)n * p.K + c * C::kChunk + C::kEpl * t) * C::kEsize;
+        dst[b][j][0] = __ldg(reinterpret_cast<const uint4*>(src));
+        dst[b][j][1] = __ldg(reinterpret_cast<const uint4*>(src + 64));
+      } else {
+        dst[b][j][0] = make_uint4(0, 0, 0, 0);
+        dst[b][j][1] = make_uint4(0, 0, 0, 0);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
+  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
+}
+
+// Two SFP bytes, one in the low byte of each 16-bit lane of x, -> two bf16
+// (matmul.py:_sfp_tile_to_bf16).  Lane masks come from a 0/1 bit times
+// 0xffff; no step carries from one lane into the other (v <= 127).
+__device__ __forceinline__ uint32_t sfp2_to_bf16x2(uint32_t x) {
+  const uint32_t sign = (x & 0x00800080u) << 8;
+  const uint32_t v = x & 0x007f007fu;
+  const uint32_t big = ((v >> 6) & 0x00010001u) * 0xffffu;  // v >= 64
+  const uint32_t nz = (((v + 0x007f007fu) >> 7) & 0x00010001u) * 0xffffu;
+  const uint32_t lo = 0x34003400u + (v << 5);
+  const uint32_t hi = 0x38003800u + (v << 4);
+  return (((lo & ~big) | (hi & big)) & nz) | sign;
+}
+
+// The B fragment (k, k+1 | k+2, k+3 as two bf16x2 words) of step `w` of
+// the half-chunk a lane holds in `q`.
+template <int CODEC>
+__device__ __forceinline__ void b_frag(const uint4& q, int w, uint32_t* bf) {
+  if constexpr (CODEC == kI8) {
+    i8x4_to_bf16x2(word_of(q, w), bf);
+  } else if constexpr (CODEC == kSfp) {
+    const uint32_t x = word_of(q, w);
+    bf[0] = sfp2_to_bf16x2(__byte_perm(x, 0, 0x4140u));
+    bf[1] = sfp2_to_bf16x2(__byte_perm(x, 0, 0x4342u));
+  } else if constexpr (CODEC == kBf16) {
+    bf[0] = word_of(q, 2 * w);
+    bf[1] = word_of(q, 2 * w + 1);
+  } else {
+    bf[0] = pack_bf16x2(__uint_as_float(q.x), __uint_as_float(q.y));
+    bf[1] = pack_bf16x2(__uint_as_float(q.z), __uint_as_float(q.w));
+  }
+}
+
+// The block's (16*MT) x BN output tile at rows m0.., columns nb..: on
+// return the warps with ks == 0 hold the full sums in `acc` (mma.sync
+// fragment layout: lane (gid, t) has rows gid and gid + 8 of each 16-row
+// tile, columns 2t and 2t + 1 of each 8-column tile).  Every thread of
+// the block must call it (it synchronizes), with the same m0 and nb.
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+__device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
+                                        float (&acc)[GATED ? 2 : 1][MT][NT][4]) {
+  using C = Codec<CODEC>;
+  constexpr bool AFFINE = CODEC == kI8;  // a chunk is a 128-wide group
+  constexpr int NB = GATED ? 2 : 1;
+  constexpr int TILES = WARPS / KSPLIT;
+  constexpr int FRAG = NB * MT * NT * 4;
+  constexpr int HS = C::kSteps / 2;  // steps per half-chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int ks = warp % KSPLIT, tile = warp / KSPLIT;
+  const int n0 = nb + tile * 8 * NT;
+  const int M = p.M, N = p.N, K = p.K, chunks = K / C::kChunk;
+
+  float part[AFFINE ? NB : 1][MT][NT][4];  // i8: one group's raw products
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[b][i][j][e] = 0.f;
+          if constexpr (AFFINE) part[b][i][j][e] = 0.f;
+        }
+
+  uint4 bcur[NB][NT][2];
+  if (ks < chunks) load_b<CODEC, NB, NT>(bcur, p, n0, gid, t, ks);
+
+  for (int c = ks; c < chunks; c += KSPLIT) {
+    uint4 bnext[NB][NT][2];
+    const int cn = c + KSPLIT;
+    if (cn < chunks) load_b<CODEC, NB, NT>(bnext, p, n0, gid, t, cn);
+
+    float psum[MT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) psum[i][0] = psum[i][1] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < C::kSteps; ++s) {
+      const int h = s / HS, w = s % HS;
+      const int k = c * C::kChunk + h * (C::kChunk / 2) + C::kEpl * t + 4 * w;
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + 16 * i + gid + 8 * hh;
+          uint2 x = make_uint2(0, 0);
+          if (row < M)
+            x = *reinterpret_cast<const uint2*>(p.a + (size_t)row * K + k);
+          af[i][hh] = x.x;      // a0 / a1: k, k+1
+          af[i][2 + hh] = x.y;  // a2 / a3: k+2, k+3
+          if constexpr (AFFINE) {
+            const float v0 = __uint_as_float(x.x << 16);
+            const float v1 = __uint_as_float(x.x & 0xffff0000u);
+            const float v2 = __uint_as_float(x.y << 16);
+            const float v3 = __uint_as_float(x.y & 0xffff0000u);
+            psum[i][hh] += (v0 + v1) + (v2 + v3);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bf[2];
+          b_frag<CODEC>(bcur[b][j][h], w, bf);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            if constexpr (AFFINE)
+              mma_bf16_16816(part[b][i][j], af[i], bf);
+            else
+              mma_bf16_16816(acc[b][i][j], af[i], bf);
+          }
+        }
+      }
+    }
+
+    if constexpr (AFFINE) {
+      // Group sums of A: each lane saw 32 of the 128 k; the 4 lanes of a
+      // row (t = 0..3) together saw all of them.
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          psum[i][hh] += __shfl_xor_sync(0xffffffffu, psum[i][hh], 1);
+          psum[i][hh] += __shfl_xor_sync(0xffffffffu, psum[i][hh], 2);
+        }
+      const int G = chunks, g = c;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int na = n0 + 8 * j + 2 * t;  // N is even: na + 1 < N too
+          float inva = 0.f, invb = 0.f, izpa = 0.f, izpb = 0.f;
+          if (na < N) {
+            inva = p.inv[b][(size_t)na * G + g];
+            invb = p.inv[b][(size_t)(na + 1) * G + g];
+            izpa = inva * p.zp[b][(size_t)na * G + g];
+            izpb = invb * p.zp[b][(size_t)(na + 1) * G + g];
+          }
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            float* cc = part[b][i][j];
+            acc[b][i][j][0] += inva * cc[0] - izpa * psum[i][0];
+            acc[b][i][j][1] += invb * cc[1] - izpb * psum[i][0];
+            acc[b][i][j][2] += inva * cc[2] - izpa * psum[i][1];
+            acc[b][i][j][3] += invb * cc[3] - izpb * psum[i][1];
+            cc[0] = cc[1] = cc[2] = cc[3] = 0.f;
+          }
+        }
+      }
+    }
+    if (cn < chunks) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          bcur[b][j][0] = bnext[b][j][0];
+          bcur[b][j][1] = bnext[b][j][1];
+        }
+    }
+  }
+
+  if constexpr (KSPLIT > 1) {
+    __shared__ float red[TILES][KSPLIT > 1 ? KSPLIT - 1 : 1][FRAG][32];
+    float* flat = &acc[0][0][0][0];
+    __syncthreads();  // a previous call's ks == 0 warps have read `red`
+    if (ks > 0) {
+#pragma unroll
+      for (int e = 0; e < FRAG; ++e) red[tile][ks - 1][e][lane] = flat[e];
+    }
+    __syncthreads();
+    if (ks == 0) {
+      for (int r = 0; r < KSPLIT - 1; ++r)
+#pragma unroll
+        for (int e = 0; e < FRAG; ++e) flat[e] += red[tile][r][e][lane];
+    }
+  }
+}
+
+// K1 / K2: one block's output tile, scaled (and gated), to global memory.
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+__device__ __forceinline__ void mm_body(const MMArgs& p) {
+  constexpr int NB = GATED ? 2 : 1;
+  constexpr int TILES = WARPS / KSPLIT;
+  constexpr int BM = 16 * MT;
+  constexpr int BN = TILES * 8 * NT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int ks = warp % KSPLIT, tile = warp / KSPLIT;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN + tile * 8 * NT;
+  const int M = p.M, N = p.N;
+
+  float acc[NB][MT][NT][4];
+  mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0, blockIdx.x * BN, acc);
+  if (ks != 0) return;
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + 16 * i + gid + 8 * h;
+        const int col = n0 + 8 * j + 2 * t;
+        if (row >= M || col >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float c1 = acc[0][i][j][2 * h + e] * p.scale[0];
+          if constexpr (GATED) {
+            const float c2 = acc[NB - 1][i][j][2 * h + e] * p.scale[1];
+            const float arg = c1 * (0.797884560804236f + 0.03567740813636141f * c1 * c1);
+            c1 = (c1 * (0.5f + 0.5f * tanhf(arg))) * c2;
+          }
+          v[e] = c1;
+        }
+        const size_t off = (size_t)row * N + col;
+        if (p.out_bf16) {
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + off) =
+              pack_bf16x2(v[0], v[1]);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
+              make_float2(v[0], v[1]);
+        }
+      }
+    }
+  }
+}
+
+// out[m] = bf16(RMSNorm(a[m]) * (1 + w)): the GEMM prologue, f32 math,
+// mean over the logical K.  One block per row.
+__global__ void __launch_bounds__(256) prenorm_kernel(
+    const float* a, const float* w, __nv_bfloat16* out, int K) {
+  const int row = blockIdx.x;
+  const float* ar = a + (size_t)row * K;
+  __shared__ float red[8];
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) ss += ar[k] * ar[k];
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) tot += red[i];
+  const float mul = 1.0f / sqrtf(tot / (float)K + 1e-6f);
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float m = ar[k] * mul;
+    out[(size_t)row * K + k] = __float2bfloat16_rn(m + m * w[k]);
+  }
+}
+
+// out[m] = (add[m]) + postnorm(y[m]) over whole rows of N; w or add may be
+// null.  One block per row; out may alias y.
+__global__ void __launch_bounds__(256) postnorm_add_kernel(
+    const float* y, const float* w, const float* add, void* out, int N,
+    int out_bf16) {
+  const int row = blockIdx.x;
+  const float* yr = y + (size_t)row * N;
+  float mul = 1.f;
+  if (w != nullptr) {
+    __shared__ float red[8];
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < N; k += blockDim.x) ss += yr[k] * yr[k];
+    ss = warp_sum(ss);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+    __syncthreads();
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tot += red[i];
+    mul = 1.0f / sqrtf(tot / (float)N + 1e-6f);
+  }
+  for (int k = threadIdx.x; k < N; k += blockDim.x) {
+    float v = yr[k];
+    if (w != nullptr) {
+      const float m = v * mul;
+      v = m + m * w[k];
+    }
+    if (add != nullptr) v += add[(size_t)row * N + k];
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[(size_t)row * N + k] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(out)[(size_t)row * N + k] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: the fused greedy head (replaces matmul.py:_top1_kernel).
+//
+// (token, prob) per row of softcap(scale * A . B^T) over all N columns
+// without writing the [M, N] logits.  Masked columns (allowed mask 0) and
+// columns past N are -inf: they leave the argmax and the sum.  Each block
+// walks `tpb` consecutive 8-column tiles (mm_tile, the decode GEMM's
+// 16x8 tile with 8 warps splitting K) and keeps, per row, the online
+// state (max m, sum s of exp(x - m), lowest index at m); the block's
+// states go to `part`, and the last block to finish (an atomic ticket)
+// merges them: s = sum_i s_i * exp(m_i - M), ties to the lowest index.
+// prob = 1 / max(s, 1e-30) (the winner's own term is exp(0) = 1); a row
+// with no live column gives token 0 (matmul.py:1303-1331).
+// need_prob = 0 skips the cap and the exp: argmax of the raw logits,
+// prob 1.0 (matmul.py:1243-1253).
+struct Top1Args {
+  MMArgs mm;
+  float cap;
+  const uint8_t* mask;  // [N] 0/1, or null
+  int need_prob;
+  int tpb;              // 8-column tiles per block
+  float* part_m;        // [M, gridDim.x]
+  float* part_s;
+  int* part_i;
+  int* ticket;          // zero before the launch; the last block re-zeroes it
+  int* tok;             // [M]
+  float* prob;          // [M]
+};
+
+struct Top1State {
+  float m, s;
+  int i;
+};
+
+// The merge of two online states (commutative; ties to the lowest index).
+__device__ __forceinline__ Top1State top1_merge(Top1State a, Top1State b,
+                                                bool need_prob) {
+  Top1State r;
+  r.m = fmaxf(a.m, b.m);
+  r.i = a.m > b.m ? a.i : b.m > a.m ? b.i : min(a.i, b.i);
+  r.s = 0.f;
+  if (need_prob) {
+    if (a.m != -INFINITY) r.s += a.s * expf(a.m - r.m);
+    if (b.m != -INFINITY) r.s += b.s * expf(b.m - r.m);
+  }
+  return r;
+}
+
+__device__ __forceinline__ Top1State top1_shfl(Top1State x, int mask) {
+  Top1State y;
+  y.m = __shfl_xor_sync(0xffffffffu, x.m, mask);
+  y.s = __shfl_xor_sync(0xffffffffu, x.s, mask);
+  y.i = __shfl_xor_sync(0xffffffffu, x.i, mask);
+  return y;
+}
+
+constexpr int kHeadWarps = 8;  // the decode GEMM's 8-way K split, one tile
+
+template <int CODEC>
+__device__ __forceinline__ void top1_body(const Top1Args& q) {
+  const MMArgs& p = q.mm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * 16;
+  const bool need_prob = q.need_prob != 0;
+  const bool capped = need_prob && q.cap != 0.f;
+  Top1State st[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) st[h] = {-INFINITY, 0.f, INT_MAX};
+
+  for (int c = 0; c < q.tpb; ++c) {
+    const int nb = (blockIdx.x * q.tpb + c) * 8;
+    if (nb >= p.N) break;  // uniform over the block
+    float acc[1][1][1][4];
+    mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
+    if (warp != 0) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // columns in increasing order
+        const int col = nb + 2 * t + e;
+        if (col >= p.N || (q.mask != nullptr && q.mask[col] == 0)) continue;
+        float v = acc[0][0][0][2 * h + e] * p.scale[0];
+        if (capped) v = q.cap * tanhf(v / q.cap);
+        Top1State& s = st[h];
+        if (v > s.m) {
+          if (need_prob) s.s = s.s * expf(s.m - v) + 1.f;
+          s.m = v;
+          s.i = col;
+        } else if (need_prob) {
+          s.s += expf(v - s.m);
+        }
+      }
+    }
+  }
+
+  __shared__ bool is_last;
+  if (warp == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // The 4 lanes of a row (t = 0..3) saw interleaved columns.
+      st[h] = top1_merge(st[h], top1_shfl(st[h], 1), need_prob);
+      st[h] = top1_merge(st[h], top1_shfl(st[h], 2), need_prob);
+      const int row = m0 + gid + 8 * h;
+      if (t == 0 && row < p.M) {
+        const size_t at = (size_t)row * gridDim.x + blockIdx.x;
+        q.part_m[at] = st[h].m;
+        q.part_s[at] = st[h].s;
+        q.part_i[at] = st[h].i;
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(q.ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The last block: one warp per row merges the row's gridDim.x states.
+  for (int row = warp; row < p.M; row += kHeadWarps) {
+    Top1State r = {-INFINITY, 0.f, INT_MAX};
+    for (int bx = lane; bx < (int)gridDim.x; bx += 32) {
+      const size_t at = (size_t)row * gridDim.x + bx;
+      r = top1_merge(r, {__ldcg(q.part_m + at), __ldcg(q.part_s + at),
+                         __ldcg(q.part_i + at)}, need_prob);
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) r = top1_merge(r, top1_shfl(r, o), need_prob);
+    if (lane == 0) {
+      q.tok[row] = r.m == -INFINITY ? 0 : r.i;
+      q.prob[row] = need_prob ? 1.0f / fmaxf(r.s, 1e-30f) : 1.0f;
+    }
+  }
+  if (threadIdx.x == 0) *q.ticket = 0;
+}
+
+// ---------------------------------------------------------------------------
+// K6: the fused top-k head (replaces matmul.py:_topk_kernel).
+//
+// Per row, the k_top <= 128 largest of softcap(scale * A . B^T) over all N
+// columns, as values f32 and column indices i32, descending, ties to the
+// lower index, without writing the [M, N] logits.  Masked columns and
+// columns past N never enter; when fewer than k_top columns are live the
+// remaining entries are (-inf, index 0) (matmul.py:1483-1491).
+//
+// The TPU kernel's grid walks N in order with one running list per row.
+// Here N is split over the blocks as in K3: each block walks `tpb`
+// consecutive 8-column tiles and keeps, per row, a sorted list of k_top
+// (value, index) pairs in shared memory (16 rows x 128 x 8 B).  After a
+// tile, warp 0 (which holds the 16x8 sums) tests its values against each
+// row's k_top-th entry; the few that pass are inserted one at a time by
+// the whole warp (count the entries that come before the candidate by
+// ballot, shift the tail by one).  Each block's lists go to `part`, and a
+// second kernel of the same C entry, topk_merge_kernel (one block per row),
+// merges the row's gridDim.x sorted lists the same way.  Everything
+// compares by (value descending, index ascending), a total order, so the
+// tie rule holds across tiles, blocks and the merge.
+constexpr int kTopkMax = 128;
+
+struct TopkArgs {
+  MMArgs mm;
+  float cap;
+  const uint8_t* mask;  // [N] 0/1, or null
+  int k_top;
+  int tpb;              // 8-column tiles per block
+  float* part_v;        // [M, gridDim.x, k_top]
+  int* part_i;
+};
+
+// (av, ai) comes before (bv, bi) in the output order.
+__device__ __forceinline__ bool topk_before(float av, int ai, float bv, int bi) {
+  return av > bv || (av == bv && ai < bi);
+}
+
+// The warp inserts (v, c) into the sorted list lv/li of 32 * kq slots; the
+// last entry drops out.
+__device__ __forceinline__ void topk_insert(float* lv, int* li, int kq,
+                                            float v, int c, int lane) {
+  float pv[kTopkMax / 32];
+  int pi[kTopkMax / 32];
+  int pos = 0;  // entries that come before the candidate: a prefix
+#pragma unroll
+  for (int q = 0; q < kTopkMax / 32; ++q) {
+    if (q < kq) {
+      const int s = lane + 32 * q;
+      pv[q] = s > 0 ? lv[s - 1] : 0.f;
+      pi[q] = s > 0 ? li[s - 1] : 0;
+      pos += __popc(__ballot_sync(0xffffffffu, topk_before(lv[s], li[s], v, c)));
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < kTopkMax / 32; ++q) {
+    if (q < kq) {
+      const int s = lane + 32 * q;
+      if (s == pos) {
+        lv[s] = v;
+        li[s] = c;
+      } else if (s > pos) {
+        lv[s] = pv[q];
+        li[s] = pi[q];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Every lane offers (v, c) (when live) to one list; the warp inserts, in
+// lane order, those that come before the list's k_top-th entry.  Returns
+// whether any did.
+__device__ __forceinline__ bool topk_offer(float* lv, int* li, int k_top,
+                                           bool live, float v, int c, int lane) {
+  const int kq = (k_top + 31) >> 5;
+  bool any = false;
+  for (;;) {
+    const float tv = lv[k_top - 1];
+    const int ti = li[k_top - 1];
+    const unsigned m =
+        __ballot_sync(0xffffffffu, live && topk_before(v, c, tv, ti));
+    if (m == 0) return any;
+    any = true;
+    const int src = __ffs(m) - 1;
+    topk_insert(lv, li, kq, __shfl_sync(0xffffffffu, v, src),
+                __shfl_sync(0xffffffffu, c, src), lane);
+    if (lane == src) live = false;
+  }
+}
+
+template <int CODEC>
+__device__ __forceinline__ void topk_body(const TopkArgs& q) {
+  __shared__ float lv[16][kTopkMax];
+  __shared__ int li[16][kTopkMax];
+  const MMArgs& p = q.mm;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * 16;
+  const int rows = min(16, p.M - m0);
+  const int k_top = q.k_top;
+  for (int i = threadIdx.x; i < 16 * kTopkMax; i += blockDim.x) {
+    (&lv[0][0])[i] = -INFINITY;
+    (&li[0][0])[i] = INT_MAX;
+  }
+  __syncthreads();
+
+  for (int c = 0; c < q.tpb; ++c) {
+    const int nb = (blockIdx.x * q.tpb + c) * 8;
+    if (nb >= p.N) break;  // uniform over the block
+    float acc[1][1][1][4];
+    mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
+    if (warp != 0) continue;
+    float v[4];
+    bool live[4], any = false;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = gid + 8 * h, col = nb + 2 * t + e;
+        float x = acc[0][0][0][2 * h + e] * p.scale[0];
+        if (q.cap != 0.f) x = q.cap * tanhf(x / q.cap);
+        v[2 * h + e] = x;
+        const bool ok = row < rows && col < p.N &&
+                        (q.mask == nullptr || q.mask[col] != 0);
+        live[2 * h + e] = ok;
+        if (ok)
+          any |= topk_before(x, col, lv[row][k_top - 1], li[row][k_top - 1]);
+      }
+    }
+    if (!__any_sync(0xffffffffu, any)) continue;
+    for (int r = 0; r < rows; ++r) {
+      const bool mine = gid == (r & 7);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = r < 8 ? v[e] : v[2 + e];
+        const bool ok = mine && (r < 8 ? live[e] : live[2 + e]);
+        topk_offer(lv[r], li[r], k_top, ok, x, nb + 2 * t + e, lane);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * k_top; i += blockDim.x) {
+    const int r = i / k_top, j = i % k_top;
+    const size_t at =
+        ((size_t)(m0 + r) * gridDim.x + blockIdx.x) * k_top + j;
+    q.part_v[at] = lv[r][j];
+    q.part_i[at] = li[r][j];
+  }
+}
+
+// Row blockIdx.x: merge its `nblocks` sorted lists of k_top pairs
+// (part_v / part_i [M, nblocks, k_top], dead entries (-inf, INT_MAX)) into
+// vals / idxs [M, k_top]; dead entries leave as (-inf, 0).  Eight warps
+// merge every eighth list each, then warp 0 merges the eight results.  A
+// list is sorted, so once 32 consecutive entries all fail the rest do too.
+constexpr int kMergeWarps = 8;
+
+__global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
+    const float* part_v, const int* part_i, int nblocks, int k_top,
+    float* vals, int* idxs) {
+  __shared__ float lv[kMergeWarps][kTopkMax];
+  __shared__ int li[kMergeWarps][kTopkMax];
+  const int row = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = lane; j < kTopkMax; j += 32) {
+    lv[warp][j] = -INFINITY;
+    li[warp][j] = INT_MAX;
+  }
+  __syncwarp();
+  for (int b = warp; b < nblocks; b += kMergeWarps) {
+    const size_t base = ((size_t)row * nblocks + b) * k_top;
+    for (int j0 = 0; j0 < k_top; j0 += 32) {
+      const int j = j0 + lane;
+      const bool live = j < k_top;
+      const float v = live ? part_v[base + j] : 0.f;
+      const int c = live ? part_i[base + j] : 0;
+      if (!topk_offer(lv[warp], li[warp], k_top, live, v, c, lane)) break;
+    }
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kMergeWarps; ++w) {
+    for (int j0 = 0; j0 < k_top; j0 += 32) {
+      const int j = j0 + lane;
+      const bool live = j < k_top;
+      const float v = live ? lv[w][j] : 0.f;
+      const int c = live ? li[w][j] : 0;
+      if (!topk_offer(lv[0], li[0], k_top, live, v, c, lane)) break;
+    }
+  }
+  for (int j = lane; j < k_top; j += 32) {
+    const float v = lv[0][j];
+    vals[(size_t)row * k_top + j] = v;
+    idxs[(size_t)row * k_top + j] = v == -INFINITY ? 0 : li[0][j];
+  }
+}
+
+// The kernels by name, one set per codec, so the launch counters and the
+// profiler tell the kinds apart.
+#define GEMMA_CODEC_KERNELS(KIND, CODEC)                                     \
+  template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>               \
+  __global__ void __launch_bounds__(WARPS * 32) mm_##KIND##_kernel(MMArgs p) { \
+    mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p);                         \
+  }                                                                          \
+  __global__ void __launch_bounds__(kHeadWarps * 32)                         \
+      top1_##KIND##_kernel(Top1Args q) {                                     \
+    top1_body<CODEC>(q);                                                     \
+  }                                                                          \
+  __global__ void __launch_bounds__(kHeadWarps * 32)                         \
+      topk_##KIND##_kernel(TopkArgs q) {                                     \
+    topk_body<CODEC>(q);                                                     \
+  }
+
+GEMMA_CODEC_KERNELS(i8, kI8)
+GEMMA_CODEC_KERNELS(sfp, kSfp)
+GEMMA_CODEC_KERNELS(bf16, kBf16)
+GEMMA_CODEC_KERNELS(f32, kF32)
+
+// Bits of an entry's `launched` report: its own kernel, then the passes.
+constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
+constexpr int kLaunchedMerge = 4;  // the top-k entries' second pass
+
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+static void launch_mm(const MMArgs& p, cudaStream_t st) {
+  constexpr int BN = (WARPS / KSPLIT) * 8 * NT;
+  const dim3 grid((p.N + BN - 1) / BN, (p.M + 16 * MT - 1) / (16 * MT));
+  if constexpr (CODEC == kI8)
+    mm_i8_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+  else if constexpr (CODEC == kSfp)
+    mm_sfp_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+  else if constexpr (CODEC == kBf16)
+    mm_bf16_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+  else
+    mm_f32_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+}
+
+// A for the GEMM: `a` itself (bf16), or RMSNorm(a) written to a_scratch
+// when a prologue norm is given (a is then f32).
+static const __nv_bfloat16* operand_a(const void* a, const float* norm,
+                                      __nv_bfloat16* a_scratch, int M, int K,
+                                      int* launched, cudaStream_t st) {
+  if (norm == nullptr) return static_cast<const __nv_bfloat16*>(a);
+  prenorm_kernel<<<M, 256, 0, st>>>(static_cast<const float*>(a), norm, a_scratch, K);
+  *launched |= kLaunchedPrenorm;
+  return a_scratch;
+}
+
+static void set_b(MMArgs& p, int b, const void* codes, const float* inv,
+                  const float* zp, float scale) {
+  p.codes[b] = codes;
+  p.inv[b] = inv;
+  p.zp[b] = zp;
+  p.scale[b] = scale;
+}
+
+// out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
+// y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
+template <int CODEC>
+static int matmul_entry(const void* a, const float* norm, const void* codes,
+                        const float* inv, const float* zp, float scale,
+                        const float* post_w, const float* add,
+                        __nv_bfloat16* a_scratch, float* y, void* out, int M,
+                        int N, int K, int out_bf16, int* launched,
+                        cudaStream_t st) {
+  const bool post = post_w != nullptr || add != nullptr;
+  *launched = 0;
+  if (K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
+  MMArgs p = {};
+  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  set_b(p, 0, codes, inv, zp, scale);
+  set_b(p, 1, codes, inv, zp, scale);
+  p.out = post ? static_cast<void*>(y) : out;
+  p.M = M; p.N = N; p.K = K;
+  p.out_bf16 = post ? 0 : out_bf16;
+  if (M <= 16)
+    launch_mm<CODEC, 1, 1, 8, 8, false>(p, st);
+  else
+    launch_mm<CODEC, 2, 4, 1, 4, false>(p, st);
+  *launched |= kLaunchedSelf;
+  if (post) {
+    postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
+    *launched |= kLaunchedPostnorm;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int CODEC>
+static int gated_entry(const void* a, const float* norm, const void* codes1,
+                       const float* inv1, const float* zp1, float scale1,
+                       const void* codes2, const float* inv2,
+                       const float* zp2, float scale2,
+                       __nv_bfloat16* a_scratch, void* out, int M, int N,
+                       int K, int* launched, cudaStream_t st) {
+  *launched = 0;
+  if (K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
+  MMArgs p = {};
+  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  set_b(p, 0, codes1, inv1, zp1, scale1);
+  set_b(p, 1, codes2, inv2, zp2, scale2);
+  p.out = out; p.M = M; p.N = N; p.K = K; p.out_bf16 = 1;
+  if (M <= 16)
+    launch_mm<CODEC, 1, 1, 8, 8, true>(p, st);
+  else
+    launch_mm<CODEC, 2, 2, 1, 4, true>(p, st);
+  *launched |= kLaunchedSelf;
+  return (int)cudaGetLastError();
+}
+
+// The 8-column tiles of N split evenly over at most `blocks` blocks (per
+// 16 rows): tiles per block, and the grid.
+static dim3 head_grid(int M, int N, int blocks, int* tpb) {
+  const int tiles = (N + 7) / 8;
+  const int want = min(blocks, tiles);
+  *tpb = (tiles + want - 1) / want;
+  return dim3((tiles + *tpb - 1) / *tpb, (M + 15) / 16);
+}
+
+// The greedy head: (tok, prob) of softcap(scale * A . B^T), A RMS-normalized
+// first when `norm` is given (then a is f32 and a_scratch bf16 [M, K]).
+// part_*: [M, blocks] scratch; ticket: one int, zero between calls.
+template <int CODEC>
+static int top1_entry(const void* a, const float* norm, const void* codes,
+                      const float* inv, const float* zp, float scale,
+                      float cap, const uint8_t* mask, int need_prob,
+                      __nv_bfloat16* a_scratch, float* part_m, float* part_s,
+                      int* part_i, int* ticket, int* tok, float* prob, int M,
+                      int N, int K, int blocks, int* launched,
+                      cudaStream_t st) {
+  *launched = 0;
+  if (blocks < 1 || K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
+  Top1Args q = {};
+  q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  set_b(q.mm, 0, codes, inv, zp, scale);
+  set_b(q.mm, 1, codes, inv, zp, scale);
+  q.mm.M = M; q.mm.N = N; q.mm.K = K;
+  q.cap = cap; q.mask = mask; q.need_prob = need_prob;
+  q.part_m = part_m; q.part_s = part_s; q.part_i = part_i;
+  q.ticket = ticket; q.tok = tok; q.prob = prob;
+  const dim3 grid = head_grid(M, N, blocks, &q.tpb);
+  if constexpr (CODEC == kI8)
+    top1_i8_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kSfp)
+    top1_sfp_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kBf16)
+    top1_bf16_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else
+    top1_f32_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  *launched |= kLaunchedSelf;
+  return (int)cudaGetLastError();
+}
+
+// The top-k head: vals / idxs [M, k_top] of softcap(scale * A . B^T).
+// part_v / part_i: [M, blocks, k_top] scratch for the blocks' lists.
+template <int CODEC>
+static int topk_entry(const void* a, const float* norm, const void* codes,
+                      const float* inv, const float* zp, float scale,
+                      float cap, const uint8_t* mask, int k_top,
+                      __nv_bfloat16* a_scratch, float* part_v, int* part_i,
+                      float* vals, int* idxs, int M, int N, int K, int blocks,
+                      int* launched, cudaStream_t st) {
+  *launched = 0;
+  if (blocks < 1 || k_top < 1 || k_top > kTopkMax ||
+      K % Codec<CODEC>::kChunk)
+    return (int)cudaErrorInvalidValue;
+  TopkArgs q = {};
+  q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  set_b(q.mm, 0, codes, inv, zp, scale);
+  set_b(q.mm, 1, codes, inv, zp, scale);
+  q.mm.M = M; q.mm.N = N; q.mm.K = K;
+  q.cap = cap; q.mask = mask; q.k_top = k_top;
+  q.part_v = part_v; q.part_i = part_i;
+  const dim3 grid = head_grid(M, N, blocks, &q.tpb);
+  if constexpr (CODEC == kI8)
+    topk_i8_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kSfp)
+    topk_sfp_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kBf16)
+    topk_bf16_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else
+    topk_f32_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  *launched |= kLaunchedSelf;
+  topk_merge_kernel<<<M, kMergeWarps * 32, 0, st>>>(part_v, part_i, grid.x,
+                                                    k_top, vals, idxs);
+  *launched |= kLaunchedMerge;
+  return (int)cudaGetLastError();
+}
+
+// The C entries, one per GEMM and codec (kind "nuq" calls the sfp ones).
+// inv and zp are read for i8 only.
+
+extern "C" int gemma_matmul_i8(const void* a, const float* norm,
+                                   const void* codes, const float* inv,
+                                   const float* zp, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kI8>(a, norm, codes, inv, zp, scale, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_i8(const void* a, const float* norm,
+                                  const void* codes1, const float* inv1,
+                                  const float* zp1, float scale1,
+                                  const void* codes2, const float* inv2,
+                                  const float* zp2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kI8>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
+                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_i8(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kI8>(a, norm, codes, inv, zp, scale, cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_i8(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kI8>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+extern "C" int gemma_matmul_sfp(const void* a, const float* norm,
+                                   const void* codes, const float* inv,
+                                   const float* zp, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kSfp>(a, norm, codes, inv, zp, scale, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_sfp(const void* a, const float* norm,
+                                  const void* codes1, const float* inv1,
+                                  const float* zp1, float scale1,
+                                  const void* codes2, const float* inv2,
+                                  const float* zp2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kSfp>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
+                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_sfp(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kSfp>(a, norm, codes, inv, zp, scale, cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_sfp(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kSfp>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+extern "C" int gemma_matmul_bf16(const void* a, const float* norm,
+                                   const void* codes, const float* inv,
+                                   const float* zp, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kBf16>(a, norm, codes, inv, zp, scale, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_bf16(const void* a, const float* norm,
+                                  const void* codes1, const float* inv1,
+                                  const float* zp1, float scale1,
+                                  const void* codes2, const float* inv2,
+                                  const float* zp2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kBf16>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
+                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_bf16(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kBf16>(a, norm, codes, inv, zp, scale, cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_bf16(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kBf16>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+extern "C" int gemma_matmul_f32(const void* a, const float* norm,
+                                   const void* codes, const float* inv,
+                                   const float* zp, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kF32>(a, norm, codes, inv, zp, scale, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_f32(const void* a, const float* norm,
+                                  const void* codes1, const float* inv1,
+                                  const float* zp1, float scale1,
+                                  const void* codes2, const float* inv2,
+                                  const float* zp2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kF32>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
+                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_f32(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kF32>(a, norm, codes, inv, zp, scale, cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_f32(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kF32>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+// The passes alone, for checking each against its plain version.
+extern "C" int gemma_prenorm_bf16(const float* a, const float* w,
+                                  __nv_bfloat16* out, int M, int K,
+                                  int* launched, cudaStream_t st) {
+  prenorm_kernel<<<M, 256, 0, st>>>(a, w, out, K);
+  *launched = kLaunchedSelf;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gemma_postnorm_add(const float* y, const float* w,
+                                  const float* add, void* out, int M, int N,
+                                  int out_bf16, int* launched,
+                                  cudaStream_t st) {
+  postnorm_add_kernel<<<M, 256, 0, st>>>(y, w, add, out, N, out_bf16);
+  *launched = kLaunchedSelf;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gemma_topk_merge(const float* part_v, const int* part_i,
+                                float* vals, int* idxs, int M, int nblocks,
+                                int k_top, int* launched, cudaStream_t st) {
+  *launched = 0;
+  if (k_top < 1 || k_top > kTopkMax) return (int)cudaErrorInvalidValue;
+  topk_merge_kernel<<<M, kMergeWarps * 32, 0, st>>>(part_v, part_i, nblocks,
+                                                    k_top, vals, idxs);
+  *launched = kLaunchedSelf;
+  return (int)cudaGetLastError();
+}

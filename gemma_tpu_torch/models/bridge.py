@@ -8,11 +8,13 @@ here (this module never imports the JAX package).  A weight is
      "arrays": {"codes": i8 [N, K], "inv_scales": f32 [N, K/128],
                 "zeropoints": f32 [N, K/128]}}
 
-(or kind "f32"/"bf16" with arrays {"w": [N, K]}).  JAX's i8 layout is
-taken as it is: the CUDA GEMMs read codes row-major and the group
-scales as [N, K/128], so nothing is re-laid.  A layer carries either
-"qkv_cat" or the split "qkv1"/"qkv2", which are row-concatenated here
-(the port runs one qkv GEMM per layer).
+(kind "sfp"/"nuq" with arrays {"codes": u8 [N, K]}, kind "f32"/"bf16"
+with arrays {"w": [N, K]}; each with its tensor `scale`).  JAX's layouts
+are taken as they are: the CUDA GEMMs read codes and dense weights
+row-major and the i8 group scales as [N, K/128], so nothing is re-laid.
+The 4.5-bit kinds "i4"/"nuq4" raise NotImplementedError (slice 4).  A
+layer carries either "qkv_cat" or the split "qkv1"/"qkv2", which are
+row-concatenated here (the port runs one qkv GEMM per layer).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from gemma_tpu_torch.models.configs import ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.models.kv_cache import KVCache
-from gemma_tpu_torch.ops.matmul import QuantTensor, concat_rows
+from gemma_tpu_torch.ops.matmul import (KINDS, QuantTensor, unknown_kind,
+                                        concat_rows)
 from gemma_tpu_torch.utils.basics import resolve_device
 
 
@@ -36,6 +39,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def quant_tensor_from_numpy(qt: dict, device) -> QuantTensor:
+    if qt["kind"] not in KINDS:
+        raise unknown_kind(qt["kind"])
     return QuantTensor(
         qt["kind"], tuple(int(s) for s in qt["shape"]), float(qt["scale"]),
         {k: tensor_from_numpy(v, device) for k, v in qt["arrays"].items()})
@@ -57,6 +62,9 @@ def params_from_numpy(tree: dict, config: ModelConfig,
         else:
             qkv = concat_rows(quant_tensor_from_numpy(lt["qkv1"], device),
                               quant_tensor_from_numpy(lt["qkv2"], device))
+            if qkv is None:
+                raise ValueError("qkv1 and qkv2 differ in kind, K or scale "
+                                 "and cannot become one qkv GEMM")
         layers.append(LayerParams(
             qkv_cat=qkv,
             att_w=quant_tensor_from_numpy(lt["att_w"], device),

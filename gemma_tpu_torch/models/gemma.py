@@ -7,8 +7,9 @@ token step and returns (logits, (token, prob) or None; cache); the cache
 is updated in place.  Decode (T == 1) runs the fused layer: the pre-norms
 ride the GEMM prologues, the post-norms and residual adds the K1 epilogue
 pass, and QK norms + RoPE + the row write + attention run in the K4
-kernel.  The greedy head (return_logits="top1") is K3, with the final
-norm as its prologue.
+kernel.  The greedy head (return_logits="top1") is K3 and the top-k head
+of sampled decode (return_logits="topk") is K6, each with the final norm
+as its prologue.
 Prefill keeps the composed path: plain-torch norms, RoPE and the cache
 scatter around the K1/K2 GEMMs and the K5 attention kernel.
 
@@ -33,7 +34,8 @@ from gemma_tpu_torch.ops.decode_attention import (
     RopeSpec, decode_attention_write_packed)
 from gemma_tpu_torch.ops.flash_attention import flash_prefill_attention
 from gemma_tpu_torch.ops.matmul import (QuantTensor, gated_ffn, matmul,
-                                        matmul_top1)
+                                        matmul_top1, matmul_topk, sfp_decode,
+                                        unknown_kind)
 
 
 @dataclasses.dataclass
@@ -74,6 +76,8 @@ def embed_tokens(embedding: QuantTensor, tokens: torch.Tensor,
     tok = tokens.long()
     if embedding.kind in ("bf16", "f32"):
         rows = embedding.arrays["w"][tok].float()
+    elif embedding.kind in ("sfp", "nuq"):
+        rows = sfp_decode(embedding.arrays["codes"][tok])
     elif embedding.kind == "i8":
         codes = embedding.arrays["codes"][tok].float()
         inv = embedding.arrays["inv_scales"][tok]
@@ -82,7 +86,7 @@ def embed_tokens(embedding: QuantTensor, tokens: torch.Tensor,
         shaped = codes.reshape(*codes.shape[:-1], g, codes.shape[-1] // g)
         rows = (inv[..., None] * (shaped - zp[..., None])).reshape(codes.shape)
     else:
-        raise NotImplementedError(f"embedding kind {embedding.kind}")
+        raise unknown_kind(embedding.kind)
     return rows * emb_scale
 
 
@@ -185,7 +189,7 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, config: ModelConfig, prefix_end=0,
             return_logits: str = "all", valid: torch.Tensor | None = None,
             top1_mask: torch.Tensor | None = None,
-            top1_need_prob: bool = True):
+            top_k_n: int = 0, top1_need_prob: bool = True):
     """Run the stack over a [B, T] token step (gemma.py:289-381).
 
     return_logits: "all" -> [B, T, vocab]; "last" -> [B, vocab] for the
@@ -193,12 +197,12 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     (token int32 [B], prob f32 [B]), the greedy head fused into the logits
     GEMM (K3), constrained by top1_mask [vocab] bool when given;
     top1_need_prob=False returns the raw-logits argmax with prob 1.0;
-    "none" -> None.  Returns (that, cache); the cache is updated in
-    place."""
-    if return_logits == "topk":
-        raise NotImplementedError(
-            "return_logits='topk' needs the fused top-k head (the TPU's "
-            "_topk_kernel, K6), the sampled-decode slice")
+    "topk" -> (values f32 [B, top_k_n], indices int32 [B, top_k_n]), the
+    top-k head of sampled decode fused into the logits GEMM (K6), under
+    the same mask; "none" -> None.  Returns (that, cache); the cache is
+    updated in place."""
+    if return_logits == "topk" and top_k_n < 1:
+        raise ValueError("return_logits='topk' needs top_k_n >= 1")
     lc = config.layer_configs[0]
     device = params.device
     x = embed_tokens(params.embedding, tokens, config.model_dim)
@@ -217,6 +221,12 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
                            final_cap=config.final_cap,
                            prologue_norm=params.final_norm,
                            allowed_mask=top1_mask, need_prob=top1_need_prob)
+        return head, cache
+    if return_logits == "topk":
+        head = matmul_topk(x[:, -1, :].contiguous(), params.embedding,
+                           top_k_n, final_cap=config.final_cap,
+                           prologue_norm=params.final_norm,
+                           allowed_mask=top1_mask)
         return head, cache
     if return_logits == "last":
         x1 = x[:, -1, :].contiguous()

@@ -176,10 +176,12 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def all_kernels() -> list[Kernel]:
     """Every kernel of the port, in the order of the TPU kernel table."""
-    from gemma_tpu_torch.ops import decode_attention, flash_attention, matmul
+    from gemma_tpu_torch.ops import (decode_attention, flash_attention,
+                                     matmul, sampling)
 
-    return [matmul.MATMUL_I8, matmul.PRENORM, matmul.POSTNORM_ADD,
-            matmul.GATED_I8, matmul.TOP1_I8,
+    return [*matmul.MATMUL.values(), matmul.PRENORM, matmul.POSTNORM_ADD,
+            *matmul.GATED.values(), *matmul.TOP1.values(),
+            *matmul.TOPK.values(), matmul.TOPK_MERGE, sampling.DRAW_TOPK,
             decode_attention.DECODE_ATTENTION_I8,
             decode_attention.DECODE_ATTENTION_BF16,
             decode_attention.DECODE_ATTENTION_F32,

@@ -3,17 +3,23 @@ reference's `CallMatMul` / `TwoMatMul`, ops/matmul-inl.h).
 
     C[M, N] = scale * (A[M, K] . B[N, K]^T)
 
-with B stored row-major transposed, as in `.sbs` files.  This slice
-carries the "i8" codec (codes i8 [N, K] + per-128-group `inv_scales`
-and `zeropoints` f32 [N, K/128], dequant = inv * (c - zp)) and the dense
-"f32"/"bf16" kinds on the CPU.
+with B stored row-major transposed, as in `.sbs` files.  The codecs this
+port carries (QuantTensor.kind):
+  "i8"   codes i8 [N, K] + per-128-group `inv_scales` and `zeropoints`
+         f32 [N, K/128], dequant = inv * (c - zp);
+  "sfp"  codes u8 [N, K], gemma.cpp's 8-bit switching float, decoded by
+         integer arithmetic (`sfp_decode`);
+  "nuq"  codes u8 [N, K] of per-element SFP bytes: the same decode;
+  "bf16" / "f32"  w [N, K], dense.
+The 4.5-bit kinds "i4" and "nuq4" raise NotImplementedError (slice 4).
 
 Every GEMM has a kernel path and a plain path.  For CUDA tensors the
-wrappers launch the hand-written kernels of csrc/matmul_i8.cu (K1 with
-its norm prologue and post-norm passes, K2, and K3, the fused greedy
-head `matmul_top1`) or raise; for CPU tensors
-they take the plain versions below, which compute the same function with
-the same group affine applied to the output:
+wrappers launch the hand-written kernels of csrc/matmul.cu (K1 with its
+norm prologue and post-norm passes, K2, K3 the fused greedy head
+`matmul_top1`, K6 the fused top-k head `matmul_topk`, each built once per
+codec) or raise; for CPU tensors they take the plain versions below,
+which compute the same function: the B tile becomes bf16 (A's dtype) and
+feeds the product, and the i8 group affine is applied to the output:
     out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g).
 """
 
@@ -27,37 +33,73 @@ from gemma_tpu_torch.ops import _cuda
 from gemma_tpu_torch.ops.ops import rms_norm, soft_cap
 
 GROUP = 128
+KINDS = ("i8", "sfp", "nuq", "bf16", "f32")
+LATER_KINDS = ("i4", "nuq4")
+# The kernels' codec of each kind (nuq's device bytes are SFP bytes), and
+# what K must be a multiple of: the kernels walk K in chunks of 64 bytes
+# per row, a group for i8.
+_CODEC = {"i8": "i8", "sfp": "sfp", "nuq": "sfp", "bf16": "bf16",
+          "f32": "f32"}
+K_MULTIPLE = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32}
+MAX_TOPK = 128  # K6's list per row; above it the head is composed
 
+SOURCE = "matmul.cu"
 PRENORM = _cuda.Kernel(
-    "matmul_i8_prenorm", "matmul_i8.cu", "gemma_prenorm_bf16",
+    "matmul_prenorm", SOURCE, "gemma_prenorm_bf16",
     [_cuda.P] * 3 + [_cuda.I] * 2)
 POSTNORM_ADD = _cuda.Kernel(
-    "matmul_i8_postnorm_add", "matmul_i8.cu", "gemma_postnorm_add",
+    "matmul_postnorm_add", SOURCE, "gemma_postnorm_add",
+    [_cuda.P] * 4 + [_cuda.I] * 3)
+# K6's second kernel: merges the blocks' sorted lists, one block per row.
+TOPK_MERGE = _cuda.Kernel(
+    "topk_merge", SOURCE, "gemma_topk_merge",
     [_cuda.P] * 4 + [_cuda.I] * 3)
 # One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass]
 # and reports which of them it launched; each is counted on its own Kernel.
-MATMUL_I8 = _cuda.Kernel(
-    "matmul_i8", "matmul_i8.cu", "gemma_matmul_i8",
+# One set of entries per codec, so the counts tell the kinds apart.
+MATMUL = {c: _cuda.Kernel(
+    f"matmul_{c}", SOURCE, f"gemma_matmul_{c}",
     [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 5 + [_cuda.I] * 4,
-    passes=(PRENORM, POSTNORM_ADD))
-GATED_I8 = _cuda.Kernel(
-    "gated_i8", "matmul_i8.cu", "gemma_gated_i8",
+    passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
+GATED = {c: _cuda.Kernel(
+    f"gated_{c}", SOURCE, f"gemma_gated_{c}",
     [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 3 + [_cuda.F]
     + [_cuda.P] * 2 + [_cuda.I] * 3,
-    passes=(PRENORM,))
-TOP1_I8 = _cuda.Kernel(
-    "top1_i8", "matmul_i8.cu", "gemma_top1_i8",
+    passes=(PRENORM,)) for c in K_MULTIPLE}
+TOP1 = {c: _cuda.Kernel(
+    f"top1_{c}", SOURCE, f"gemma_top1_{c}",
     [_cuda.P] * 5 + [_cuda.F] * 2 + [_cuda.P] + [_cuda.I] + [_cuda.P] * 7
     + [_cuda.I] * 4,
-    passes=(PRENORM,))
+    passes=(PRENORM,)) for c in K_MULTIPLE}
+TOPK = {c: _cuda.Kernel(
+    f"topk_{c}", SOURCE, f"gemma_topk_{c}",
+    [_cuda.P] * 5 + [_cuda.F] * 2 + [_cuda.P] + [_cuda.I] + [_cuda.P] * 5
+    + [_cuda.I] * 4,
+    passes=(PRENORM, TOPK_MERGE)) for c in K_MULTIPLE}
 # K3's blocks per 16 rows: each walks N / (8 * TOP1_BLOCKS) 8-column tiles
 # and leaves one online state per row for the last block to merge.  528
 # is one wave on an H100 (132 SMs x 4 blocks of 8 warps at 57 registers);
 # more blocks lengthen the last block's merge (chip_smoke.py sweeps it).
 TOP1_BLOCKS = 528
+# K6's blocks per 16 rows: each leaves one sorted list of k_top pairs per
+# row for the merge kernel (chip_smoke.py sweeps it).
+TOPK_BLOCKS = 528
 # One zeroed int per device, counted up by K3's blocks and reset by the
 # last one: K3 launches on one device must not overlap (one stream).
 _top1_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def sfp_decode(codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """SFP bytes (u8) -> values, bit for bit gemma_tpu/compression/sfp.py:
+    decode_jax: sign = bit 7; v = low 7 bits; bf16 bits 0x3400 + 32 v for
+    v < 64, 0x3800 + 16 v otherwise, 0 for v = 0 (byte 0x80 is -0.0)."""
+    c = codes.to(torch.int32)
+    v = c & 0x7F
+    mag = torch.where(v < 64, 0x3400 + (v << 5), 0x3800 + (v << 4))
+    mag = torch.where(v == 0, torch.zeros_like(mag), mag)
+    bits = mag | ((c & 0x80) << 8)
+    # bf16 bits as the high half of an f32 word (exact).
+    return (bits << 16).view(torch.float32).to(dtype)
 
 
 @dataclasses.dataclass
@@ -65,8 +107,9 @@ class QuantTensor:
     """A possibly-quantized [N, K] weight matrix on one device.
 
     kind "i8": arrays codes i8 [N, K], inv_scales / zeropoints f32
-    [N, K/128] (the JAX package's layout, which the CUDA kernels read
-    as is); kind "f32"/"bf16": arrays w [N, K]."""
+    [N, K/128]; kind "sfp"/"nuq": arrays codes u8 [N, K]; kind
+    "f32"/"bf16": arrays w [N, K] (the JAX package's layouts, which the
+    CUDA kernels read as they are)."""
 
     kind: str
     shape: tuple[int, int]
@@ -88,6 +131,8 @@ class QuantTensor:
         """Full [N, K] dense decode (tests and the plain path)."""
         if self.kind in ("f32", "bf16"):
             w = self.arrays["w"].float()
+        elif self.kind in ("sfp", "nuq"):
+            w = sfp_decode(self.arrays["codes"])
         elif self.kind == "i8":
             codes = self.arrays["codes"].float()
             inv, zp = self.arrays["inv_scales"], self.arrays["zeropoints"]
@@ -96,10 +141,22 @@ class QuantTensor:
             c = codes.view(n, g, k // g)
             w = (inv[:, :, None] * (c - zp[:, :, None])).reshape(n, k)
         else:
-            raise ValueError(self.kind)
+            raise unknown_kind(self.kind)
         if self.scale != 1.0:
             w = w * self.scale
         return w.to(dtype)
+
+    def data(self) -> torch.Tensor:
+        """The [N, K] array the kernels read: codes or dense w."""
+        return self.arrays["w" if self.kind in ("f32", "bf16") else "codes"]
+
+
+def unknown_kind(kind: str) -> Exception:
+    if kind in LATER_KINDS:
+        return NotImplementedError(
+            f"weight kind {kind!r}: the 4.5-bit codecs (TPU kernel family "
+            "K7b) arrive with checkpoint loading in slice 4 of the port")
+    return ValueError(f"weight kind {kind!r}: one of {KINDS}")
 
 
 def concat_rows(*qts: QuantTensor) -> QuantTensor | None:
@@ -130,6 +187,11 @@ def _product_plain(a: torch.Tensor, w: QuantTensor) -> torch.Tensor:
         # B feeds the product at A's dtype, as the TPU kernel's dot does.
         dense = w.arrays["w"].to(a.dtype).float()
         out = a.float() @ dense.T
+    elif w.kind in ("sfp", "nuq"):
+        # Decoded to bf16 exactly, then cast to A's dtype (a no-op for the
+        # bf16 and f32 A the port uses).
+        dense = sfp_decode(w.arrays["codes"], torch.bfloat16)
+        out = a.float() @ dense.to(a.dtype).float().T
     elif w.kind == "i8":
         af = a.float()
         m, k = af.shape
@@ -145,7 +207,7 @@ def _product_plain(a: torch.Tensor, w: QuantTensor) -> torch.Tensor:
             inv_g = inv[:, g][None, :]
             out += inv_g * part - (inv_g * zp[:, g][None, :]) * a_sum
     else:
-        raise ValueError(w.kind)
+        raise unknown_kind(w.kind)
     if w.scale != 1.0:
         out = out * w.scale
     return out
@@ -202,6 +264,37 @@ def matmul_top1_plain(a, w, *, final_cap, prologue_norm=None,
     return token, 1.0 / s.clamp_min(1e-30)
 
 
+def matmul_topk_plain(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
+                      allowed_mask=None):
+    """K6's function in plain PyTorch (matmul.py:_topk_kernel): per row the
+    k_top largest of softcap(scale * A.B^T), banned columns at -inf, as
+    (values f32, indices int32) [M, k_top], descending, ties to the lower
+    index; entries past the live columns are (-inf, index 0), as the TPU
+    kernel leaves them."""
+    logits = soft_cap(final_cap, matmul_plain(a, w,
+                                              prologue_norm=prologue_norm))
+    if allowed_mask is not None:
+        logits = logits.masked_fill(~allowed_mask.bool(), float("-inf"))
+    vals, idxs = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idxs = vals[:, :k_top], idxs[:, :k_top]
+    idxs = torch.where(vals == float("-inf"), 0, idxs)
+    return vals.contiguous(), idxs.to(torch.int32).contiguous()
+
+
+def topk_merge_plain(part_v, part_i, k_top):
+    """K6's merge pass in plain PyTorch: the k_top first of each row's
+    [blocks, k] (value, index) pairs by (value descending, index
+    ascending); dead entries (-inf) leave with index 0."""
+    m = part_v.shape[0]
+    v, i = part_v.reshape(m, -1), part_i.reshape(m, -1).long()
+    order = torch.sort(i, dim=-1, stable=True).indices
+    v, i = v.gather(-1, order), i.gather(-1, order)
+    vals, order = torch.sort(v, dim=-1, descending=True, stable=True)
+    vals, idxs = vals[:, :k_top], i.gather(-1, order)[:, :k_top]
+    idxs = torch.where(vals == float("-inf"), 0, idxs)
+    return vals.contiguous(), idxs.to(torch.int32).contiguous()
+
+
 def gated_ffn_plain(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
     """K2's function in plain PyTorch: gelu_tanh(x.W1^T) * (x.W2^T)."""
     if prologue_norm is not None:
@@ -217,18 +310,26 @@ def gated_ffn_plain(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
 # ---------------------------------------------------------------------------
 
 
-def _check_i8(w: QuantTensor, name: str) -> None:
-    if w.kind != "i8":
-        raise NotImplementedError(
-            f"{name}: the CUDA GEMMs carry the i8 codec only; the other "
-            "codecs (TPU kernel family K7) are a later slice")
-    if w.k % GROUP or w.n % 8:
-        raise ValueError(f"{name}: K must be a multiple of 128 and N of 8, "
-                         f"got {w.shape}")
-    _cuda.check(w.arrays["codes"], "codes", torch.int8, w.shape)
+def _b_operand(w: QuantTensor, name: str):
+    """(codec, data ptr, inv ptr, zp ptr) of a weight as the kernels take
+    it; raises on a kind or a shape they do not."""
+    if w.kind not in _CODEC:
+        raise unknown_kind(w.kind)
+    codec = _CODEC[w.kind]
+    if w.k % K_MULTIPLE[codec] or w.n % 8:
+        raise ValueError(
+            f"{name}: for kind {w.kind!r} K must be a multiple of "
+            f"{K_MULTIPLE[codec]} and N of 8, got {w.shape}")
+    dtype = {"i8": torch.int8, "sfp": torch.uint8, "bf16": torch.bfloat16,
+             "f32": torch.float32}[codec]
+    _cuda.check(w.data(), "weight", dtype, w.shape)
+    if codec != "i8":
+        return codec, w.data().data_ptr(), None, None
     g = (w.n, w.k // GROUP)
     _cuda.check(w.arrays["inv_scales"], "inv_scales", torch.float32, g)
     _cuda.check(w.arrays["zeropoints"], "zeropoints", torch.float32, g)
+    return (codec, w.data().data_ptr(), w.arrays["inv_scales"].data_ptr(),
+            w.arrays["zeropoints"].data_ptr())
 
 
 def _a_operand(a: torch.Tensor, k: int, prologue_norm):
@@ -251,6 +352,15 @@ def _check_epilogue(weight, add, m, n):
         _cuda.check(weight, "epilogue_norm", torch.float32, (n,))
     if add is not None:
         _cuda.check(add, "add", torch.float32, (m, n))
+
+
+def _mask_operand(allowed_mask, n):
+    """The [N] allowed mask as the head kernels read it (one byte each)."""
+    if allowed_mask is None:
+        return None
+    allowed_mask = allowed_mask.to(torch.bool).contiguous()
+    _cuda.check(allowed_mask, "allowed_mask", torch.bool, (n,))
+    return allowed_mask
 
 
 def prenorm(a, weight):
@@ -287,7 +397,7 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
     if not a.is_cuda:
         return matmul_plain(a, w, out_dtype, add, prologue_norm,
                             epilogue_norm)
-    _check_i8(w, "matmul")
+    codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul")
     a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype}")
@@ -299,9 +409,8 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
     if post:
         y = out if out_dtype == torch.float32 else torch.empty(
             m, w.n, dtype=torch.float32, device=a.device)
-    MATMUL_I8.launch(
-        a.data_ptr(), _cuda.ptr(norm), w.arrays["codes"].data_ptr(),
-        w.arrays["inv_scales"].data_ptr(), w.arrays["zeropoints"].data_ptr(),
+    MATMUL[codec].launch(
+        a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), _cuda.ptr(epilogue_norm), _cuda.ptr(add),
         _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(), m, w.n, w.k,
         int(out_dtype == torch.bfloat16))
@@ -321,12 +430,10 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
                                  prologue_norm=prologue_norm,
                                  allowed_mask=allowed_mask,
                                  need_prob=need_prob)
-    _check_i8(w, "matmul_top1")
+    codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul_top1")
     a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
     m = a.shape[0]
-    if allowed_mask is not None:
-        allowed_mask = allowed_mask.to(torch.bool).contiguous()
-        _cuda.check(allowed_mask, "allowed_mask", torch.bool, (w.n,))
+    allowed_mask = _mask_operand(allowed_mask, w.n)
     ticket = _top1_tickets.get(a.device)
     if ticket is None:
         ticket = _top1_tickets[a.device] = torch.zeros(
@@ -336,9 +443,8 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
     part_i = torch.empty(m, TOP1_BLOCKS, dtype=torch.int32, device=a.device)
     tok = torch.empty(m, dtype=torch.int32, device=a.device)
     prob = torch.empty(m, dtype=torch.float32, device=a.device)
-    TOP1_I8.launch(
-        a.data_ptr(), _cuda.ptr(norm), w.arrays["codes"].data_ptr(),
-        w.arrays["inv_scales"].data_ptr(), w.arrays["zeropoints"].data_ptr(),
+    TOP1[codec].launch(
+        a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), float(final_cap), _cuda.ptr(allowed_mask),
         int(need_prob), _cuda.ptr(a_scratch), part[0].data_ptr(),
         part[1].data_ptr(), part_i.data_ptr(), ticket.data_ptr(),
@@ -346,25 +452,84 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
     return tok, prob
 
 
+def topk_merge(part_v, part_i, k_top):
+    """K6's merge pass alone on CUDA: part_v f32 / part_i int32
+    [M, blocks, k_top], each block's list sorted -> ([M, k_top]) x 2."""
+    if not part_v.is_cuda:
+        return topk_merge_plain(part_v, part_i, k_top)
+    m, blocks, k = part_v.shape
+    if k != k_top or not 1 <= k_top <= MAX_TOPK:
+        raise ValueError(f"topk_merge: lists of {k}, k_top {k_top}")
+    _cuda.check(part_v, "part_v", torch.float32)
+    _cuda.check(part_i, "part_i", torch.int32, part_v.shape)
+    vals = torch.empty(m, k_top, dtype=torch.float32, device=part_v.device)
+    idxs = torch.empty(m, k_top, dtype=torch.int32, device=part_v.device)
+    TOPK_MERGE.launch(part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                      idxs.data_ptr(), m, blocks, k_top)
+    return vals, idxs
+
+
+def matmul_topk(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
+                allowed_mask=None):
+    """(values f32 [M, k_top], indices int32 [M, k_top]) of the k_top
+    largest softcapped logits, descending, ties to the lower index, without
+    the [M, N] logits (matmul.py:1577-1637, K6).  Entries past the live
+    columns are (-inf, index 0).
+
+    k_top > 128 is composed, as in the JAX package, which leaves its kernel
+    there too: the K1 head GEMM, the cap, the mask as NEG_INF, and a stable
+    descending sort (real indices throughout, as lax.top_k gives)."""
+    k_top = int(k_top)
+    if not 1 <= k_top <= w.n:
+        raise ValueError(f"matmul_topk: k_top {k_top} of {w.n} columns")
+    if k_top > MAX_TOPK:
+        from gemma_tpu_torch.ops.sampling import NEG_INF, top_k_sorted
+
+        logits = soft_cap(final_cap, matmul(a, w,
+                                            prologue_norm=prologue_norm))
+        if allowed_mask is not None:
+            logits = torch.where(allowed_mask.bool(), logits, NEG_INF)
+        vals, idxs = top_k_sorted(logits, k_top)
+        return vals.contiguous(), idxs.to(torch.int32).contiguous()
+    if not a.is_cuda:
+        return matmul_topk_plain(a, w, k_top, final_cap=final_cap,
+                                 prologue_norm=prologue_norm,
+                                 allowed_mask=allowed_mask)
+    codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul_topk")
+    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
+    m = a.shape[0]
+    allowed_mask = _mask_operand(allowed_mask, w.n)
+    part_v = torch.empty(m, TOPK_BLOCKS, k_top, dtype=torch.float32,
+                         device=a.device)
+    part_i = torch.empty(m, TOPK_BLOCKS, k_top, dtype=torch.int32,
+                         device=a.device)
+    vals = torch.empty(m, k_top, dtype=torch.float32, device=a.device)
+    idxs = torch.empty(m, k_top, dtype=torch.int32, device=a.device)
+    TOPK[codec].launch(
+        a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
+        float(w.scale), float(final_cap), _cuda.ptr(allowed_mask), k_top,
+        _cuda.ptr(a_scratch), part_v.data_ptr(), part_i.data_ptr(),
+        vals.data_ptr(), idxs.data_ptr(), m, w.n, w.k, TOPK_BLOCKS)
+    return vals, idxs
+
+
 def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
     """TwoMatMul analog: gelu_tanh(x . W1^T) * (x . W2^T) in one kernel
     (matmul.py:1789), with an optional pre-FFN norm prologue."""
     if not x.is_cuda:
         return gated_ffn_plain(x, w1, w2, out_dtype, prologue_norm)
-    _check_i8(w1, "gated_ffn")
-    _check_i8(w2, "gated_ffn")
-    if w1.shape != w2.shape:
-        raise ValueError(f"gated_ffn: {w1.shape} vs {w2.shape}")
+    codec, b1, inv1, zp1 = _b_operand(w1, "gated_ffn")
+    codec2, b2, inv2, zp2 = _b_operand(w2, "gated_ffn")
+    if w1.shape != w2.shape or codec != codec2:
+        raise ValueError(f"gated_ffn: {w1.kind} {w1.shape} vs "
+                         f"{w2.kind} {w2.shape}")
     if out_dtype != torch.bfloat16:
         raise ValueError("gated_ffn emits bf16 on CUDA")
     x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm)
     m = x.shape[0]
     out = torch.empty(m, w1.n, dtype=torch.bfloat16, device=x.device)
-    GATED_I8.launch(
-        x.data_ptr(), _cuda.ptr(norm),
-        w1.arrays["codes"].data_ptr(), w1.arrays["inv_scales"].data_ptr(),
-        w1.arrays["zeropoints"].data_ptr(), float(w1.scale),
-        w2.arrays["codes"].data_ptr(), w2.arrays["inv_scales"].data_ptr(),
-        w2.arrays["zeropoints"].data_ptr(), float(w2.scale),
+    GATED[codec].launch(
+        x.data_ptr(), _cuda.ptr(norm), b1, inv1, zp1, float(w1.scale),
+        b2, inv2, zp2, float(w2.scale),
         _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n, w1.k)
     return out

@@ -1,17 +1,20 @@
-"""Synthetic i8 model parameters made on the target device (counterpart of
-gemma_tpu/utils/synth.py, whose weight layout it follows).
+"""Synthetic model parameters made on the target device (counterpart of
+gemma_tpu/utils/synth.py, whose weight layouts it follows), in the kinds
+i8, sfp, nuq, bf16 and f32.
 
 Weights come from a seeded `torch.Generator` on `device`, so a full-size
-Gemma2-2B (2.6 GB of i8 codes) is built on the card in well under a
+Gemma2-2B (2.6 GB of one-byte codes) is built on the card in well under a
 second instead of a numpy loop on the host.  The numbers differ from the
 JAX synth for the same seed; tests that compare the two packages carry
 one set of weights across with models/bridge.py instead.
 
-The layout and byte counts are the JAX synth's, but the group scales are
-set so the dequantized weights have rms ~1/sqrt(K) (embedding rows:
-EMBEDDING_RMS): the JAX synth's |N(0, 0.05)| + 0.01 scales give weights
-of rms ~3.7, which saturate every soft cap at Gemma2 width, so checks of
-the logits (decode vs prefill, card vs CPU) would compare ties.
+The layout and byte counts are the JAX synth's, but the weights are
+scaled to rms ~1/sqrt(K) (embedding rows: EMBEDDING_RMS): through the
+group scales for i8, through the tensor's `scale` for sfp and nuq (random
+SFP bytes decode to rms 0.42, `sfp_rms`), in the values for bf16 and f32.
+The JAX synth's i8 scales of |N(0, 0.05)| + 0.01 give weights of rms
+~3.7, which saturate every soft cap at Gemma2 width, so checks of the
+logits (decode vs prefill, card vs CPU) would compare ties.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
-from gemma_tpu_torch.ops.matmul import QuantTensor
+from gemma_tpu_torch.ops.matmul import QuantTensor, sfp_decode, unknown_kind
 from gemma_tpu_torch.utils.basics import resolve_device
 
 # The (tied) embedding rows' rms: the logits spread about EMBEDDING_RMS *
@@ -30,15 +33,32 @@ from gemma_tpu_torch.utils.basics import resolve_device
 EMBEDDING_RMS = 0.05
 
 
+def sfp_rms() -> float:
+    """The rms of the values of uniformly random SFP bytes."""
+    every = sfp_decode(torch.arange(256, dtype=torch.uint8))
+    return float(every.square().mean().sqrt())
+
+
 def synth_quant(gen: torch.Generator, n: int, k: int, device,
                 kind: str = "i8", rms: float | None = None) -> QuantTensor:
-    """Random i8 weights: codes uniform in [-128, 127) (std ~74), group
-    inverse scales U(0.5, 1.5) * rms / 74 with rms = 1/sqrt(k) by default,
-    and zero points N(0, 2) in code units, per 128 K."""
-    if kind != "i8":
-        raise NotImplementedError(f"synth kind {kind}: this slice serves i8")
-    g = k // 128
+    """Random [n, k] weights of rms `rms` (1/sqrt(k) by default).
+
+    i8: codes uniform in [-128, 127) (std ~74), group inverse scales
+    U(0.5, 1.5) * rms / 74 and zero points N(0, 2) in code units, per 128
+    K.  sfp / nuq: uniformly random bytes (every byte is a valid SFP
+    code), tensor scale rms / sfp_rms().  bf16 / f32: N(0, rms), scale 1."""
     rms = 1.0 / k ** 0.5 if rms is None else rms
+    if kind in ("bf16", "f32"):
+        w = torch.randn(n, k, generator=gen, device=device).mul_(rms)
+        return QuantTensor(kind, (n, k), 1.0, {"w": w.to(
+            torch.bfloat16 if kind == "bf16" else torch.float32)})
+    if kind in ("sfp", "nuq"):
+        codes = torch.randint(0, 256, (n, k), generator=gen, device=device,
+                              dtype=torch.uint8)
+        return QuantTensor(kind, (n, k), rms / sfp_rms(), {"codes": codes})
+    if kind != "i8":
+        raise unknown_kind(kind)
+    g = k // 128
     codes = torch.randint(-128, 127, (n, k), generator=gen, device=device,
                           dtype=torch.int8)
     inv = torch.rand(n, g, generator=gen, device=device).add_(0.5)
@@ -49,9 +69,15 @@ def synth_quant(gen: torch.Generator, n: int, k: int, device,
 
 
 def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
-                 device=None) -> Params:
+                 device=None, embedding_rms: float = EMBEDDING_RMS) -> Params:
     """Full Params with synthetic weights, qkv row-concatenated, on
-    `device` (CUDA unless the caller names one)."""
+    `device` (CUDA unless the caller names one).
+
+    embedding_rms: the (tied) embedding rows' rms.  At the default the
+    last prompt token's own logit leads every other by ~10, so decode
+    repeats it whatever the sampler; about 0.012 at Gemma2-2B width puts
+    the top few hundred logits within ~1 of each other, which is what a
+    check of sampled decode wants."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -78,5 +104,5 @@ def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
             query_norm=norm(q) if lc.use_qk_norm else None,
         ))
     return Params(embedding=synth_quant(gen, config.vocab_size, d, device,
-                                        kind, rms=EMBEDDING_RMS),
+                                        kind, rms=embedding_rms),
                   final_norm=norm(d), layers=layers)

@@ -2,7 +2,9 @@
 CPU) vs the JAX package's GemmaEngine on the same bridged i8 weights:
 multi-step decode chunks through the fused greedy head, bf16/f32/i8 KV
 caches, allowed_tokens, accept_token, stream_probs, streaming in bursts
-and generate_fast.
+and generate_fast; whole sfp and bf16 models through the same chunks; and
+sampled decode (top_k > 1, temperature, seed): chunked against stepwise,
+batch composition, allowed_tokens, accept_token and temperature 0.
 
 The model is the reduced Gemma2 shape of tests/test_torch_engine.py with
 its embedding rows shrunk to 0.03 of their size and 9 added to the final
@@ -32,7 +34,7 @@ from gemma_tpu_torch.models.bridge import params_from_numpy
 from gemma_tpu_torch.models.gemma import forward as t_forward
 from gemma_tpu_torch.models.kv_cache import KVCache as TKVCache
 from tests.test_torch_matmul import (flatten_params, jax_i8_params,
-                                     small_configs)
+                                     jax_kind_params, small_configs)
 
 torch.set_num_threads(1)
 
@@ -258,3 +260,142 @@ def test_streaming_in_bursts(model):
         mine = [e for e in events if e[0] == "token" and e[1] == qi]
         assert [e[3] for e in mine] == prompt + out[qi]
         assert [e[2] for e in mine] == list(range(len(mine)))
+
+
+# --- the one-byte and dense weight kinds ----------------------------------
+
+
+@pytest.fixture(scope="module", params=["sfp", "bf16"])
+def kind_model(request):
+    """The reduced model with all weights of one kind; the embedding rows
+    shrunk and the final norm raised as in `model` above."""
+    jc, tc = small_configs(num_layers=2, seq=SEQ, windows=(16, SEQ))
+    rng = np.random.default_rng(17)
+    jparams = jax_kind_params(jc, rng, request.param, emb_rms=0.25 * 0.03)
+    jparams = dataclasses.replace(jparams,
+                                  final_norm=jparams.final_norm + 9.0)
+    tparams = params_from_numpy(flatten_params(jparams), tc, "cpu")
+    prompts = [rng.integers(2, jc.vocab_size, n).tolist() for n in (5, 23, 40)]
+    return jc, tc, jparams, tparams, prompts
+
+
+def test_codec_decode_matches_jax_engine(kind_model):
+    """A whole sfp model and a whole bf16 model: greedy decode chunks
+    through the fused head against the JAX engine, at the i8 model's
+    tolerances."""
+    jeng, teng = _engines(kind_model)
+    prompts = kind_model[-1]
+    want = jeng.generate_batch(prompts, max_generated_tokens=NEW)
+    got = teng.generate_batch(prompts, max_generated_tokens=NEW)
+    _check_transcripts(kind_model, got, want)
+
+
+# --- sampled decode -------------------------------------------------------
+
+SAMPLED = dict(top_k=8, temperature=0.8, seed=1)
+
+
+def _sampled_engine(model, **kw):
+    _, tc, _, tparams, _ = model
+    return GemmaEngine(tparams, tc, RuntimeConfig(**{**SAMPLED, **kw}),
+                       device="cpu")
+
+
+def test_sampled_chunk_matches_stepwise(model):
+    """decode_chunk=4 (the fused top-k head, then the draw on [B, k]) gives
+    the tokens of decode_chunk=1 (full logits, top-k, the same draw) token
+    for token: the stream is keyed by (seed, query, position), not by the
+    path.  Probs agree to rtol 1e-5 (the same softmax over the same k
+    values)."""
+    prompts = model[-1]
+    out = {chunk: _stream(_sampled_engine(model, decode_chunk=chunk), prompts)
+           for chunk in (1, 4)}
+    assert out[4][0] == out[1][0]
+    assert [s[:3] for s in out[4][1]] == [s[:3] for s in out[1][1]]
+    np.testing.assert_allclose([s[3] for s in out[4][1]],
+                               [s[3] for s in out[1][1]], rtol=1e-5)
+    greedy = GemmaEngine(model[3], model[1], RuntimeConfig(),
+                         device="cpu").generate_batch(
+        prompts, max_generated_tokens=NEW)
+    assert out[4][0] != greedy  # it does sample
+    probs = [s[3] for s in _decoded(out[4][1], prompts)]
+    assert all(0.0 < p <= 1.0 for p in probs) and min(probs) < 0.5
+
+
+def test_sampled_decode_matches_jax_engine(model):
+    """The port's stream is JAX's (key words and uniforms bit for bit), and
+    on the CPU the draws' float arithmetic agrees closely enough that the
+    sampled transcripts are the JAX engine's token for token (a step would
+    need a Gumbel margin below ~1e-5 to differ; none here does)."""
+    jeng, teng = _engines(model, **SAMPLED)
+    prompts = model[-1]
+    want = jeng.generate_batch(prompts, max_generated_tokens=NEW)
+    got = teng.generate_batch(prompts, max_generated_tokens=NEW)
+    assert got == want
+
+
+def test_sampled_decode_is_reproducible_and_seeded(model):
+    prompts = model[-1]
+    a = _sampled_engine(model).generate_batch(prompts,
+                                              max_generated_tokens=NEW)
+    b = _sampled_engine(model).generate_batch(prompts,
+                                              max_generated_tokens=NEW)
+    c = _sampled_engine(model, seed=2).generate_batch(
+        prompts, max_generated_tokens=NEW)
+    assert a == b and a != c
+
+
+def test_sampled_decode_ignores_batch_composition(model):
+    """Query 0 gets the same tokens alone as in the batch of three."""
+    prompts = model[-1]
+    eng = _sampled_engine(model)
+    batch = eng.generate_batch(prompts, max_generated_tokens=NEW)
+    alone = eng.generate_batch(prompts[:1], max_generated_tokens=NEW)
+    assert alone[0] == batch[0]
+
+
+def test_sampled_temperature_zero_is_greedy(model):
+    """T = 0 picks entry 0 of the top-k head: the greedy transcript, in
+    chunks and stepwise."""
+    _, tc, _, tparams, prompts = model
+    greedy = GemmaEngine(tparams, tc, RuntimeConfig(), device="cpu"
+                         ).generate_batch(prompts, max_generated_tokens=NEW)
+    for chunk in (1, 4):
+        got = _sampled_engine(model, temperature=0.0, decode_chunk=chunk
+                              ).generate_batch(prompts,
+                                               max_generated_tokens=NEW)
+        assert got == greedy
+
+
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_sampled_allowed_tokens_stay_in_the_set(model, chunk):
+    """top_k=3 under allowed_tokens: the mask rides the top-k head (and
+    NEG_INF on the one-step path), so no draw leaves the set."""
+    prompts = model[-1]
+    few = ALLOWED[:5]
+    got = _sampled_engine(model, top_k=3, decode_chunk=chunk).generate_batch(
+        prompts, max_generated_tokens=NEW, allowed_tokens=few)
+    assert all(t in few for g in got for t in g)
+    assert len({t for g in got for t in g}) > 1
+    # Fewer allowed tokens than top_k: the dead entries are never drawn.
+    two = _sampled_engine(model, top_k=3, decode_chunk=chunk).generate_batch(
+        prompts, max_generated_tokens=NEW, allowed_tokens=few[:2])
+    assert all(t in few[:2] for g in two for t in g)
+
+
+def test_sampled_accept_token_matches_jax(model):
+    """accept_token with top_k > 1: one-step chunks, the host's candidate
+    loop over the top_k best accepted tokens, and a uniform of the
+    (seed, query, position) stream, which equals JAX's bit for bit; the
+    picks equal the JAX engine's wherever its logits leave the candidate
+    set and the inverse-CDF pick clear of rounding (all steps here)."""
+    jeng, _ = _engines(model, **SAMPLED)
+    teng = _sampled_engine(model)
+    prompts = model[-1]
+    want = jeng.generate_batch(prompts, max_generated_tokens=NEW,
+                               accept_token=lambda t, lg: t % 3 == 0)
+    got, seen = _stream(teng, prompts, accept_token=lambda t, lg: t % 3 == 0)
+    assert all(t % 3 == 0 for g in got for t in g)
+    probs = [s[3] for s in _decoded(seen, prompts)]
+    assert all(0.0 < p <= 1.0 for p in probs) and min(probs) < 1.0
+    assert got == want

@@ -134,12 +134,21 @@ def test_entry_points_default_to_cuda(engines, entry):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(top_k=40), "top-k"),
+    (dict(kind="i4"), "slice 4"),
+    (dict(kind="nuq4"), "slice 4"),
 ])
 def test_later_slices_raise(engines, kw, match):
+    """What is still to port raises and names its slice: the 4.5-bit
+    weight codecs (sampled decode, top_k > 1, works now)."""
+    from gemma_tpu_torch.utils.synth import synth_params
+
     _, tc, _, tparams, *_ = engines
     with pytest.raises(NotImplementedError, match=match):
-        GemmaEngine(tparams, tc, RuntimeConfig(**kw), device="cpu")
+        synth_params(tc, device="cpu", **kw)
+    assert GemmaEngine(tparams, tc, RuntimeConfig(top_k=40),
+                       device="cpu").runtime.top_k == 40
+    with pytest.raises(ValueError, match="top_k"):
+        GemmaEngine(tparams, tc, RuntimeConfig(top_k=0), device="cpu")
 
 
 def test_accept_token_raises(engines):

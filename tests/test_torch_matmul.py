@@ -2,8 +2,8 @@
 JAX package's `matmul` / `gated_ffn` (Pallas kernels in interpret mode on
 CPU, as the JAX suite runs them), on the same numpy-made i8 weights.
 
-Also holds the helpers the other port tests share: i8 weights made with
-numpy in the JAX layout, reduced Gemma2-shaped configs for both packages,
+Also holds the helpers the other port tests share: i8 (and sfp, nuq,
+bf16, f32) weights made with numpy in the JAX layout, reduced Gemma2-shaped configs for both packages,
 and the flattening of JAX `Params` into the numpy tree that
 gemma_tpu_torch/models/bridge.py reads.
 """
@@ -105,6 +105,48 @@ def jax_i8_params(config, rng):
     # final soft cap (the dequant scale above targets GEMMs).
     emb["inv_scales"] *= np.float32(16.0 * np.sqrt(d) / 74.0)
     return JParams(embedding=jax_qt(emb), final_norm=norm(d), layers=layers)
+
+
+def jax_kind_qt(rng, n, k, kind, rms=None):
+    """A JAX QuantTensor of kind sfp, nuq, bf16 or f32 with numpy-made
+    weights of rms `rms` (1/sqrt(k) by default): random SFP bytes sized by
+    the tensor's scale, or dense normal weights with scale 1."""
+    rms = 1.0 / np.sqrt(k) if rms is None else rms
+    if kind in ("sfp", "nuq"):
+        codes = rng.integers(0, 256, (n, k), dtype=np.uint8)
+        # Random SFP bytes decode to values of rms 0.4231.
+        return jmm.QuantTensor(kind, (n, k), float(rms / 0.4231),
+                               {"codes": jnp.asarray(codes)})
+    w = jnp.asarray(rng.normal(0, rms, (n, k)).astype(np.float32))
+    if kind == "bf16":
+        w = w.astype(jnp.bfloat16)
+    return jmm.QuantTensor(kind, (n, k), 1.0, {"w": w})
+
+
+def jax_kind_params(config, rng, kind, emb_rms=0.25):
+    """JAX Params of one non-i8 kind, qkv row-concatenated; embedding rows
+    of rms `emb_rms` so the tied logits head stays below the final cap."""
+    d = config.model_dim
+
+    def norm(n):
+        return jnp.asarray(rng.normal(0, 0.1, (n,)).astype(np.float32))
+
+    layers = []
+    for lc in config.layer_configs:
+        h, kvh, q, ff = lc.heads, lc.kv_heads, lc.qkv_dim, lc.ff_hidden_dim
+        layers.append(JLayerParams(
+            qkv1=None, qkv2=None,
+            qkv_cat=jax_kind_qt(rng, (h + 2 * kvh) * q, d, kind),
+            att_w=jax_kind_qt(rng, d, h * q, kind),
+            gating1=jax_kind_qt(rng, ff, d, kind),
+            gating2=jax_kind_qt(rng, ff, d, kind),
+            linear=jax_kind_qt(rng, d, ff, kind),
+            pre_att_norm=norm(d), pre_ffw_norm=norm(d),
+            post_att_norm=norm(d), post_ffw_norm=norm(d),
+            key_norm=None, query_norm=None))
+    return JParams(embedding=jax_kind_qt(rng, config.vocab_size, d, kind,
+                                         rms=emb_rms),
+                   final_norm=norm(d), layers=layers)
 
 
 def flatten_qt(qt):

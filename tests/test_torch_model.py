@@ -1,6 +1,7 @@
 """The port's forward pass (gemma_tpu_torch/models/gemma.py, plain path on
 CPU) vs the JAX package's `forward` on a reduced Gemma2-shaped i8 model
-with an i8 KV cache, weights carried across with the bridge.
+(and whole sfp and bf16 models) with an i8 KV cache, weights carried
+across with the bridge; the fused top1 and top-k heads included.
 
 Two cache layouts: the windows of tests/test_parity_full.py (local
 windows of 16 at a 64 ring, one pool) and a small local slack that splits
@@ -18,7 +19,7 @@ from gemma_tpu_torch.models.bridge import params_from_numpy
 from gemma_tpu_torch.models.gemma import forward as t_forward
 from gemma_tpu_torch.models.kv_cache import KVCache as TKVCache
 from tests.test_torch_matmul import (flatten_params, jax_i8_params,
-                                     small_configs)
+                                     jax_kind_params, small_configs)
 
 torch.set_num_threads(1)
 
@@ -128,13 +129,90 @@ def test_decode_matches_prefill(model, slack):
 
 
 def test_fused_heads_raise(model):
-    """The fused top-k head (K6) is the sampled-decode slice's."""
+    """The fused top-k head needs its k; an unknown head is refused."""
     _, tc, _, tparams, tokens = model
     cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
-    with pytest.raises(NotImplementedError, match="_topk_kernel"):
-        t_forward(tparams, torch.from_numpy(tokens[:1])[None],
-                  torch.zeros(1, 1, dtype=torch.int64), cache, tc,
-                  return_logits="topk")
+    args = (tparams, torch.from_numpy(tokens[:1])[None],
+            torch.zeros(1, 1, dtype=torch.int64), cache, tc)
+    with pytest.raises(ValueError, match="top_k_n"):
+        t_forward(*args, return_logits="topk")
+    with pytest.raises(ValueError, match="top9"):
+        t_forward(*args, return_logits="top9")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_topk_head_matches_jax(model, masked):
+    """Prefill T-1 tokens, then one decode step through the fused top-k
+    head in both packages: values within the i8-KV logit bound, indices
+    equal wherever both neighbours are further apart than twice it, and
+    every JAX candidate clear of the cut-off by twice it is in the port's
+    list (and the reverse)."""
+    jc, tc, jparams, tparams, tokens = model
+    jcache, tcache = _caches(jc, tc, 16)
+    _, jcache = _run_jax(jparams, jc, jcache, tokens[:-1], ALL[:-1], "none")
+    _run_torch(tparams, tc, tcache, tokens[:-1], ALL[:-1], "none")
+    mask = None
+    if masked:
+        mask = np.arange(jc.vocab_size) % 3 != 0
+    k = 8
+    (jv, ji), _ = j_forward(
+        jparams, jnp.asarray(tokens[-1:])[None],
+        jnp.asarray([[T - 1]], jnp.int32), jcache, jc, return_logits="topk",
+        top_k_n=k, top1_mask=None if mask is None else jnp.asarray(mask))
+    (tv, ti), _ = t_forward(
+        tparams, torch.from_numpy(tokens[-1:])[None], torch.tensor([[T - 1]]),
+        tcache, tc, return_logits="topk", top_k_n=k,
+        top1_mask=None if mask is None else torch.from_numpy(mask))
+    assert tv.shape == ti.shape == (1, k) and ti.dtype == torch.int32
+    jv, ji, tv, ti = (np.asarray(x)[0] for x in (jv, ji, tv, ti))
+    bound = TOL * np.abs(jv).max()
+    assert np.abs(tv - jv).max() <= bound
+    gap = np.abs(np.diff(jv)) > 2 * bound
+    pinned = np.ones(k, bool)
+    pinned[1:] &= gap
+    pinned[:-1] &= gap
+    assert pinned[0]
+    np.testing.assert_array_equal(ti[pinned], ji[pinned])
+    for (av, ai), (_, bi) in (((jv, ji), (tv, ti)), ((tv, ti), (jv, ji))):
+        inside = ai[av > av[-1] + 2 * bound]
+        assert len(inside) >= 2 and set(inside) <= set(bi)
+    if mask is not None:
+        assert mask[ti].all()
+
+
+@pytest.fixture(scope="module", params=["sfp", "bf16"])
+def kind_model(request):
+    jc, tc = small_configs(num_layers=LAYERS, seq=SEQ, windows=(16, SEQ))
+    rng = np.random.default_rng(43)
+    jparams = jax_kind_params(jc, rng, request.param)
+    tparams = params_from_numpy(flatten_params(jparams), tc, "cpu")
+    assert tparams.embedding.kind == request.param
+    tokens = rng.integers(2, jc.vocab_size, T).astype(np.int32)
+    return jc, tc, jparams, tparams, tokens
+
+
+@pytest.mark.parametrize("slack", [None, 16])
+def test_codec_model_prefill_logits_match_jax(kind_model, slack):
+    """A whole sfp model and a whole bf16 model: chunked prefill logits
+    against JAX at the i8 model's tolerance."""
+    jc, tc, jparams, tparams, tokens = kind_model
+    jcache, tcache = _caches(jc, tc, slack)
+    want, _ = _run_jax(jparams, jc, jcache, tokens, ALL)
+    want = np.concatenate([np.asarray(w) for w in want], axis=1)
+    got = torch.cat(_run_torch(tparams, tc, tcache, tokens, ALL), dim=1)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _max_rel(got.numpy(), want) <= TOL
+
+
+def test_codec_model_decode_matches_prefill(kind_model):
+    """Decode's last logits == the prefill path's last row (the port's own
+    check, as test_decode_matches_prefill), for sfp and bf16 weights."""
+    _, tc, _, tparams, tokens = kind_model
+    cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
+    full = _run_torch(tparams, tc, cache, tokens, PREFILL)[-1]
+    cache = TKVCache.create(tc, 1, SEQ, kind="i8", device="cpu")
+    got = _run_torch(tparams, tc, cache, tokens, ALL, "last")[-1]
+    assert _max_rel(got[0].numpy(), full[0, -1].numpy()) <= TOL
 
 
 @pytest.mark.parametrize("need_prob", [True, False])

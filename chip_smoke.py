@@ -13,16 +13,25 @@ Phases (any failure exits non-zero before the result line):
      989 TFLOP/s bf16, the H100 SXM data-sheet peaks) and, for the dense
      GEMMs, torch.nn.functional.linear on the same inputs: the GEMMs and
      their norm passes, the gated GEMM and the fused greedy head for i8,
-     sfp, bf16 and f32 weights (kind nuq runs the sfp kernels), the fused
-     top-k head for the same kinds (k_top 2, 64, 128; M = 4 and 20; an
-     allowed mask; fewer live columns than k_top; saturated ties) with its
-     merge pass alone, the draw kernel, decode attention and prefill
-     attention over i8, bf16 and f32 KV pools;
+     sfp, bf16, f32, i4 and nuq4 weights (kind nuq runs the sfp kernels),
+     the fused top-k head for the same kinds (k_top 2, 64, 128; M = 4 and
+     20; an allowed mask; fewer live columns than k_top; saturated ties)
+     with its merge pass alone; the packed kinds once more at the decode
+     shapes of Gemma2-27B (i4, nuq4) and Gemma2-9B (nuq4), with a weight
+     whose codes encode their column and nuq4 tables of equal, repeated
+     and -0.0 entries; the draw kernel; decode attention and prefill
+     attention over i8, bf16 and f32 KV pools at Gemma2-2B's head shape
+     and over a bf16 pool at Gemma2-27B's (32/16 heads of 128);
   3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
-     plain path on the CPU, for i8 and for sfp weights; `generate_batch`
-     with a bf16 cache and decode_chunk=4 on both, tokens and probs
-     compared; and sampled steps (the top-k head and the draw) on both;
+     plain path on the CPU, for i8, sfp, i4 and nuq4 weights;
+     `generate_batch` with a bf16 cache and decode_chunk=4 on both, tokens
+     and probs compared, and sampled steps (the top-k head and the draw)
+     on both, for i8, i4 and nuq4; then the loader: four `.sbs` files
+     written with the port's `write_model` into a temporary directory and
+     loaded with `Gemma.load` on the card and on the CPU, kind_override
+     None, "i4", "i8" and "nuq4" (`phase_loader` says at what sizes), last
+     logits compared;
   4. the serving paths at Gemma2-2B width, synthetic weights made on the
      card, 4 ragged requests (17, 130, 300, 700 prompt tokens).  For each
      path every kernel launch count is zeroed before the counted run and
@@ -49,11 +58,24 @@ Phases (any failure exits non-zero before the result line):
        F. sfp weights, default (greedy) runtime, 32 new tokens; then 8
           sampled tokens;
        G. bf16 weights, sampled, 8 new tokens; then 8 greedy tokens;
-     and at 4 layers:
+     at 4 layers:
        H. f32 weights, 4 greedy and 4 sampled tokens;
+     and with the 4.5-bit kinds, each model freed before the next is made
+     and its peak device memory printed:
+       I. Gemma2-27B (46 layers, 32/16 heads of 128, query scale
+          1/sqrt(model_dim / heads)), i4 weights, default runtime: 16
+          greedy tokens, 3 runs, two chunks under torch.profiler (device
+          busy and idle share) and one under sync debug mode "error",
+          first tokens against a prefill-only forward; then 8 sampled
+          tokens;
+       J. Gemma2-9B (42 layers), nuq4 weights, the same traffic and the
+          same checks;
+       K. Gemma2-2B width, 4 layers, nuq4 weights with att_w of kind nuq
+          (what a nuq4 model loaded from a file holds): 8 greedy and 4
+          sampled tokens;
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-H), then nvidia-smi's line, then the result line.
+     4A-K), then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -145,10 +167,12 @@ def main() -> int:
     return 0
 
 
-WEIGHT_KINDS = ("i8", "sfp", "bf16", "f32")  # kind nuq runs sfp's kernels
+# kind nuq runs sfp's kernels
+WEIGHT_KINDS = ("i8", "sfp", "bf16", "f32", "i4", "nuq4")
 _CODEC_OF = {"i8": "_acc_step :539 (i8)", "sfp": "_acc_step :473 + "
              "_sfp_tile_to_bf16 :417 (sfp and nuq)",
-             "bf16": "_acc_step :471 (bf16)", "f32": "_acc_step :471 (f32)"}
+             "bf16": "_acc_step :471 (bf16)", "f32": "_acc_step :471 (f32)",
+             "i4": "_acc_step :517 (i4)", "nuq4": "_acc_step :475 (nuq4)"}
 REPLACES = {
     "matmul_prenorm":
         "gemma_tpu/ops/matmul.py:563 (_norm_a, the _mm_kernel/_gated_kernel "
@@ -197,7 +221,9 @@ LIBRARY_NOTE = {
 }
 for _kind in WEIGHT_KINDS:
     _dense = _kind in ("bf16", "f32")
-    _what = {"i8": "i8 group-quantized", "sfp": "SFP-coded"}.get(_kind, _kind)
+    _what = {"i8": "i8 group-quantized", "sfp": "SFP-coded",
+             "i4": "4-bit group-affine", "nuq4": "4-bit table-coded"
+             }.get(_kind, _kind)
     REPLACES[f"matmul_{_kind}"] = (
         f"gemma_tpu/ops/matmul.py:577 (_mm_kernel) with {_CODEC_OF[_kind]}")
     REPLACES[f"gated_{_kind}"] = (
@@ -257,6 +283,14 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def weight_bytes(w) -> int:
+    """The bytes of a weight that a GEMM must read: its arrays, less the
+    zero padding of nuq4's table rows (16 bytes per 256-block are real)."""
+    if w.kind != "nuq4":
+        return w.nbytes()
+    return w.arrays["codes"].numel() + w.n * (w.kp // 256) * 16
+
+
 def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
            ops, iters=20, primary=False, library=None):
     got = got.float()
@@ -287,13 +321,11 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
 
 def phase_kernels(torch):
     """Each kernel vs its plain version at the serving path's shapes."""
-    from gemma_tpu_torch.models.configs import config_gemma2_2b
-    from gemma_tpu_torch.models.kv_cache import KVCache
-    from gemma_tpu_torch.ops import decode_attention as da
-    from gemma_tpu_torch.ops import flash_attention as fa
+    import dataclasses
+
+    from gemma_tpu_torch.models.configs import (config_gemma2_2b,
+                                                config_gemma2_27b)
     from gemma_tpu_torch.ops import matmul as mm
-    from gemma_tpu_torch.ops.attention import attention_mask
-    from gemma_tpu_torch.ops.ops import create_inv_timescale
     from gemma_tpu_torch.utils.synth import synth_quant
 
     dev = torch.device("cuda")
@@ -409,17 +441,52 @@ def phase_kernels(torch):
     phase_topk(torch, res, "i8", w_head, fnorm, cfg)
     del w_head
     phase_codecs(torch, res, cfg)
+    phase_k7b(torch, res)
     phase_draw(torch, res, cfg)
 
+    phase_attention(torch, res, cfg, ("i8", "bf16", "f32"))
+    # Gemma2-27B's head shape (32 query heads over 16 KV heads of 128, the
+    # query scale 1/sqrt(model_dim / heads)): the D=128 instantiations, on
+    # a 2-layer cut of its bf16 cache.
+    big = config_gemma2_27b()
+    phase_attention(torch, res, dataclasses.replace(
+        big, num_layers=2, layer_configs=big.layer_configs[:2],
+        attention_window_sizes=big.attention_window_sizes[:2]), ("bf16",),
+        primary=False)
+    return res
+
+
+def phase_attention(torch, res, cfg, kinds, primary=True):
+    """K4 and K5 against their plain versions at `cfg`'s head shape, over
+    both pools (layer 0 local, layer 1 global) of a seq_len=8192 cache of
+    each KV kind in `kinds`, batch 4."""
+    from gemma_tpu_torch.models.kv_cache import KVCache
+    from gemma_tpu_torch.ops import decode_attention as da
+    from gemma_tpu_torch.ops import flash_attention as fa
+    from gemma_tpu_torch.ops.attention import attention_mask
+    from gemma_tpu_torch.ops.ops import create_inv_timescale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def rel_tol(want, rel):
+        return rel * float(want.float().abs().max())
+
     # --- K4: B=4 over both pools of a seq_len=8192 cache of each kind ---
-    heads, kvh, hd = 8, 4, 256
+    lc = cfg.layer_configs[0]
+    heads, kvh, hd = lc.heads, lc.kv_heads, lc.qkv_dim
+    b = 4
+    shape = f"H={heads} KVH={kvh} D={hd}"
     its = torch.from_numpy(create_inv_timescale(hd)).to(dev)
     rope = da.RopeSpec(its, 0, cfg.query_scale_value())
     pos = torch.tensor([[300], [450], [600], [700]], device=dev)
     valid = torch.tensor([[True], [True], [False], [True]], device=dev)
     qkv = randn(b, (heads + 2 * kvh) * hd, s=2.0)
     caches = {}
-    for kind in ("i8", "bf16", "f32"):
+    for kind in kinds:
         cache = KVCache.create(cfg, b, 8192, kind=kind, local_slack=512,
                                device=dev)
         for pool, sc in ((cache.kv, cache.kv_scale),
@@ -457,7 +524,7 @@ def phase_kernels(torch):
                 row_tol = 1.0
                 sc_err = float((ck.pool_scale(layer)
                                 - cp.pool_scale(layer)).abs().max())
-                print(f"[2] {name} {pool_name}: "
+                print(f"[2] {name} {shape} {pool_name}: "
                       f"{int((code_diff > 0).sum())} pool codes one off, "
                       f"scale max err {sc_err:.3g}", flush=True)
             else:
@@ -465,7 +532,7 @@ def phase_kernels(torch):
                 rel = 2 ** -7 if kind == "bf16" else 1e-5
                 row_err = float(((a - w).abs() - rel * w.abs()).max())
                 row_tol = 1e-6
-                print(f"[2] {name} {pool_name}: written rows max excess "
+                print(f"[2] {name} {shape} {pool_name}: written rows max excess "
                       f"over {rel:.3g} relative {row_err:.3g}", flush=True)
             if row_err > row_tol:
                 fail(f"{name} [{pool_name}]: written rows differ from the "
@@ -475,9 +542,9 @@ def phase_kernels(torch):
             nbytes = (live * kvh * row_bytes + qkv.numel() * 4
                       + b * heads * hd * 2 + b * kvh * row_bytes)
             record(res, torch, name,
-                   f"B=4 {pool_name} live {live} rows (1 invalid slot)", got,
+                   f"B=4 {shape} {pool_name} live {live} rows (1 invalid slot)", got,
                    want, rel_tol(want, 1e-2), f, p, nbytes,
-                   4 * live * (heads // kvh) * kvh * hd, primary=layer == 1)
+                   4 * live * (heads // kvh) * kvh * hd, primary=primary and layer == 1)
 
     # --- K5: the two 512-token prefill rounds (positions 0..511, then
     # 512..1023) on both pools of each kind.  Tolerance: the exact softmax
@@ -505,17 +572,17 @@ def phase_kernels(torch):
                 nbytes = (2 * q.numel() * 4
                           + b * kvh * min(start + t, ring) * row_bytes)
                 record(res, torch, name,
-                       f"B=4 T=512 at pos {start} {pool_name} pool", f(),
+                       f"B=4 T=512 {shape} at pos {start} {pool_name} pool", f(),
                        want, rel_tol(want, 1e-4 if kind == "f32" else 1e-2),
                        f, p, nbytes, 4 * pairs * hd, iters=5,
-                       primary=(start, layer) == (512, 1))
-    return res
+                       primary=primary and (start, layer) == (512, 1))
 
 
-def phase_top1(torch, res, x, w_head, fnorm, cfg):
-    """K3 at the decode head's shape: M=4, N=256000, K=2304, i8, with the
+def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
+    """K3 at the decode head's shape: M=4, N=256000, K=2304, with the
     final-norm prologue; need_prob on and off, an allowed mask of about
-    1/8 of the vocab, and a mask that bans every column.
+    1/8 of the vocab, and a mask that bans every column; M=20; and, for
+    i8, the sweep of the block count.
 
     Tolerance: tokens equal wherever the plain version's top1-top2 margin
     exceeds 1e-4 of max|logit| (the kernel's logits move by ~1e-6 of it,
@@ -549,17 +616,17 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg):
         if allowed is banned:
             clear = torch.ones_like(clear)
             if not (bool((tok == 0).all()) and bool((want_tok == 0).all())):
-                fail(f"top1_i8 [{label}]: a row with no allowed column "
+                fail(f"top1_{kind} [{label}]: a row with no allowed column "
                      f"gave tokens {tok.tolist()} / {want_tok.tolist()}")
         bad = int(((tok != want_tok) & clear).sum())
-        print(f"[2] top1_i8 {label}: tokens {tok.tolist()} (plain "
+        print(f"[2] top1_{kind} {label}: tokens {tok.tolist()} (plain "
               f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
               f"margin, {bad} differ", flush=True)
         if bad or not bool(clear.any()):
-            fail(f"top1_i8 [{label}]: tokens differ from the plain version")
-        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + w_head.nbytes()
+            fail(f"top1_{kind} [{label}]: tokens differ from the plain version")
+        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + weight_bytes(w_head)
                   + (n if allowed is not None else 0) + 2 * x.shape[0] * 4)
-        record(res, torch, "top1_i8",
+        record(res, torch, f"top1_{kind}",
                f"M=4 K=2304 N=256000 (+prenorm pass), {label}", prob,
                want_prob, 1e-4 * float(want_prob.abs().max()), f, p, nbytes,
                2 * x.shape[0] * n * x.shape[1], iters=5,
@@ -577,11 +644,14 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg):
     clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
     bad = int(((tok != want_tok) & clear).sum())
     err = float(((prob - want_prob).abs() / want_prob).max())
-    print(f"[2] top1_i8 M=20: {bad} of {int(clear.sum())} tokens with a "
+    print(f"[2] top1_{kind} M=20: {bad} of {int(clear.sum())} tokens with a "
           f"clear margin differ, prob max relative err {err:.3g} (tol 1e-4)",
           flush=True)
     if bad or not bool(clear.any()) or err > 1e-4:
-        fail("top1_i8 [M=20] disagrees with its plain version")
+        fail(f"top1_{kind} [M=20] disagrees with its plain version")
+
+    if kind != "i8":
+        return
 
     def head():
         return mm.matmul_top1(x, w_head, final_cap=cfg.final_cap,
@@ -593,7 +663,7 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg):
         mm.TOP1_BLOCKS = blocks
         sweep.append(f"{blocks}: {time_ms(torch, head, 5):.4f}")
     mm.TOP1_BLOCKS = chosen
-    print(f"[2] top1_i8 prob, ms by TOP1_BLOCKS (the port uses {chosen}): "
+    print(f"[2] top1_{kind} prob, ms by TOP1_BLOCKS (the port uses {chosen}): "
           f"{', '.join(sweep)}", flush=True)
 
 
@@ -662,7 +732,7 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
                  f"{'mask 1/8' if allowed is not None else 'no mask'}")
         tol = 1e-3 * float(want[0][torch.isfinite(want[0])].abs().max())
         check_topk(torch, f"{name} {label}", got, want, tol)
-        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + w_head.nbytes()
+        nbytes = (x.numel() * 4 + fnorm.numel() * 4 + weight_bytes(w_head)
                   + (n if allowed is not None else 0) + m * k_top * 8)
         record(res, torch, name, label, got[0], want[0], tol, f, p, nbytes,
                2 * m * n * d, iters=5,
@@ -729,10 +799,11 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
 
 
 def phase_codecs(torch, res, cfg):
-    """K1, K2, K3 and K6 for sfp, bf16 and f32 weights (kind nuq holds SFP
-    bytes and runs the sfp kernels: it is not timed twice), every case
-    with a tensor scale != 1 except the dense prefill cases, which run at
-    scale 1 beside torch.nn.functional.linear on the same inputs.
+    """K1, K2, K3 and K6 for sfp, bf16, f32, i4 and nuq4 weights (kind nuq
+    holds SFP bytes and runs the sfp kernels: it is not timed twice),
+    every case with a tensor scale != 1 except the dense cases timed
+    beside torch.nn.functional.linear on the same A and weights, which run
+    at scale 1 (prefill; and, at decode, the library call alone).
 
     Tolerances as for i8: 1e-3 of max|out| for f32 outputs (exact bf16
     products, f32 sums in another order, rare one-ulp flips of the
@@ -747,7 +818,7 @@ def phase_codecs(torch, res, cfg):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
     d, ff, b, m_pre = cfg.model_dim, 9216, 4, 4 * 512
-    esize = {"sfp": 1, "bf16": 2, "f32": 4}
+    esize = {"sfp": 1, "bf16": 2, "f32": 4, "i4": 0.5625, "nuq4": 0.5625}
 
     def randn(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device=dev).mul_(s)
@@ -757,6 +828,7 @@ def phase_codecs(torch, res, cfg):
 
     norm = randn(d, s=0.05)
     x = randn(b, d, s=30.0)
+    x_bf = mm.prenorm(x, norm)  # the decode A of the library calls
     a_pre = randn(m_pre, d).to(torch.bfloat16)
     nuq = synth_quant(gen, 256, d, dev, "nuq")
     got = mm.matmul(x, nuq, prologue_norm=norm)
@@ -767,8 +839,8 @@ def phase_codecs(torch, res, cfg):
           flush=True)
     if err > rel_tol(want, 1e-3):
         fail("kind nuq disagrees with its plain version")
-    for kind in ("sfp", "bf16", "f32"):
-        dense = kind != "sfp"
+    for kind in ("sfp", "bf16", "f32", "i4", "nuq4"):
+        dense = kind in ("bf16", "f32")
 
         def quant(n, k, scale=None, rms=None):
             w = synth_quant(gen, n, k, dev, kind, rms=rms)
@@ -778,18 +850,28 @@ def phase_codecs(torch, res, cfg):
                 w = dataclasses.replace(w, scale=0.37)
             return w
 
+        # At decode the library call (dense kinds) is F.linear alone on the
+        # normalized bf16 A and the same weights: no pass, no scale.
         w_qkv = quant(4096, d)
+        lib = None
+        if dense:
+            a_lib = x_bf.to(w_qkv.arrays["w"].dtype)
+            lib = lambda: F.linear(a_lib, w_qkv.arrays["w"])  # noqa: E731
         f = lambda: mm.matmul(x, w_qkv, prologue_norm=norm)  # noqa: E731
         p = lambda: mm.matmul_plain(x, w_qkv, prologue_norm=norm)  # noqa
         want = p()
         record(res, torch, f"matmul_{kind}",
                f"decode qkv M=4 K={d} N=4096 (+prenorm pass), scale "
                f"{w_qkv.scale:.3g}", f(), want, rel_tol(want, 1e-3), f, p,
-               b * d * 4 + d * 4 + w_qkv.nbytes() + b * 4096 * 4,
-               2 * b * 4096 * d, primary=not dense)
+               b * d * 4 + d * 4 + weight_bytes(w_qkv) + b * 4096 * 4,
+               2 * b * 4096 * d, primary=not dense, library=lib)
         w_lin = quant(d, ff)
         a = randn(b, ff, s=3.0).to(torch.bfloat16)
         post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+        lib = None
+        if dense:
+            a_lin = a.to(w_lin.arrays["w"].dtype)
+            lib = lambda: F.linear(a_lin, w_lin.arrays["w"])  # noqa: E731
         f = lambda: mm.matmul(a, w_lin, epilogue_norm=post, add=add)  # noqa
         p = lambda: mm.matmul_plain(a, w_lin, epilogue_norm=post,  # noqa
                                     add=add)
@@ -797,7 +879,8 @@ def phase_codecs(torch, res, cfg):
         record(res, torch, f"matmul_{kind}",
                f"decode linear M=4 K={ff} N={d} (+postnorm pass)", f(), want,
                rel_tol(want, 1e-3), f, p,
-               b * ff * 2 + w_lin.nbytes() + b * d * 4, 2 * b * d * ff)
+               b * ff * 2 + weight_bytes(w_lin) + b * d * 4, 2 * b * d * ff,
+               library=lib)
         del w_lin
         # Prefill qkv: dense kinds at scale 1, beside F.linear on the same
         # A and weights (A cast to the weights' type for f32).
@@ -812,18 +895,24 @@ def phase_codecs(torch, res, cfg):
         record(res, torch, f"matmul_{kind}",
                f"prefill qkv M=2048 K={d} N=4096, scale {w_pre.scale:.3g}",
                f(), want, rel_tol(want, 1e-3), f, p,
-               m_pre * d * 2 + w_pre.nbytes() + m_pre * 4096 * 4,
+               m_pre * d * 2 + weight_bytes(w_pre) + m_pre * 4096 * 4,
                2 * m_pre * 4096 * d, iters=5, primary=dense, library=lib)
         del w_pre, w_qkv
         g1, g2 = quant(ff, d), quant(ff, d)
+        lib = None
+        if dense:
+            a_g = x_bf.to(g1.arrays["w"].dtype)
+            lib = lambda: F.gelu(F.linear(a_g, g1.arrays["w"]),  # noqa
+                                 approximate="tanh") * F.linear(
+                a_g, g2.arrays["w"])
         f = lambda: mm.gated_ffn(x, g1, g2, prologue_norm=norm)  # noqa: E731
         p = lambda: mm.gated_ffn_plain(x, g1, g2, prologue_norm=norm)  # noqa
         want = p()
         record(res, torch, f"gated_{kind}",
                f"decode M=4 K={d} N={ff} (+prenorm pass), scales "
                f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
-               b * d * 4 + 2 * g1.nbytes() + b * ff * 2, 4 * b * ff * d,
-               primary=not dense)
+               b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
+               primary=not dense, library=lib)
         lib = None
         if dense:
             g1, g2 = quant(ff, d, scale=1.0), quant(ff, d, scale=1.0)
@@ -837,12 +926,22 @@ def phase_codecs(torch, res, cfg):
         record(res, torch, f"gated_{kind}",
                f"prefill M=2048 K={d} N={ff}, scales {g1.scale:.3g}", f(),
                want, rel_tol(want, 1e-2), f, p,
-               m_pre * d * 2 + 2 * g1.nbytes() + m_pre * ff * 2,
+               m_pre * d * 2 + 2 * weight_bytes(g1) + m_pre * ff * 2,
                4 * m_pre * ff * d, iters=5, primary=dense, library=lib)
         del g1, g2
         # The heads, at the embedding's size.
         w_head = quant(cfg.vocab_size, d)
         fnorm = randn(d, s=0.05)
+        n = cfg.vocab_size
+        assert weight_bytes(w_head) == n * d * esize[kind]
+        if kind in ("i4", "nuq4"):
+            # The packed kinds take K3's whole case list (prob, no prob,
+            # masks, M=20) and K6's.
+            phase_top1(torch, res, x, w_head, fnorm, cfg, kind)
+            phase_topk(torch, res, kind, w_head, fnorm, cfg)
+            del w_head
+            torch.cuda.empty_cache()
+            continue
         kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm)
         f = lambda: mm.matmul_top1(x, w_head, **kw)  # noqa: E731
         p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
@@ -857,17 +956,170 @@ def phase_codecs(torch, res, cfg):
               f"margin, {bad} differ", flush=True)
         if bad or not bool(clear.any()):
             fail(f"top1_{kind}: tokens differ from the plain version")
-        n = cfg.vocab_size
         record(res, torch, f"top1_{kind}",
                f"M=4 K={d} N={n} (+prenorm pass), prob, scale "
                f"{w_head.scale:.3g}", prob, want_prob,
                1e-4 * float(want_prob.abs().max()), f, p,
                x.numel() * 4 + d * 4 + w_head.nbytes() + 2 * b * 4,
                2 * b * n * d, iters=5, primary=True)
-        assert w_head.nbytes() == n * d * esize[kind]
         phase_topk(torch, res, kind, w_head, fnorm, cfg, full=kind != "f32")
         del w_head
         torch.cuda.empty_cache()
+
+
+def phase_k7b(torch, res):
+    """K7b beyond phase_codecs' Gemma2-2B-width cases: the decode GEMMs and
+    heads at the widths of the models the packed kinds serve here (i4 and
+    nuq4 at Gemma2-27B's, nuq4 at Gemma2-9B's), a weight whose codes
+    encode their own column (a one-hot A then reads single dequantized
+    weights back, which pins which A columns a lane pairs with the low and
+    the high nibbles), and nuq4 tables with all-equal entries, with
+    repeated entries and with -0.0 (0x80) bytes.  Tolerances as in
+    phase_codecs."""
+    import dataclasses
+
+    from gemma_tpu_torch.models.configs import (config_gemma2_9b,
+                                                config_gemma2_27b)
+    from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.utils.synth import EMBEDDING_RMS, synth_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2727)
+    b = 4
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def rel_tol(want, rel):
+        return rel * float(want.float().abs().max())
+
+    for kind, cfg, width in (("i4", config_gemma2_27b(), "27B"),
+                             ("nuq4", config_gemma2_27b(), "27B"),
+                             ("nuq4", config_gemma2_9b(), "9B")):
+        lc = cfg.layer_configs[0]
+        d, ff, n_vocab = cfg.model_dim, lc.ff_hidden_dim, cfg.vocab_size
+        n_qkv = (lc.heads + 2 * lc.kv_heads) * lc.qkv_dim
+        k_att = lc.heads * lc.qkv_dim
+        x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
+        post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+        w = synth_quant(gen, n_qkv, d, dev, kind)
+        f = lambda: mm.matmul(x, w, prologue_norm=norm)  # noqa: E731
+        p = lambda: mm.matmul_plain(x, w, prologue_norm=norm)  # noqa: E731
+        want = p()
+        record(res, torch, f"matmul_{kind}",
+               f"{width} decode qkv M=4 K={d} N={n_qkv} (+prenorm pass)", f(),
+               want, rel_tol(want, 1e-3), f, p,
+               b * d * 4 + d * 4 + weight_bytes(w) + b * n_qkv * 4,
+               2 * b * n_qkv * d)
+        for name, k_in in (("att_w", k_att), ("linear", ff)):
+            w = synth_quant(gen, d, k_in, dev, kind)
+            a = randn(b, k_in, s=3.0).to(torch.bfloat16)
+            f = lambda: mm.matmul(a, w, epilogue_norm=post, add=add)  # noqa
+            p = lambda: mm.matmul_plain(a, w, epilogue_norm=post,  # noqa
+                                        add=add)
+            want = p()
+            record(res, torch, f"matmul_{kind}",
+                   f"{width} decode {name} M=4 K={k_in} N={d} (+postnorm "
+                   "pass)", f(), want, rel_tol(want, 1e-3), f, p,
+                   b * k_in * 2 + weight_bytes(w) + 2 * b * d * 4,
+                   2 * b * d * k_in)
+        g1 = synth_quant(gen, ff, d, dev, kind)
+        g2 = synth_quant(gen, ff, d, dev, kind)
+        f = lambda: mm.gated_ffn(x, g1, g2, prologue_norm=norm)  # noqa: E731
+        p = lambda: mm.gated_ffn_plain(x, g1, g2, prologue_norm=norm)  # noqa
+        want = p()
+        record(res, torch, f"gated_{kind}",
+               f"{width} decode M=4 K={d} N={ff} (+prenorm pass)", f(), want,
+               rel_tol(want, 1e-2), f, p,
+               b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d)
+        del g1, g2, w
+        w_head = synth_quant(gen, n_vocab, d, dev, kind, rms=EMBEDDING_RMS)
+        kw = dict(final_cap=cfg.final_cap, prologue_norm=norm)
+        f = lambda: mm.matmul_top1(x, w_head, **kw)  # noqa: E731
+        p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
+        (tok, prob), (want_tok, want_prob) = f(), p()
+        logits = mm.matmul_plain(x, w_head, prologue_norm=norm)
+        top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)
+                ).topk(2).values
+        del logits
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
+        bad = int(((tok != want_tok) & clear).sum())
+        print(f"[2] top1_{kind} {width}: tokens {tok.tolist()} (plain "
+              f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
+              f"margin, {bad} differ", flush=True)
+        if bad or not bool(clear.any()):
+            fail(f"top1_{kind} [{width}]: tokens differ from the plain "
+                 "version")
+        head_bytes = x.numel() * 4 + d * 4 + weight_bytes(w_head)
+        record(res, torch, f"top1_{kind}",
+               f"{width} M=4 K={d} N={n_vocab} (+prenorm pass), prob", prob,
+               want_prob, 1e-4 * float(want_prob.abs().max()), f, p,
+               head_bytes + 2 * b * 4, 2 * b * n_vocab * d, iters=5)
+        f = lambda: mm.matmul_topk(x, w_head, 64, **kw)  # noqa: E731
+        p = lambda: mm.matmul_topk_plain(x, w_head, 64, **kw)  # noqa: E731
+        got, want = f(), p()
+        tol = 1e-3 * float(want[0].abs().max())
+        label = f"{width} M=4 K={d} N={n_vocab} k_top=64 (+prenorm, merge)"
+        check_topk(torch, f"topk_{kind} {label}", got, want, tol)
+        record(res, torch, f"topk_{kind}", label, got[0], want[0], tol, f, p,
+               head_bytes + b * 64 * 8, 2 * b * n_vocab * d, iters=5)
+        del w_head
+        torch.cuda.empty_cache()
+
+    # --- which A columns meet which nibbles ---
+    n, k = 64, 1024
+    cols = torch.arange(k, device=dev)
+    rows = torch.arange(n, device=dev)
+    # Neighbours in a byte (j, 128 + j), in a step (j, j + 1) and across
+    # 16-byte lane loads all get different codes.
+    codes = (cols[None, :] * 7 + rows[:, None] * 3 + cols[None, :] // 16) % 16
+    packed = torch.from_numpy(mm.pack_nuq4(
+        codes.to(torch.uint8).cpu().numpy())).to(dev)
+    sel = torch.tensor([0, 1, 2, 3, 127, 128, 129, 255, 256, 300, 511, 640,
+                        777, 1000, 1023, 64, 65, 191, 192, 16], device=dev)
+    for kind in ("i4", "nuq4"):
+        base = synth_quant(gen, n, k, dev, kind)
+        w = dataclasses.replace(base, arrays={**base.arrays, "codes": packed})
+        want_all = w.dequantize()
+        for m in (16, 20):  # the decode tile (8 warps split K), the prefill's
+            a = torch.zeros(m, k, device=dev)
+            a[torch.arange(m), sel[:m]] = 1.0
+            got = mm.matmul(a.to(torch.bfloat16), w)
+            want = want_all[:, sel[:m]].T
+            err = float((got - want).abs().max())
+            tol = 1e-6 * float(want.abs().max())
+            print(f"[2] matmul_{kind} one-hot A, M={m}: each output is one "
+                  f"dequantized weight; max_abs_err {err:.3g} (tol "
+                  f"{tol:.3g})", flush=True)
+            if err > tol:
+                fail(f"matmul_{kind}: a nibble is paired with the wrong A "
+                     "column")
+
+    # --- nuq4 tables: all-equal, repeated and -0.0 entries ---
+    base = synth_quant(gen, n, k, dev, "nuq4")
+    blocks = k // 256
+    entries = base.arrays["tables"][:, :blocks * 16].reshape(n, blocks, 16)
+    entries = entries.clone()
+    entries[:21] = entries[:21, :, :1]                    # all 16 equal
+    entries[21:42] = entries[21:42, :, [0] * 6 + [7] * 5 + [15] * 5]
+    entries[42:, :, 3] = 0x80                             # -0.0
+    entries[42:, :, 4] = 0x00
+    tables = base.arrays["tables"].clone()
+    tables[:, :blocks * 16] = entries.reshape(n, -1)
+    w = dataclasses.replace(base, arrays={**base.arrays, "tables": tables})
+    a = randn(b, k).to(torch.bfloat16)
+    got, want = mm.matmul(a, w), mm.matmul_plain(a, w)
+    err, tol = float((got - want).abs().max()), rel_tol(want, 1e-3)
+    hot = torch.zeros(16, k, device=dev)
+    hot[torch.arange(16), sel[:16]] = 1.0
+    err_hot = float((mm.matmul(hot.to(torch.bfloat16), w)
+                     - w.dequantize()[:, sel[:16]].T).abs().max())
+    print(f"[2] matmul_nuq4 tables with all-equal, repeated and -0.0 "
+          f"entries: max_abs_err {err:.3g} (tol {tol:.3g}); one-hot reads "
+          f"max_abs_err {err_hot:.3g} (exact)", flush=True)
+    if err > tol or err_hot != 0.0:
+        fail("matmul_nuq4 disagrees with its plain version on degenerate "
+             "tables")
 
 
 def phase_draw(torch, res, cfg):
@@ -930,7 +1182,7 @@ def phase_two_layers(torch):
     gen = torch.Generator().manual_seed(7)
     t = 96
     tokens = torch.randint(2, cfg.vocab_size, (1, t), generator=gen)
-    for kind in ("i8", "sfp"):
+    for kind in ("i8", "sfp", "i4", "nuq4"):
         params = synth_params(cfg, kind=kind, seed=7, device="cuda")
         params_cpu = _to_device(params, "cpu")
         logits = {}
@@ -956,20 +1208,172 @@ def phase_two_layers(torch):
         if err > tol:
             fail(f"2-layer {kind} model disagrees between the card and the "
                  "CPU")
-        if kind == "i8":
+        if kind != "sfp":
+            # The packed kinds' plain head costs seconds a step on the CPU
+            # (it unpacks the whole embedding): one chunk, three draws.
+            short = kind != "i8"
             two_layer_chunks(torch, cfg, params, params_cpu,
-                             tokens[0].tolist())
+                             tokens[0].tolist(), new_tokens=4 if short else 8,
+                             label=kind)
             # Sampled steps want a flat head: see FLAT_EMBEDDING_RMS.
-            flat = synth_params(cfg, seed=7, device="cuda",
+            flat = synth_params(cfg, kind=kind, seed=7, device="cuda",
                                 embedding_rms=FLAT_EMBEDDING_RMS)
             two_layer_sampled(torch, cfg, flat, _to_device(flat, "cpu"),
-                              tokens[0].tolist())
+                              tokens[0].tolist(), steps=3 if short else 4,
+                              label=kind)
             del flat
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    phase_loader(torch)
+
+
+def write_synth_sbs(torch, path, cfg, type_name: str, seed: int) -> int:
+    """Write `cfg`'s tensors (the stacked names a converted checkpoint
+    holds: qkv_ein, gating_ein, att_ein, linear_w and the norms) with the
+    port's `write_model`; returns the weights' count.  SFP-typed: every
+    byte but 0x80 is a valid SFP code, so the streams are random bytes
+    drawn on the card (rms 0.42) under a tensor scale that brings the
+    weights to rms 1/sqrt(K).  NUQ-typed: N(0, 1/sqrt(K)) values clustered
+    by the numpy encoder."""
+    import numpy as np
+
+    from gemma_tpu_torch.compression import (PackedTensor, Type,
+                                             compress_tensor)
+    from gemma_tpu_torch.io.model_store import write_model
+    from gemma_tpu_torch.models.tensor_info import TensorInfoRegistry
+    from gemma_tpu_torch.utils.synth import EMBEDDING_RMS, sfp_rms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    registry = TensorInfoRegistry(cfg)
+    names = ["c_embedding", "c_final_norm"]
+    for i in range(cfg.num_layers):
+        names += [f"{base}_{i}" for base in (
+            "qkv_ein", "gating_ein", "att_ein", "linear_w", "pre_att_ns",
+            "pre_ff_ns", "post_att_ns", "post_ff_ns")]
+    tensors, count = [], 0
+    for name in names:
+        rows, cols = registry.find(name).extents
+        if rows == 1:
+            vals = torch.randn(1, cols, generator=gen, device="cuda") * 0.05
+            tensors.append(compress_tensor(Type.F32, name, vals.cpu().numpy()))
+            continue
+        count += rows * cols
+        lc = cfg.layer_configs[0]
+        k = lc.heads * lc.qkv_dim if name.startswith("att_ein") else cols
+        rms = EMBEDDING_RMS if name == "c_embedding" else k ** -0.5
+        if type_name == "sfp":
+            data = torch.randint(0, 256, (rows * cols,), generator=gen,
+                                 device="cuda", dtype=torch.uint8)
+            data[data == 0x80] = 0
+            tensors.append(PackedTensor(
+                name, Type.SFP, rows, cols, data.cpu().numpy(),
+                float(np.float32(rms / sfp_rms()))))
+        else:
+            vals = torch.randn(rows, cols, generator=gen, device="cuda") * rms
+            tensors.append(compress_tensor(Type.NUQ, name,
+                                           vals.cpu().numpy()))
+    write_model(path, cfg, tensors)
+    return count
+
+
+def phase_loader(torch):
+    """`Gemma.load` from files written here with the port's `write_model`,
+    on the card and on the CPU from the same file, last logits (prefill 23
+    tokens + one decode step, bf16 KV) compared at the 2-layer tolerance
+    above.  The numpy transcodes bound the sizes: int4 takes ~0.05 s and
+    int8 ~0.75 s per million weights, NUQ clustering ~17 s:
+      - kind_override None (sfp) and "i4": 2 layers at Gemma2-2B's full
+        width and vocab / with the vocab cut to 4096 (165M weights);
+      - "i8": 2 layers of model_dim 512, ff 2048, 2 heads of 256 over 1 KV
+        head, vocab 2048 (9M weights);
+      - "nuq4" from a NUQ-typed file: 1 layer of model_dim 256, ff 512, 2
+        heads of 128 over 1 KV head, vocab 256 (0.65M weights); att_w
+        loads as kind nuq beside nuq4 everything else."""
+    import dataclasses
+    import tempfile
+
+    from gemma_tpu_torch.engine import RuntimeConfig
+    from gemma_tpu_torch.gemma import Gemma
+    from gemma_tpu_torch.models.configs import config_gemma2_2b
+    from gemma_tpu_torch.models.gemma import forward
+
+    full = config_gemma2_2b()
+
+    def cut(layers, vocab, **lc_kw):
+        lcs = [dataclasses.replace(lc, **lc_kw)
+               for lc in full.layer_configs[:layers]]
+        return dataclasses.replace(
+            full, num_layers=layers, layer_configs=lcs, vocab_size=vocab,
+            model_dim=lcs[0].model_dim,
+            attention_window_sizes=[64, 8192] if layers == 2 else [8192])
+
+    narrow = dict(model_dim=512, ff_hidden_dim=2048, heads=2, kv_heads=1)
+    tiny = dict(model_dim=256, ff_hidden_dim=512, heads=2, kv_heads=1,
+                qkv_dim=128)
+    cases = (("sfp", cut(2, full.vocab_size), (None,)),
+             ("sfp", cut(2, 4096), ("i4",)),
+             ("sfp", cut(2, 2048, **narrow), ("i8",)),
+             ("nuq", cut(1, 256, **tiny), ("nuq4",)))
+    gen = torch.Generator().manual_seed(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        for ci, (type_name, cfg, overrides) in enumerate(cases):
+            path = os.path.join(tmp, f"model{ci}.sbs")
+            t0 = time.monotonic()
+            count = write_synth_sbs(torch, path, cfg, type_name, seed=30 + ci)
+            print(f"[3] wrote a {type_name}-typed .sbs: {cfg.num_layers} "
+                  f"layers, model_dim {cfg.model_dim}, vocab "
+                  f"{cfg.vocab_size}, {count / 1e6:.2f}M weights, "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            tokens = torch.randint(2, cfg.vocab_size, (1, 24), generator=gen)
+            for override in overrides:
+                logits, kinds = {}, None
+                for dev in ("cuda", "cpu"):
+                    t0 = time.monotonic()
+                    g = Gemma.load(path, kind_override=override,
+                                   runtime=RuntimeConfig(seq_len=8192),
+                                   device=dev)
+                    took = time.monotonic() - t0
+                    cache = g.new_cache(1)
+                    forward(g.params, tokens[:, :-1].to(dev),
+                            torch.arange(23, device=dev)[None], cache,
+                            g.config, return_logits="none")
+                    out, _ = forward(g.params, tokens[:, -1:].to(dev),
+                                     torch.tensor([[23]], device=dev), cache,
+                                     g.config, return_logits="last")
+                    logits[dev] = out.float().cpu()
+                    lp = g.params.layers[0]
+                    kinds = (g.params.embedding.kind, lp.qkv_cat.kind,
+                             lp.att_w.kind, lp.gating1.kind, lp.linear.kind)
+                    if g.params.device.type != dev:
+                        fail(f"Gemma.load(device={dev!r}) put the params on "
+                             f"{g.params.device}")
+                    print(f"[3] Gemma.load(kind_override={override!r}, "
+                          f"device={dev!r}): {took:.2f} s; kinds (embedding, "
+                          f"qkv, att_w, gating, linear) {kinds}", flush=True)
+                    del g, cache
+                want = {None: ("sfp",) * 5,
+                        "nuq4": ("nuq4", "nuq4", "nuq", "nuq4", "nuq4")}.get(
+                    override, (override,) * 5)
+                if kinds != want:
+                    fail(f"kind_override={override!r} loaded kinds {kinds}")
+                if not torch.isfinite(logits["cuda"]).all():
+                    fail(f"loaded model ({override}): non-finite logits")
+                err = float((logits["cuda"] - logits["cpu"]).abs().max())
+                scale = float(logits["cpu"].abs().max())
+                tol = 2e-2 * scale
+                print(f"[3] loaded model, kind_override={override!r}: card "
+                      f"vs CPU last-logit max_abs_err {err:.4g} (tol "
+                      f"{tol:.4g}, max|logit| {scale:.4g})", flush=True)
+                if err > tol:
+                    fail(f"the model loaded with kind_override={override!r} "
+                         "disagrees between the card and the CPU")
+    torch.cuda.empty_cache()
 
 
 def two_layer_sampled(torch, cfg, params, params_cpu, prompt, steps: int = 4,
                       top_k: int = 64, temperature: float = 0.8,
-                      seed: int = 1):
+                      seed: int = 1, label: str = "i8"):
     """Sampled steps on the card and on the CPU, teacher-forced by the
     CPU's tokens so every step compares like with like: the fused top-k
     head's values within 5e-3 of max|logit| (the bound of the greedy chunk
@@ -1020,7 +1424,7 @@ def two_layer_sampled(torch, cfg, params, params_cpu, prompt, steps: int = 4,
         won = int(score.argmax())
         decided = int(ki[0, won]) == int(ci[0, won]) \
             and margin > 4 * tol / temperature
-        print(f"[3] sampled step {step}: top-{top_k} value max_abs_err "
+        print(f"[3] {label} sampled step {step}: top-{top_k} value max_abs_err "
               f"{err:.4g} (tol {tol:.4g}), {int(pinned.sum())} entries "
               f"pinned, {bad} indices differ; token card {ktok} CPU {ctok}, "
               f"Gumbel margin {margin:.4g} "
@@ -1039,12 +1443,12 @@ def two_layer_sampled(torch, cfg, params, params_cpu, prompt, steps: int = 4,
     if not pinned_total or not drawn:
         fail("2-layer sampled steps: no top-k entry or no drawn token had "
              "a clear margin")
-    print(f"[3] 2-layer sampled steps: {drawn} of {steps} tokens decided "
+    print(f"[3] 2-layer {label} sampled steps: {drawn} of {steps} tokens decided "
           "by a clear margin, all equal", flush=True)
 
 
 def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
-                     new_tokens: int = 8):
+                     new_tokens: int = 8, label: str = "i8"):
     """generate_batch with the default RuntimeConfig (bf16 KV,
     decode_chunk=4) on the card and on the CPU.  Logit tolerance: 5e-3 of
     max|logit|, the CPU suite's bound between the port's paths (the i8
@@ -1079,7 +1483,7 @@ def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
                 .sum())
     err = max(abs(math.log(a) - math.log(b)) for a, b in
               zip(pk[:clear], pc[:clear])) if clear else 0.0
-    print(f"[3] 2-layer generate_batch, bf16 KV, decode_chunk=4: card "
+    print(f"[3] 2-layer {label} generate_batch, bf16 KV, decode_chunk=4: card "
           f"{tk}, CPU {tc}; {clear} steps with a clear margin, log-prob "
           f"max err {err:.4g} (tol {2 * logit_tol:.4g})", flush=True)
     if tk[:clear] != tc[:clear] or err > 2 * logit_tol or not clear:
@@ -1316,17 +1720,19 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         for name, c in counts.items():
             totals[name] = totals.get(name, 0) + c
 
-    def schedule(engine, steps, head, kv="bf16", wkind="i8"):
+    def schedule(engine, steps, head, kv="bf16", wkind="i8", att_kind=None):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
         and prefill attention per layer; a decode step 3 GEMMs, the gated
         GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
         decode attention per layer, then its head: "top1" the fused greedy
         head, "topk" the fused top-k head with its merge pass and the
-        draw, "gemm" the head as one more GEMM (one-step chunks)."""
+        draw, "gemm" the head as one more GEMM (one-step chunks).
+        att_kind: the codec of att_w where it differs from the rest's."""
         layers = len(engine.params.layers)
         chunk = engine.prefill_chunk(len(prompts), max(lens))
         rounds = -(-(max(lens) - 1) // chunk)
-        want = {f"matmul_{wkind}": (rounds + steps) * 3 * layers
+        want = {f"matmul_{wkind}": (rounds + steps)
+                * (2 if att_kind else 3) * layers
                 + (steps if head == "gemm" else 0),
                 "matmul_prenorm": steps * (2 * layers + 1),
                 "matmul_postnorm_add": steps * 2 * layers,
@@ -1338,6 +1744,8 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         if head == "topk":
             want.update({f"topk_{wkind}": steps, "topk_merge": steps,
                          "draw_topk": steps})
+        if att_kind:
+            want[f"matmul_{att_kind}"] = (rounds + steps) * layers
         return want, rounds, chunk
 
     # --- A: the default RuntimeConfig ---
@@ -1524,6 +1932,55 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
             if head == "top1":
                 check_first_tokens(torch, engine, prompts, outs, config,
                                    label)
+        del prm, engine
+        torch.cuda.empty_cache()
+
+    # --- I: Gemma2-27B, i4 weights, every layer; greedy, then sampled ---
+    # --- J: Gemma2-9B, nuq4 weights, every layer; the same traffic ---
+    # --- K: Gemma2-2B width, 4 layers, nuq4 weights with att_w of kind nuq:
+    # the mix a nuq4 model loaded from a file has ---
+    from gemma_tpu_torch.models.configs import (config_gemma2_9b,
+                                                config_gemma2_27b)
+
+    for label, name, wkind, config, att_kind, n_greedy, n_sampled in (
+            ("4I", "Gemma2-27B", "i4", config_gemma2_27b(), None, 16, 8),
+            ("4J", "Gemma2-9B", "nuq4", config_gemma2_9b(), None, 16, 8),
+            ("4K", "Gemma2-2B width", "nuq4", short, "sfp", 8, 4)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        prm = synth_params(config, kind=wkind, seed=0, device="cuda")
+        if att_kind:
+            mix_gen = torch.Generator(device="cuda").manual_seed(12)
+            for lp in prm.layers:
+                lp.att_w = synth_quant(mix_gen, lp.att_w.n, lp.att_w.k,
+                                       "cuda", "nuq")
+        torch.cuda.synchronize()
+        lc = config.layer_configs[0]
+        print(f"[{label}] {name}, {config.num_layers} layers, model_dim "
+              f"{config.model_dim}, {lc.heads}/{lc.kv_heads} heads of "
+              f"{lc.qkv_dim}, query scale {config.query_scale_value():.4g}, "
+              f"synthetic {wkind} weights"
+              f"{' (att_w of kind nuq)' if att_kind else ''} on the card in "
+              f"{time.monotonic() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        engine = GemmaEngine(prm, config, RuntimeConfig(seq_len=8192))
+        engine.generate_batch([p[:40] for p in prompts],
+                              max_generated_tokens=6)
+        outs, timing = counted_generate(
+            f"{label} greedy", engine, "top1", wkind, n_greedy,
+            att_kind=att_kind)
+        print(f"[{label}] first tokens: {[o[:8] for o in outs]}", flush=True)
+        timed_runs(torch, engine, prompts, n_greedy, label, timing)
+        if label != "4K":
+            profile_chunks(torch, engine, prompts, label=label)
+        check_first_tokens(torch, engine, prompts, outs, config, label)
+        engine = GemmaEngine(prm, config,
+                             RuntimeConfig(seq_len=8192, **sampled))
+        counted_generate(f"{label} sampled", engine, "topk", wkind,
+                         n_sampled, att_kind=att_kind)
+        print(f"[{label}] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
         del prm, engine
         torch.cuda.empty_cache()
 

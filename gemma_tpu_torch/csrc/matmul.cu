@@ -1,12 +1,14 @@
 // Quantized-weight GEMMs for Hopper (sm_90a): K1, K2, K3 and K6 of the
-// port, each instantiated per weight codec (K7a's decoders).
+// port, each instantiated per weight codec (K7a's one-byte and dense
+// decoders, K7b's 4.5-bit ones).
 //
 // Replaces gemma_tpu/ops/matmul.py:_mm_kernel (K1, with the _norm_a
 // prologue and the post-norm + residual epilogue), matmul.py:_gated_kernel
 // (K2), matmul.py:_top1_kernel (K3, the fused greedy head; see top1_body
 // below), matmul.py:_topk_kernel (K6, the fused top-k head; see topk_body)
 // and, inside all four, matmul.py:_acc_step's i8, sfp/nuq and bf16/f32
-// branches with _sfp_tile_to_bf16 (K7a).  Computes
+// branches with _sfp_tile_to_bf16 (K7a) and its nuq4 and i4 branches
+// (K7b).  Computes
 //   C[M, N] = scale * A[M, K] . dequant(B)[N, K]^T
 // with A bf16, the B tile turned into bf16 in registers, products
 // accumulated in f32.  The codecs (template parameter CODEC):
@@ -20,7 +22,25 @@
 //         integer arithmetic on two values at a time; no group affine;
 //   bf16  [N, K]: the words feed the tensor cores as they are;
 //   f32   [N, K]: rounded to bf16 (nearest even) in registers, as the TPU
-//         kernel's b_tile.astype(a_tile.dtype) does with a bf16 A.
+//         kernel's b_tile.astype(a_tile.dtype) does with a bf16 A;
+//   i4    codes u8 [N, K/2], two 4-bit codes a byte in split halves: byte
+//         g*128 + j of a row holds elements j (low nibble) and 128 + j
+//         (high nibble) of the row's 256-block g; scales and mins f32
+//         [N, K/128], dequant = s*c + m per 128-wide group, applied to the
+//         OUTPUT like i8: C += s_g * (A_g . C_g) + m_g * sum(A_g).  A
+//         nibble becomes bf16 exactly: OR'ed under the byte 0x43 it is the
+//         bf16 128 + c, and one bf16x2 subtraction of 128 leaves c;
+//   nuq4  codes as i4's; tables u8 [N, tstride]: 16 SFP bytes per
+//         256-block, the block's cluster centres (rows padded to tstride
+//         = round_up(K/16, 128) bytes, the layout they are loaded in).  A
+//         lane keeps its row's 16 table bytes of the chunk in four
+//         registers and looks four codes up at once with three byte
+//         permutes (two 8-entry selects on the codes' low three bits, one
+//         select between them on their fourth bit), then decodes the
+//         picked SFP bytes as the sfp codec does.  The TPU kernel's
+//         128-lane gather windows have no counterpart: a table never
+//         leaves the lane's registers.  The tensor scale multiplies the
+//         output.
 // The gated variant keeps two accumulators over one A and emits bf16
 // gelu_tanh(C1) * C2 with matmul.py:664-665's constants.  One C entry per
 // GEMM runs up to three kernels on the stream:
@@ -35,20 +55,27 @@
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
 //   decode (M = B <= 16) is bytes-bound on the weights: N*K*esize bytes (+
-//   8*N*K/128 scale bytes for i8), e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us,
-//   the logits head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16)
-//   -> 182, 176, 352 us;
+//   8*N*K/128 scale bytes for i8; 0.5625 bytes a weight for i4 and nuq4),
+//   e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us, the logits head 256000x2304
+//   = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16), 332 MB (i4, nuq4) -> 182,
+//   176, 352, 99 us;
 //   prefill (M = 4*512) is operations-bound: 2*M*N*K, e.g. the gated FFN
 //   2*2*2048*9216*2304 = 174 GFLOP -> 176 us, whatever the codec;
 //   the heads (K3, K6) read the logits GEMM's weights and write no logits.
 // Simple design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
 // shared-memory staging.  Each warp owns a (16*MT) x (8*NT) output tile
-// and walks K in chunks of 64 bytes per B row (128, 64 or 32 elements at
-// 1, 2 or 4 bytes each): a lane loads 2 x 16 B per B row per chunk, so the
-// registers in flight are the same for every codec, and converts in
-// registers (byte permutes and adds for i8, common.cuh).  The K of a chunk
-// are permuted identically on A and B (a sum over k does not care) so each
-// lane's bytes are contiguous.  At M <= 16 eight warps split the chunks of
+// and walks K in chunks of 2 x 64 bytes per B row (256 elements at two a
+// byte, else 128, 64 or 32 at 1, 2 or 4 bytes each): a lane loads 2 x 16 B
+// per B row per chunk, so the registers in flight are the same for every
+// codec, and converts in registers (byte permutes and adds for i8,
+// common.cuh).  The K of a chunk are permuted identically on A and B (a
+// sum over k does not care) so each lane's bytes are contiguous.  For the
+// packed kinds a chunk is one 256-block: i4 walks its low nibbles (group
+// 2c) and then its high nibbles (group 2c + 1), four consecutive bytes a
+// step, so a lane's A columns of a step are c*256 + 128*nb + 64*h + 16*t +
+// 4*w + {0..3}; nuq4 takes the four nibbles of two consecutive bytes a
+// step, A columns c*256 + 64*h + 16*t + 4*w + 2*hf + {0, 1, 128, 129}.
+// At M <= 16 eight warps split the chunks of
 // one 16x8 tile (reduced through shared memory) and the next chunk's bytes
 // are prefetched into registers.  Measured on the card, the decode GEMMs
 // are latency-bound (waves of short blocks), not bandwidth-bound; left for
@@ -61,30 +88,41 @@
 
 using namespace gemma;
 
-enum : int { kI8 = 0, kSfp = 1, kBf16 = 2, kF32 = 3 };
+enum : int { kI8 = 0, kSfp = 1, kBf16 = 2, kF32 = 3, kI4 = 4, kNuq4 = 5 };
 
 // A codec's element size and what follows from it: a lane loads 16 bytes
 // (kEpl elements) from each half of a chunk, the 4 lanes of a B row cover
 // 64 bytes per half, so a chunk spans 8 * kEpl of K in kEpl / 2 steps of
-// mma.sync m16n8k16 (each lane brings 4 consecutive K per step).
+// mma.sync m16n8k16 (each lane brings 4 K per step).  The packed kinds
+// hold two elements a byte; i4's chunk is two 128-wide affine groups.
 template <int CODEC>
 struct Codec {
+  static constexpr bool kPacked = CODEC == kI4 || CODEC == kNuq4;
   static constexpr int kEsize = CODEC == kBf16 ? 2 : CODEC == kF32 ? 4 : 1;
-  static constexpr int kEpl = 16 / kEsize;
-  static constexpr int kChunk = 8 * kEpl;  // 128, 64, 32 elements
-  static constexpr int kSteps = kEpl / 2;  // 8, 4, 2
+  static constexpr int kEpl = kPacked ? 32 : 16 / kEsize;
+  static constexpr int kChunk = 8 * kEpl;  // 256, 128, 64, 32 elements
+  static constexpr int kSteps = kEpl / 2;  // 16, 8, 4, 2
+  static constexpr int kGroups = CODEC == kI4 ? 2 : 1;  // per chunk
 };
 
 struct MMArgs {
   const __nv_bfloat16* a;  // [M, K]
-  const void* codes[2];    // [N, K] of the codec's element
-  const float* inv[2];     // i8 only: [N, K/128]
-  const float* zp[2];      // i8 only: [N, K/128]
+  const void* codes[2];    // [N, K] of the codec's element ([N, K/2] packed)
+  // i8: inverse scales, i4: scales, [N, K/128]; nuq4: the tables, u8
+  // [N, nuq4_tstride(K)], 16 bytes a 256-block (read through a cast)
+  const float* inv[2];
+  const float* zp[2];      // i8: zero points, i4: mins; [N, K/128]
   float scale[2];
   void* out;  // [M, N], f32 or bf16
   int M, N, K;
   int out_bf16;
 };
+
+// The bytes of a row of nuq4 tables: 16 per 256-block of K, padded to a
+// multiple of 128 (the layout the tables are loaded in).
+__host__ __device__ __forceinline__ int nuq4_tstride(int K) {
+  return (K / 256 * 16 + 127) / 128 * 128;
+}
 
 template <int CODEC, int NB, int NT>
 __device__ __forceinline__ void load_b(uint4 (&dst)[NB][NT][2],
@@ -97,14 +135,35 @@ __device__ __forceinline__ void load_b(uint4 (&dst)[NB][NT][2],
     for (int j = 0; j < NT; ++j) {
       const int n = n0 + 8 * j + gid;
       if (n < p.N) {
-        const char* src = static_cast<const char*>(p.codes[b]) +
-            ((size_t)n * p.K + c * C::kChunk + C::kEpl * t) * C::kEsize;
+        const char* src = static_cast<const char*>(p.codes[b]);
+        if constexpr (C::kPacked)  // rows of K/2 bytes, chunks of 128
+          src += (size_t)n * (p.K / 2) + (size_t)c * 128 + 16 * t;
+        else
+          src += ((size_t)n * p.K + c * C::kChunk + C::kEpl * t) * C::kEsize;
         dst[b][j][0] = __ldg(reinterpret_cast<const uint4*>(src));
         dst[b][j][1] = __ldg(reinterpret_cast<const uint4*>(src + 64));
       } else {
         dst[b][j][0] = make_uint4(0, 0, 0, 0);
         dst[b][j][1] = make_uint4(0, 0, 0, 0);
       }
+    }
+  }
+}
+
+// nuq4: each B row's 16 table bytes of chunk (256-block) c.
+template <int NB, int NT>
+__device__ __forceinline__ void load_t(uint4 (&dst)[NB][NT], const MMArgs& p,
+                                       int n0, int gid, int c) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + gid;
+      const uint8_t* tables = reinterpret_cast<const uint8_t*>(p.inv[b]);
+      dst[b][j] = n < p.N
+          ? __ldg(reinterpret_cast<const uint4*>(
+                tables + (size_t)n * nuq4_tstride(p.K) + (size_t)c * 16))
+          : make_uint4(0, 0, 0, 0);
     }
   }
 }
@@ -143,6 +202,40 @@ __device__ __forceinline__ void b_frag(const uint4& q, int w, uint32_t* bf) {
     bf[0] = pack_bf16x2(__uint_as_float(q.x), __uint_as_float(q.y));
     bf[1] = pack_bf16x2(__uint_as_float(q.z), __uint_as_float(q.w));
   }
+}
+
+// i4: the four nibbles at position nb (0 low, 1 high) of the bytes of x ->
+// two bf16x2 words (bytes 0,1 and 2,3), exactly: a nibble c under the byte
+// 0x43 is the bf16 128 + c (ulp 1 in [128, 256)), minus 128 is c.
+__device__ __forceinline__ void i4_frag(uint32_t x, int nb, uint32_t* bf) {
+  const uint32_t n4 = (x >> (4 * nb)) & 0x0f0f0f0fu;
+  uint32_t raw[2] = {__byte_perm(n4, 0x43434343u, 0x4140u),
+                     __byte_perm(n4, 0x43434343u, 0x4342u)};
+  uint32_t bias = 0x43004300u;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const __nv_bfloat162 d = __hsub2(
+        *reinterpret_cast<__nv_bfloat162*>(&raw[e]),
+        *reinterpret_cast<__nv_bfloat162*>(&bias));
+    bf[e] = *reinterpret_cast<const uint32_t*>(&d);
+  }
+}
+
+// nuq4: the low 16 bits of `sel` are the four codes of two consecutive
+// packed bytes (elements j, 128 + j, j + 1, 129 + j of the 256-block);
+// `tbl` holds the block's 16 SFP table bytes.  A byte permute selects
+// among 8 bytes by the low three bits of each selector nibble (its fourth
+// bit would replicate a sign instead), so: pick from entries 0-7 and from
+// entries 8-15 by the codes' low three bits, then between the two by each
+// code's fourth bit.  bf[0] = (j, j + 1), bf[1] = (128 + j, 129 + j).
+__device__ __forceinline__ void nuq4_frag(uint32_t sel, const uint4& tbl,
+                                          uint32_t* bf) {
+  const uint32_t s7 = sel & 0x7777u;
+  const uint32_t lo = __byte_perm(tbl.x, tbl.y, s7);
+  const uint32_t hi = __byte_perm(tbl.z, tbl.w, s7);
+  const uint32_t r = __byte_perm(lo, hi, 0x3210u | ((sel >> 1) & 0x4444u));
+  bf[0] = sfp2_to_bf16x2(__byte_perm(r, 0, 0x4240u));
+  bf[1] = sfp2_to_bf16x2(__byte_perm(r, 0, 0x4341u));
 }
 
 // The block's (16*MT) x BN output tile at rows m0.., columns nb..: on
@@ -294,6 +387,194 @@ __device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
   }
 }
 
+// mm_tile for the packed codecs (i4, nuq4): the same tile, the same split
+// of K over warps and lanes, and the same two 16-byte loads per lane, B row
+// and chunk, but a chunk is a 256-block of two nibbles a byte, walked in 16
+// steps.  i4 takes the low nibbles (affine group 2c) and then the high
+// ones (group 2c + 1), closing each group into `acc` as i8 does; nuq4
+// takes the four nibbles of two bytes a step and looks them up in the
+// row's table of the chunk, which rides beside the codes in `tcur` /
+// `tnext`.  Kept apart from mm_tile so that the one-byte and dense codecs
+// compile to what they were.
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+__device__ __forceinline__ void mm_tile_packed(
+    const MMArgs& p, int m0, int nb, float (&acc)[GATED ? 2 : 1][MT][NT][4]) {
+  using C = Codec<CODEC>;
+  static_assert(C::kPacked, "mm_tile walks the one-byte and dense codecs");
+  // i4: a group's raw products are scaled into `acc` when it closes.
+  constexpr bool AFFINE = CODEC == kI4;
+  constexpr bool NUQ = CODEC == kNuq4;
+  constexpr int NB = GATED ? 2 : 1;
+  constexpr int TILES = WARPS / KSPLIT;
+  constexpr int FRAG = NB * MT * NT * 4;
+  constexpr int SPG = C::kSteps / C::kGroups;  // steps per affine group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, t = lane & 3;
+  const int ks = warp % KSPLIT, tile = warp / KSPLIT;
+  const int n0 = nb + tile * 8 * NT;
+  const int M = p.M, N = p.N, K = p.K, chunks = K / C::kChunk;
+
+  float part[AFFINE ? NB : 1][MT][NT][4];  // one group's raw products
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[b][i][j][e] = 0.f;
+          if constexpr (AFFINE) part[b][i][j][e] = 0.f;
+        }
+
+  uint4 bcur[NB][NT][2];
+  uint4 tcur[NUQ ? NB : 1][NUQ ? NT : 1];  // nuq4: the chunk's tables
+  if (ks < chunks) {
+    load_b<CODEC, NB, NT>(bcur, p, n0, gid, t, ks);
+    if constexpr (NUQ) load_t<NB, NT>(tcur, p, n0, gid, ks);
+  }
+
+  for (int c = ks; c < chunks; c += KSPLIT) {
+    uint4 bnext[NB][NT][2];
+    uint4 tnext[NUQ ? NB : 1][NUQ ? NT : 1];
+    const int cn = c + KSPLIT;
+    if (cn < chunks) {
+      load_b<CODEC, NB, NT>(bnext, p, n0, gid, t, cn);
+      if constexpr (NUQ) load_t<NB, NT>(tnext, p, n0, gid, cn);
+    }
+
+#pragma unroll
+    for (int grp = 0; grp < C::kGroups; ++grp) {
+      float psum[MT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) psum[i][0] = psum[i][1] = 0.f;
+
+#pragma unroll
+      for (int s = 0; s < SPG; ++s) {
+        // Which half-chunk (h) and 4-byte word (w) of it this step reads,
+        // and the A column k that its first B element multiplies.
+        int h, w, k;
+        if constexpr (CODEC == kI4) {
+          h = s / 4, w = s % 4;
+          k = c * 256 + 128 * grp + 64 * h + 16 * t + 4 * w;
+        } else {
+          h = s / 8, w = (s / 2) % 4;
+          k = c * 256 + 64 * h + 16 * t + 4 * w + 2 * (s % 2);
+        }
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = m0 + 16 * i + gid + 8 * hh;
+            uint2 x = make_uint2(0, 0);
+            if (row < M) {
+              const __nv_bfloat16* ar = p.a + (size_t)row * K + k;
+              if constexpr (NUQ) {  // columns k, k+1 and k+128, k+129
+                x.x = *reinterpret_cast<const uint32_t*>(ar);
+                x.y = *reinterpret_cast<const uint32_t*>(ar + 128);
+              } else {
+                x = *reinterpret_cast<const uint2*>(ar);
+              }
+            }
+            af[i][hh] = x.x;      // a0 / a1: the step's first two K
+            af[i][2 + hh] = x.y;  // a2 / a3: its last two
+            if constexpr (AFFINE) {
+              const float v0 = __uint_as_float(x.x << 16);
+              const float v1 = __uint_as_float(x.x & 0xffff0000u);
+              const float v2 = __uint_as_float(x.y << 16);
+              const float v3 = __uint_as_float(x.y & 0xffff0000u);
+              psum[i][hh] += (v0 + v1) + (v2 + v3);
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t bf[2];
+            if constexpr (CODEC == kI4)
+              i4_frag(word_of(bcur[b][j][h], w), grp, bf);
+            else
+              nuq4_frag(word_of(bcur[b][j][h], w) >> (16 * (s % 2)),
+                        tcur[b][j], bf);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              if constexpr (AFFINE)
+                mma_bf16_16816(part[b][i][j], af[i], bf);
+              else
+                mma_bf16_16816(acc[b][i][j], af[i], bf);
+            }
+          }
+        }
+      }
+
+      if constexpr (AFFINE) {
+        // Group sums of A: each lane saw 32 of the 128 k; the 4 lanes of a
+        // row (t = 0..3) together saw all of them.
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            psum[i][hh] += __shfl_xor_sync(0xffffffffu, psum[i][hh], 1);
+            psum[i][hh] += __shfl_xor_sync(0xffffffffu, psum[i][hh], 2);
+          }
+        const int G = chunks * C::kGroups, g = c * C::kGroups + grp;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int na = n0 + 8 * j + 2 * t;  // N is even: na + 1 < N too
+            // The group's scales (p.inv) and mins (p.zp): s * c + m.
+            float sa = 0.f, sb = 0.f, ma = 0.f, mb = 0.f;
+            if (na < N) {
+              sa = p.inv[b][(size_t)na * G + g];
+              sb = p.inv[b][(size_t)(na + 1) * G + g];
+              ma = p.zp[b][(size_t)na * G + g];
+              mb = p.zp[b][(size_t)(na + 1) * G + g];
+            }
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              float* cc = part[b][i][j];
+              acc[b][i][j][0] += sa * cc[0] + ma * psum[i][0];
+              acc[b][i][j][1] += sb * cc[1] + mb * psum[i][0];
+              acc[b][i][j][2] += sa * cc[2] + ma * psum[i][1];
+              acc[b][i][j][3] += sb * cc[3] + mb * psum[i][1];
+              cc[0] = cc[1] = cc[2] = cc[3] = 0.f;
+            }
+          }
+        }
+      }
+    }
+    if (cn < chunks) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          bcur[b][j][0] = bnext[b][j][0];
+          bcur[b][j][1] = bnext[b][j][1];
+          if constexpr (NUQ) tcur[b][j] = tnext[b][j];
+        }
+    }
+  }
+
+  if constexpr (KSPLIT > 1) {
+    __shared__ float red[TILES][KSPLIT > 1 ? KSPLIT - 1 : 1][FRAG][32];
+    float* flat = &acc[0][0][0][0];
+    __syncthreads();  // a previous call's ks == 0 warps have read `red`
+    if (ks > 0) {
+#pragma unroll
+      for (int e = 0; e < FRAG; ++e) red[tile][ks - 1][e][lane] = flat[e];
+    }
+    __syncthreads();
+    if (ks == 0) {
+      for (int r = 0; r < KSPLIT - 1; ++r)
+#pragma unroll
+        for (int e = 0; e < FRAG; ++e) flat[e] += red[tile][r][e][lane];
+    }
+  }
+}
+
 // K1 / K2: one block's output tile, scaled (and gated), to global memory.
 template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
 __device__ __forceinline__ void mm_body(const MMArgs& p) {
@@ -309,7 +590,11 @@ __device__ __forceinline__ void mm_body(const MMArgs& p) {
   const int M = p.M, N = p.N;
 
   float acc[NB][MT][NT][4];
-  mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0, blockIdx.x * BN, acc);
+  if constexpr (Codec<CODEC>::kPacked)
+    mm_tile_packed<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0,
+                                                        blockIdx.x * BN, acc);
+  else
+    mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0, blockIdx.x * BN, acc);
   if (ks != 0) return;
 
 #pragma unroll
@@ -458,6 +743,11 @@ __device__ __forceinline__ Top1State top1_shfl(Top1State x, int mask) {
 }
 
 constexpr int kHeadWarps = 8;  // the decode GEMM's 8-way K split, one tile
+// The heads run 528 blocks as one wave of 4 per SM, which needs 64
+// registers a thread or fewer.  The packed codecs' top-k kernels are held
+// to that by their launch bounds (i4's took 74 and ran two waves); the
+// other instantiations fit unasked and keep their bounds as they were.
+constexpr int kHeadBlocksPerSM = 4;
 
 template <int CODEC>
 __device__ __forceinline__ void top1_body(const Top1Args& q) {
@@ -475,7 +765,11 @@ __device__ __forceinline__ void top1_body(const Top1Args& q) {
     const int nb = (blockIdx.x * q.tpb + c) * 8;
     if (nb >= p.N) break;  // uniform over the block
     float acc[1][1][1][4];
-    mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
+    if constexpr (Codec<CODEC>::kPacked)
+      mm_tile_packed<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb,
+                                                                 acc);
+    else
+      mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
     if (warp != 0) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -651,7 +945,11 @@ __device__ __forceinline__ void topk_body(const TopkArgs& q) {
     const int nb = (blockIdx.x * q.tpb + c) * 8;
     if (nb >= p.N) break;  // uniform over the block
     float acc[1][1][1][4];
-    mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
+    if constexpr (Codec<CODEC>::kPacked)
+      mm_tile_packed<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb,
+                                                                 acc);
+    else
+      mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
     if (warp != 0) continue;
     float v[4];
     bool live[4], any = false;
@@ -740,7 +1038,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
 
 // The kernels by name, one set per codec, so the launch counters and the
 // profiler tell the kinds apart.
-#define GEMMA_CODEC_KERNELS(KIND, CODEC)                                     \
+#define GEMMA_CODEC_KERNELS(KIND, CODEC, TOPK_BOUNDS)                        \
   template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>               \
   __global__ void __launch_bounds__(WARPS * 32) mm_##KIND##_kernel(MMArgs p) { \
     mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p);                         \
@@ -749,15 +1047,17 @@ __global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
       top1_##KIND##_kernel(Top1Args q) {                                     \
     top1_body<CODEC>(q);                                                     \
   }                                                                          \
-  __global__ void __launch_bounds__(kHeadWarps * 32)                         \
+  __global__ void __launch_bounds__ TOPK_BOUNDS                              \
       topk_##KIND##_kernel(TopkArgs q) {                                     \
     topk_body<CODEC>(q);                                                     \
   }
 
-GEMMA_CODEC_KERNELS(i8, kI8)
-GEMMA_CODEC_KERNELS(sfp, kSfp)
-GEMMA_CODEC_KERNELS(bf16, kBf16)
-GEMMA_CODEC_KERNELS(f32, kF32)
+GEMMA_CODEC_KERNELS(i8, kI8, (kHeadWarps * 32))
+GEMMA_CODEC_KERNELS(sfp, kSfp, (kHeadWarps * 32))
+GEMMA_CODEC_KERNELS(bf16, kBf16, (kHeadWarps * 32))
+GEMMA_CODEC_KERNELS(f32, kF32, (kHeadWarps * 32))
+GEMMA_CODEC_KERNELS(i4, kI4, (kHeadWarps * 32, kHeadBlocksPerSM))
+GEMMA_CODEC_KERNELS(nuq4, kNuq4, (kHeadWarps * 32, kHeadBlocksPerSM))
 
 // Bits of an entry's `launched` report: its own kernel, then the passes.
 constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
@@ -773,8 +1073,12 @@ static void launch_mm(const MMArgs& p, cudaStream_t st) {
     mm_sfp_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
   else if constexpr (CODEC == kBf16)
     mm_bf16_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else
+  else if constexpr (CODEC == kF32)
     mm_f32_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+  else if constexpr (CODEC == kI4)
+    mm_i4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
+  else
+    mm_nuq4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
 }
 
 // A for the GEMM: `a` itself (bf16), or RMSNorm(a) written to a_scratch
@@ -788,30 +1092,55 @@ static const __nv_bfloat16* operand_a(const void* a, const float* norm,
   return a_scratch;
 }
 
-static void set_b(MMArgs& p, int b, const void* codes, const float* inv,
-                  const float* zp, float scale) {
-  p.codes[b] = codes;
-  p.inv[b] = inv;
-  p.zp[b] = zp;
-  p.scale[b] = scale;
+// One B operand as the C entries receive it: the affine kinds bring
+// inv/zp (i8) or scales/mins (i4); nuq4 brings its tables, which travel in
+// the `inv` slot (it has no other use for it, so the kernels' argument
+// block is the same for every codec), and their row stride in bytes.
+struct BOperand {
+  const void* codes;
+  const float* inv;
+  const float* zp;
+  float scale;
+  int tstride;
+};
+
+static BOperand affine_b(const void* codes, const float* inv, const float* zp,
+                         float scale) {
+  return {codes, inv, zp, scale, 0};
+}
+
+static BOperand nuq4_b(const void* codes, const void* tables, int tstride,
+                       float scale) {
+  return {codes, static_cast<const float*>(tables), nullptr, scale, tstride};
+}
+
+// False when K or (nuq4) the tables' row stride is not what the kernels
+// walk: whole chunks, and table rows of nuq4_tstride(K) bytes.
+template <int CODEC>
+static bool set_b(MMArgs& p, int b, const BOperand& w, int K) {
+  p.codes[b] = w.codes;
+  p.inv[b] = w.inv;
+  p.zp[b] = w.zp;
+  p.scale[b] = w.scale;
+  if (K % Codec<CODEC>::kChunk) return false;
+  if constexpr (CODEC == kNuq4) return w.tstride == nuq4_tstride(K);
+  return true;
 }
 
 // out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
 // y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
 template <int CODEC>
-static int matmul_entry(const void* a, const float* norm, const void* codes,
-                        const float* inv, const float* zp, float scale,
+static int matmul_entry(const void* a, const float* norm, const BOperand& w,
                         const float* post_w, const float* add,
                         __nv_bfloat16* a_scratch, float* y, void* out, int M,
                         int N, int K, int out_bf16, int* launched,
                         cudaStream_t st) {
   const bool post = post_w != nullptr || add != nullptr;
   *launched = 0;
-  if (K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
   MMArgs p = {};
+  if (!set_b<CODEC>(p, 0, w, K) || !set_b<CODEC>(p, 1, w, K))
+    return (int)cudaErrorInvalidValue;
   p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  set_b(p, 0, codes, inv, zp, scale);
-  set_b(p, 1, codes, inv, zp, scale);
   p.out = post ? static_cast<void*>(y) : out;
   p.M = M; p.N = N; p.K = K;
   p.out_bf16 = post ? 0 : out_bf16;
@@ -828,18 +1157,14 @@ static int matmul_entry(const void* a, const float* norm, const void* codes,
 }
 
 template <int CODEC>
-static int gated_entry(const void* a, const float* norm, const void* codes1,
-                       const float* inv1, const float* zp1, float scale1,
-                       const void* codes2, const float* inv2,
-                       const float* zp2, float scale2,
-                       __nv_bfloat16* a_scratch, void* out, int M, int N,
+static int gated_entry(const void* a, const float* norm, const BOperand& w1,
+                       const BOperand& w2, __nv_bfloat16* a_scratch, void* out, int M, int N,
                        int K, int* launched, cudaStream_t st) {
   *launched = 0;
-  if (K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
   MMArgs p = {};
+  if (!set_b<CODEC>(p, 0, w1, K) || !set_b<CODEC>(p, 1, w2, K))
+    return (int)cudaErrorInvalidValue;
   p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  set_b(p, 0, codes1, inv1, zp1, scale1);
-  set_b(p, 1, codes2, inv2, zp2, scale2);
   p.out = out; p.M = M; p.N = N; p.K = K; p.out_bf16 = 1;
   if (M <= 16)
     launch_mm<CODEC, 1, 1, 8, 8, true>(p, st);
@@ -862,19 +1187,18 @@ static dim3 head_grid(int M, int N, int blocks, int* tpb) {
 // first when `norm` is given (then a is f32 and a_scratch bf16 [M, K]).
 // part_*: [M, blocks] scratch; ticket: one int, zero between calls.
 template <int CODEC>
-static int top1_entry(const void* a, const float* norm, const void* codes,
-                      const float* inv, const float* zp, float scale,
+static int top1_entry(const void* a, const float* norm, const BOperand& w,
                       float cap, const uint8_t* mask, int need_prob,
                       __nv_bfloat16* a_scratch, float* part_m, float* part_s,
                       int* part_i, int* ticket, int* tok, float* prob, int M,
                       int N, int K, int blocks, int* launched,
                       cudaStream_t st) {
   *launched = 0;
-  if (blocks < 1 || K % Codec<CODEC>::kChunk) return (int)cudaErrorInvalidValue;
   Top1Args q = {};
+  if (blocks < 1 || !set_b<CODEC>(q.mm, 0, w, K) ||
+      !set_b<CODEC>(q.mm, 1, w, K))
+    return (int)cudaErrorInvalidValue;
   q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  set_b(q.mm, 0, codes, inv, zp, scale);
-  set_b(q.mm, 1, codes, inv, zp, scale);
   q.mm.M = M; q.mm.N = N; q.mm.K = K;
   q.cap = cap; q.mask = mask; q.need_prob = need_prob;
   q.part_m = part_m; q.part_s = part_s; q.part_i = part_i;
@@ -886,8 +1210,12 @@ static int top1_entry(const void* a, const float* norm, const void* codes,
     top1_sfp_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
   else if constexpr (CODEC == kBf16)
     top1_bf16_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else
+  else if constexpr (CODEC == kF32)
     top1_f32_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kI4)
+    top1_i4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else
+    top1_nuq4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
   *launched |= kLaunchedSelf;
   return (int)cudaGetLastError();
 }
@@ -895,20 +1223,17 @@ static int top1_entry(const void* a, const float* norm, const void* codes,
 // The top-k head: vals / idxs [M, k_top] of softcap(scale * A . B^T).
 // part_v / part_i: [M, blocks, k_top] scratch for the blocks' lists.
 template <int CODEC>
-static int topk_entry(const void* a, const float* norm, const void* codes,
-                      const float* inv, const float* zp, float scale,
+static int topk_entry(const void* a, const float* norm, const BOperand& w,
                       float cap, const uint8_t* mask, int k_top,
                       __nv_bfloat16* a_scratch, float* part_v, int* part_i,
                       float* vals, int* idxs, int M, int N, int K, int blocks,
                       int* launched, cudaStream_t st) {
   *launched = 0;
-  if (blocks < 1 || k_top < 1 || k_top > kTopkMax ||
-      K % Codec<CODEC>::kChunk)
-    return (int)cudaErrorInvalidValue;
   TopkArgs q = {};
+  if (blocks < 1 || k_top < 1 || k_top > kTopkMax ||
+      !set_b<CODEC>(q.mm, 0, w, K) || !set_b<CODEC>(q.mm, 1, w, K))
+    return (int)cudaErrorInvalidValue;
   q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  set_b(q.mm, 0, codes, inv, zp, scale);
-  set_b(q.mm, 1, codes, inv, zp, scale);
   q.mm.M = M; q.mm.N = N; q.mm.K = K;
   q.cap = cap; q.mask = mask; q.k_top = k_top;
   q.part_v = part_v; q.part_i = part_i;
@@ -919,8 +1244,12 @@ static int topk_entry(const void* a, const float* norm, const void* codes,
     topk_sfp_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
   else if constexpr (CODEC == kBf16)
     topk_bf16_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else
+  else if constexpr (CODEC == kF32)
     topk_f32_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else if constexpr (CODEC == kI4)
+    topk_i4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
+  else
+    topk_nuq4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
   *launched |= kLaunchedSelf;
   topk_merge_kernel<<<M, kMergeWarps * 32, 0, st>>>(part_v, part_i, grid.x,
                                                     k_top, vals, idxs);
@@ -929,7 +1258,7 @@ static int topk_entry(const void* a, const float* norm, const void* codes,
 }
 
 // The C entries, one per GEMM and codec (kind "nuq" calls the sfp ones).
-// inv and zp are read for i8 only.
+// inv and zp are read for i8 (and, as scales and mins, for i4) only.
 
 extern "C" int gemma_matmul_i8(const void* a, const float* norm,
                                    const void* codes, const float* inv,
@@ -939,7 +1268,7 @@ extern "C" int gemma_matmul_i8(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kI8>(a, norm, codes, inv, zp, scale, post_w, add,
+  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -951,8 +1280,8 @@ extern "C" int gemma_gated_i8(const void* a, const float* norm,
                                   __nv_bfloat16* a_scratch, void* out, int M,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
-  return gated_entry<kI8>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
-                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+  return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_i8(const void* a, const float* norm,
@@ -963,7 +1292,7 @@ extern "C" int gemma_top1_i8(const void* a, const float* norm,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
-  return top1_entry<kI8>(a, norm, codes, inv, zp, scale, cap, mask,
+  return top1_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
                          need_prob, a_scratch, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
@@ -976,7 +1305,7 @@ extern "C" int gemma_topk_i8(const void* a, const float* norm,
                                  int* part_i, float* vals, int* idxs, int M,
                                  int N, int K, int blocks, int* launched,
                                  cudaStream_t st) {
-  return topk_entry<kI8>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+  return topk_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
 }
@@ -989,7 +1318,7 @@ extern "C" int gemma_matmul_sfp(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kSfp>(a, norm, codes, inv, zp, scale, post_w, add,
+  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1001,8 +1330,8 @@ extern "C" int gemma_gated_sfp(const void* a, const float* norm,
                                   __nv_bfloat16* a_scratch, void* out, int M,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
-  return gated_entry<kSfp>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
-                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+  return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_sfp(const void* a, const float* norm,
@@ -1013,7 +1342,7 @@ extern "C" int gemma_top1_sfp(const void* a, const float* norm,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
-  return top1_entry<kSfp>(a, norm, codes, inv, zp, scale, cap, mask,
+  return top1_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
                          need_prob, a_scratch, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
@@ -1026,7 +1355,7 @@ extern "C" int gemma_topk_sfp(const void* a, const float* norm,
                                  int* part_i, float* vals, int* idxs, int M,
                                  int N, int K, int blocks, int* launched,
                                  cudaStream_t st) {
-  return topk_entry<kSfp>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+  return topk_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
 }
@@ -1039,7 +1368,7 @@ extern "C" int gemma_matmul_bf16(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kBf16>(a, norm, codes, inv, zp, scale, post_w, add,
+  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1051,8 +1380,8 @@ extern "C" int gemma_gated_bf16(const void* a, const float* norm,
                                   __nv_bfloat16* a_scratch, void* out, int M,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
-  return gated_entry<kBf16>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
-                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+  return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_bf16(const void* a, const float* norm,
@@ -1063,7 +1392,7 @@ extern "C" int gemma_top1_bf16(const void* a, const float* norm,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
-  return top1_entry<kBf16>(a, norm, codes, inv, zp, scale, cap, mask,
+  return top1_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
                          need_prob, a_scratch, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
@@ -1076,7 +1405,7 @@ extern "C" int gemma_topk_bf16(const void* a, const float* norm,
                                  int* part_i, float* vals, int* idxs, int M,
                                  int N, int K, int blocks, int* launched,
                                  cudaStream_t st) {
-  return topk_entry<kBf16>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+  return topk_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
 }
@@ -1089,7 +1418,7 @@ extern "C" int gemma_matmul_f32(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kF32>(a, norm, codes, inv, zp, scale, post_w, add,
+  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1101,8 +1430,8 @@ extern "C" int gemma_gated_f32(const void* a, const float* norm,
                                   __nv_bfloat16* a_scratch, void* out, int M,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
-  return gated_entry<kF32>(a, norm, codes1, inv1, zp1, scale1, codes2, inv2,
-                          zp2, scale2, a_scratch, out, M, N, K, launched, st);
+  return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_f32(const void* a, const float* norm,
@@ -1113,7 +1442,7 @@ extern "C" int gemma_top1_f32(const void* a, const float* norm,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
-  return top1_entry<kF32>(a, norm, codes, inv, zp, scale, cap, mask,
+  return top1_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
                          need_prob, a_scratch, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
@@ -1126,7 +1455,104 @@ extern "C" int gemma_topk_f32(const void* a, const float* norm,
                                  int* part_i, float* vals, int* idxs, int M,
                                  int N, int K, int blocks, int* launched,
                                  cudaStream_t st) {
-  return topk_entry<kF32>(a, norm, codes, inv, zp, scale, cap, mask, k_top,
+  return topk_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+// i4: `inv` holds the group scales and `zp` the group mins.
+extern "C" int gemma_matmul_i4(const void* a, const float* norm,
+                                   const void* codes, const float* inv,
+                                   const float* zp, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_i4(const void* a, const float* norm,
+                                  const void* codes1, const float* inv1,
+                                  const float* zp1, float scale1,
+                                  const void* codes2, const float* inv2,
+                                  const float* zp2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_i4(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_i4(const void* a, const float* norm,
+                                 const void* codes, const float* inv,
+                                 const float* zp, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
+                         a_scratch, part_v, part_i, vals, idxs, M, N, K,
+                         blocks, launched, st);
+}
+
+// nuq4: tables [N, tstride] of SFP bytes, 16 per 256-block of K.
+extern "C" int gemma_matmul_nuq4(const void* a, const float* norm,
+                                   const void* codes, const void* tables, int tstride, float scale,
+                                   const float* post_w, const float* add,
+                                   __nv_bfloat16* a_scratch, float* y,
+                                   void* out, int M, int N, int K,
+                                   int out_bf16, int* launched,
+                                   cudaStream_t st) {
+  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_nuq4(const void* a, const float* norm,
+                                  const void* codes1, const void* tables1, int tstride1, float scale1,
+                                  const void* codes2, const void* tables2, int tstride2, float scale2,
+                                  __nv_bfloat16* a_scratch, void* out, int M,
+                                  int N, int K, int* launched,
+                                  cudaStream_t st) {
+  return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
+                          nuq4_b(codes2, tables2, tstride2, scale2), a_scratch, out, M, N, K, launched, st);
+}
+
+extern "C" int gemma_top1_nuq4(const void* a, const float* norm,
+                                 const void* codes, const void* tables, int tstride, float scale, float cap,
+                                 const uint8_t* mask, int need_prob,
+                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_s, int* part_i, int* ticket,
+                                 int* tok, float* prob, int M, int N, int K,
+                                 int blocks, int* launched, cudaStream_t st) {
+  return top1_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), cap, mask,
+                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         tok, prob, M, N, K, blocks, launched, st);
+}
+
+extern "C" int gemma_topk_nuq4(const void* a, const float* norm,
+                                 const void* codes, const void* tables, int tstride, float scale, float cap,
+                                 const uint8_t* mask, int k_top,
+                                 __nv_bfloat16* a_scratch, float* part_v,
+                                 int* part_i, float* vals, int* idxs, int M,
+                                 int N, int K, int blocks, int* launched,
+                                 cudaStream_t st) {
+  return topk_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
 }

@@ -9,10 +9,12 @@ here (this module never imports the JAX package).  A weight is
                 "zeropoints": f32 [N, K/128]}}
 
 (kind "sfp"/"nuq" with arrays {"codes": u8 [N, K]}, kind "f32"/"bf16"
-with arrays {"w": [N, K]}; each with its tensor `scale`).  JAX's layouts
-are taken as they are: the CUDA GEMMs read codes and dense weights
-row-major and the i8 group scales as [N, K/128], so nothing is re-laid.
-The 4.5-bit kinds "i4"/"nuq4" raise NotImplementedError (slice 4).  A
+with arrays {"w": [N, K]}, kind "i4" with {"codes": u8 [N, Kp/2],
+"scales", "mins": f32 [N, Kp/128]}, kind "nuq4" with {"codes": u8
+[N, Kp/2], "tables": u8 [N, round_up(Kp/16, 128)]}; each with its tensor
+`scale`).  JAX's layouts are taken as they are: the CUDA GEMMs read codes
+and dense weights row-major, the group scales as [N, K/128] and the
+tables at their padded row stride, so nothing is re-laid.  A
 layer carries either "qkv_cat" or the split "qkv1"/"qkv2", which are
 row-concatenated here (the port runs one qkv GEMM per layer).
 """

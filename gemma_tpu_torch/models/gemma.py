@@ -24,18 +24,22 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
-from gemma_tpu_torch.models.configs import ModelConfig, PostNormType, \
-    PostQKType, is_vlm
+from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig, \
+    PostNormType, PostQKType, is_vlm
 from gemma_tpu_torch.models.kv_cache import KVCache
 from gemma_tpu_torch.ops import ops
 from gemma_tpu_torch.ops.decode_attention import (
     RopeSpec, decode_attention_write_packed)
 from gemma_tpu_torch.ops.flash_attention import flash_prefill_attention
-from gemma_tpu_torch.ops.matmul import (QuantTensor, gated_ffn, matmul,
-                                        matmul_top1, matmul_topk, sfp_decode,
-                                        unknown_kind)
+from gemma_tpu_torch.ops.matmul import (QuantTensor, concat_rows, gated_ffn,
+                                        matmul, matmul_top1, matmul_topk,
+                                        nuq4_gather, quant_tensor_from_packed,
+                                        quant_tensor_i4, sfp_decode,
+                                        unknown_kind, unpack_nuq4)
+from gemma_tpu_torch.utils.basics import resolve_device
 
 
 @dataclasses.dataclass
@@ -85,6 +89,19 @@ def embed_tokens(embedding: QuantTensor, tokens: torch.Tensor,
         g = inv.shape[-1]
         shaped = codes.reshape(*codes.shape[:-1], g, codes.shape[-1] // g)
         rows = (inv[..., None] * (shaped - zp[..., None])).reshape(codes.shape)
+    elif embedding.kind == "i4":
+        # The token's packed row with its scales and mins, decoded on the
+        # fly and cut to model_dim.
+        codes = unpack_nuq4(embedding.arrays["codes"][tok]).float()
+        sc = embedding.arrays["scales"][tok]
+        mn = embedding.arrays["mins"][tok]
+        g = sc.shape[-1]
+        shaped = codes.reshape(*codes.shape[:-1], g, codes.shape[-1] // g)
+        rows = (sc[..., None] * shaped + mn[..., None]).reshape(
+            codes.shape)[..., :model_dim]
+    elif embedding.kind == "nuq4":
+        codes = unpack_nuq4(embedding.arrays["codes"][tok])[..., :model_dim]
+        rows = nuq4_gather(sfp_decode(embedding.arrays["tables"][tok]), codes)
     else:
         raise unknown_kind(embedding.kind)
     return rows * emb_scale
@@ -240,3 +257,115 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     logits = matmul(x_bf.reshape(b * t, -1), params.embedding,
                     out_dtype=torch.float32)
     return ops.soft_cap(config.final_cap, logits).reshape(b, t, -1), cache
+
+
+# ---------------------------------------------------------------------------
+# Weights loading (gemma_tpu/models/gemma.py:load_params; the reference's
+# gemma/weights.cc ReadFromBlobs + Fixup).
+# ---------------------------------------------------------------------------
+
+
+def _slice_rows(qt: QuantTensor, lo: int, hi: int) -> QuantTensor:
+    """Split stacked tensors by rows at the device-layout level (the
+    SplitW1/SplitAttW1 analog, weights.cc:90-170): every layout stores
+    per-element or per-(row, group) arrays, so row slicing is exact."""
+    arrays = {k: v[lo:hi] for k, v in qt.arrays.items()}
+    return QuantTensor(qt.kind, (hi - lo, qt.k), qt.scale, arrays)
+
+
+def _fixup_att_weights(qt: QuantTensor, heads: int, model_dim: int,
+                       qkv_dim: int) -> QuantTensor:
+    """att_ein [heads*model_dim, qkv] -> att_w [model_dim, heads*qkv]
+    (InitAttWeights, weights.cc:46-87).  Pure permutation of the
+    per-element arrays; i8 group scales permute along (128-sized) blocks."""
+    def permute(a):
+        # reshape may return a strided view (one i8 group a row does):
+        # the kernels read contiguous arrays.
+        return (a.reshape(heads, model_dim, *a.shape[1:]).transpose(0, 1)
+                .reshape(model_dim, -1, *a.shape[2:]).contiguous())
+
+    arrays = {k: permute(v) for k, v in qt.arrays.items()}
+    return QuantTensor(qt.kind, (model_dim, heads * qkv_dim), qt.scale, arrays)
+
+
+def load_params(store, kind_override: str | None = None,
+                device=None) -> Params:
+    """Params on `device` (CUDA unless the caller names one) from an
+    io.model_store.ModelStore, tensor for tensor as the JAX loader builds
+    them.  kind_override transcodes every weight at load: "i8", "i4",
+    "bf16" from any stream type, "nuq4" from NUQ streams.  Under "nuq4"
+    `att_ein` loads as kind "nuq": its per-256 blocks do not survive the
+    permutation to att_w when qkv_dim < 256, while the per-element byte
+    layout always does, so such a model mixes kinds per tensor.  The q and
+    kv projections are row-concatenated into `qkv_cat`."""
+    config: ModelConfig = store.config
+    device = resolve_device(device)
+
+    def qt(name: str, kind=None) -> QuantTensor | None:
+        pt = store.read_tensor(name)
+        if pt is None:
+            return None
+        return quant_tensor_from_packed(pt, kind or kind_override, device)
+
+    def norm(name: str) -> torch.Tensor | None:
+        pt = store.read_tensor(name)
+        if pt is None:
+            return None
+        return torch.from_numpy(pt.to_f32().reshape(-1)).to(device)
+
+    embedding = qt("c_embedding")
+    final_norm = norm("c_final_norm")
+    layers = []
+    for i, lc in enumerate(config.layer_configs):
+        if lc.type != LayerAttentionType.GEMMA:
+            continue
+        s = f"_{i}"
+        heads, kv_heads, qkv_dim = lc.heads, lc.kv_heads, lc.qkv_dim
+
+        q1 = qt("qkv1_w" + s)
+        q2 = qt("qkv2_w" + s)
+        if q1 is None:
+            stacked = qt("qkv_ein" + s)
+            w1_rows = heads * qkv_dim
+            q1 = _slice_rows(stacked, 0, w1_rows)
+            q2 = _slice_rows(stacked, w1_rows,
+                             w1_rows + 2 * kv_heads * qkv_dim)
+        qkv = concat_rows(q1, q2)
+        if qkv is None:
+            raise ValueError(
+                f"layer {i}: qkv1_w and qkv2_w differ in kind, K or scale "
+                "and cannot become one qkv GEMM")
+
+        g1 = qt("gating1_w" + s)
+        g2 = qt("gating2_w" + s)
+        if g1 is None:
+            stacked = qt("gating_ein" + s)
+            g1 = _slice_rows(stacked, 0, lc.ff_hidden_dim)
+            g2 = _slice_rows(stacked, lc.ff_hidden_dim, 2 * lc.ff_hidden_dim)
+
+        att_w = qt("att_w" + s)
+        if att_w is None:
+            if kind_override == "i4":
+                # i4 is a load-time transcode anyway, so permute the f32
+                # values on the host and encode the PERMUTED matrix: groups
+                # land on the final layout for every qkv_dim.
+                pt = store.read_tensor("att_ein" + s)
+                vals = (pt.to_f32().reshape(heads, config.model_dim, qkv_dim)
+                        .swapaxes(0, 1).reshape(config.model_dim, -1))
+                att_w = quant_tensor_i4(np.ascontiguousarray(vals), device)
+            else:
+                ein_kind = "nuq" if kind_override == "nuq4" else kind_override
+                att_ein = qt("att_ein" + s, kind=ein_kind)
+                att_w = _fixup_att_weights(att_ein, heads, config.model_dim,
+                                           qkv_dim)
+
+        layers.append(LayerParams(
+            qkv_cat=qkv, att_w=att_w, gating1=g1, gating2=g2,
+            linear=qt("linear_w" + s),
+            pre_att_norm=norm("pre_att_ns" + s),
+            pre_ffw_norm=norm("pre_ff_ns" + s),
+            post_att_norm=norm("post_att_ns" + s),
+            post_ffw_norm=norm("post_ff_ns" + s),
+            key_norm=norm("key_norm" + s),
+            query_norm=norm("query_norm" + s)))
+    return Params(embedding=embedding, final_norm=final_norm, layers=layers)

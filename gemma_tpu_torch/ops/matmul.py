@@ -10,8 +10,15 @@ port carries (QuantTensor.kind):
   "sfp"  codes u8 [N, K], gemma.cpp's 8-bit switching float, decoded by
          integer arithmetic (`sfp_decode`);
   "nuq"  codes u8 [N, K] of per-element SFP bytes: the same decode;
-  "bf16" / "f32"  w [N, K], dense.
-The 4.5-bit kinds "i4" and "nuq4" raise NotImplementedError (slice 4).
+  "bf16" / "f32"  w [N, K], dense;
+  "i4"   codes u8 [N, Kp/2], two 4-bit codes a byte in split halves (byte
+         g*128 + j holds elements j [low nibble] and 128 + j [high] of
+         256-block g), `scales` and `mins` f32 [N, Kp/128], dequant =
+         s * c + m per 128-wide group; Kp = round_up(K, 256);
+  "nuq4" codes as i4's, `tables` u8 [N, round_up(Kp/256 * 16, 128)]: 16
+         SFP bytes per 256-block, the block's cluster centres; dequant =
+         sfp_decode(table[block][code]).
+Both 4.5-bit kinds take 0.5625 bytes a weight.
 
 Every GEMM has a kernel path and a plain path.  For CUDA tensors the
 wrappers launch the hand-written kernels of csrc/matmul.cu (K1 with its
@@ -19,28 +26,36 @@ norm prologue and post-norm passes, K2, K3 the fused greedy head
 `matmul_top1`, K6 the fused top-k head `matmul_topk`, each built once per
 codec) or raise; for CPU tensors they take the plain versions below,
 which compute the same function: the B tile becomes bf16 (A's dtype) and
-feeds the product, and the i8 group affine is applied to the output:
-    out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g).
+feeds the product, and the group affines are applied to the output:
+    i8:  out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g)
+    i4:  out += s_g * (A_g . C_g) + m_g * sum(A_g).
+The kernels take K in whole chunks (K_MULTIPLE); the plain versions
+zero-pad A to the packed kinds' Kp, as the TPU kernels do.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gemma_tpu_torch.ops import _cuda
 from gemma_tpu_torch.ops.ops import rms_norm, soft_cap
+from gemma_tpu_torch.utils.basics import resolve_device, round_up
 
 GROUP = 128
-KINDS = ("i8", "sfp", "nuq", "bf16", "f32")
-LATER_KINDS = ("i4", "nuq4")
+PACK_BLOCK = 256  # the packed kinds' K block: 128 bytes of two nibbles
+KINDS = ("i8", "sfp", "nuq", "bf16", "f32", "i4", "nuq4")
+PACKED_KINDS = ("i4", "nuq4")
 # The kernels' codec of each kind (nuq's device bytes are SFP bytes), and
-# what K must be a multiple of: the kernels walk K in chunks of 64 bytes
-# per row, a group for i8.
+# what K must be a multiple of: the kernels walk K in chunks of 2 x 64
+# bytes per row, a group for i8, a 256-block for the packed kinds.
 _CODEC = {"i8": "i8", "sfp": "sfp", "nuq": "sfp", "bf16": "bf16",
-          "f32": "f32"}
-K_MULTIPLE = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32}
+          "f32": "f32", "i4": "i4", "nuq4": "nuq4"}
+K_MULTIPLE = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32, "i4": 256,
+              "nuq4": 256}
 MAX_TOPK = 128  # K6's list per row; above it the head is composed
 
 SOURCE = "matmul.cu"
@@ -54,27 +69,35 @@ POSTNORM_ADD = _cuda.Kernel(
 TOPK_MERGE = _cuda.Kernel(
     "topk_merge", SOURCE, "gemma_topk_merge",
     [_cuda.P] * 4 + [_cuda.I] * 3)
+
+
+def _b_args(codec: str) -> list:
+    """The C types of one B operand: codes, then inv/zp (i8), scales/mins
+    (i4) or tables and their row stride (nuq4), then the tensor scale."""
+    side = [_cuda.P, _cuda.I] if codec == "nuq4" else [_cuda.P] * 2
+    return [_cuda.P] + side + [_cuda.F]
+
+
 # One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass]
 # and reports which of them it launched; each is counted on its own Kernel.
 # One set of entries per codec, so the counts tell the kinds apart.
 MATMUL = {c: _cuda.Kernel(
     f"matmul_{c}", SOURCE, f"gemma_matmul_{c}",
-    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 5 + [_cuda.I] * 4,
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] * 5 + [_cuda.I] * 4,
     passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
 GATED = {c: _cuda.Kernel(
     f"gated_{c}", SOURCE, f"gemma_gated_{c}",
-    [_cuda.P] * 5 + [_cuda.F] + [_cuda.P] * 3 + [_cuda.F]
-    + [_cuda.P] * 2 + [_cuda.I] * 3,
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 2 + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 TOP1 = {c: _cuda.Kernel(
     f"top1_{c}", SOURCE, f"gemma_top1_{c}",
-    [_cuda.P] * 5 + [_cuda.F] * 2 + [_cuda.P] + [_cuda.I] + [_cuda.P] * 7
-    + [_cuda.I] * 4,
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
+    + [_cuda.P] * 7 + [_cuda.I] * 4,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 TOPK = {c: _cuda.Kernel(
     f"topk_{c}", SOURCE, f"gemma_topk_{c}",
-    [_cuda.P] * 5 + [_cuda.F] * 2 + [_cuda.P] + [_cuda.I] + [_cuda.P] * 5
-    + [_cuda.I] * 4,
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
+    + [_cuda.P] * 5 + [_cuda.I] * 4,
     passes=(PRENORM, TOPK_MERGE)) for c in K_MULTIPLE}
 # K3's blocks per 16 rows: each walks N / (8 * TOP1_BLOCKS) 8-column tiles
 # and leaves one online state per row for the last block to merge.  528
@@ -102,14 +125,45 @@ def sfp_decode(codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (bits << 16).view(torch.float32).to(dtype)
 
 
+def pack_nuq4(codes: np.ndarray) -> np.ndarray:
+    """u8 [N, K] 4-bit codes -> split-halves packed u8 [N, Kp/2], Kp =
+    round_up(K, 256), padding codes 0: byte g*128 + j holds elements j
+    (low nibble) and 128 + j (high) of 256-block g
+    (gemma_tpu/ops/matmul.py:_pack_nuq4)."""
+    n, k = codes.shape
+    kp = round_up(k, PACK_BLOCK)
+    c = np.zeros((n, kp), np.uint8)
+    c[:, :k] = codes
+    c = c.reshape(n, kp // PACK_BLOCK, 2, 128)
+    return (c[:, :, 0] | (c[:, :, 1] << 4)).reshape(n, kp // 2)
+
+
+def unpack_nuq4(packed: torch.Tensor) -> torch.Tensor:
+    """Packed u8 [..., Kp/2] -> int32 [..., Kp] codes (pack_nuq4's
+    inverse; gemma_tpu/ops/matmul.py:_unpack_nuq4)."""
+    lead, half = packed.shape[:-1], packed.shape[-1]
+    p = packed.to(torch.int32).reshape(*lead, half // 128, 128)
+    return torch.stack([p & 15, p >> 4], dim=-2).reshape(*lead, half * 2)
+
+
+def nuq4_gather(tables: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The table entries of int32 codes [..., Kp]: column k looks up entry
+    (k // 256) * 16 + code of `tables` [..., >= Kp/256 * 16]."""
+    kp = codes.shape[-1]
+    block = torch.arange(kp, device=codes.device) // PACK_BLOCK
+    return torch.gather(tables, -1, (codes + block * 16).long())
+
+
 @dataclasses.dataclass
 class QuantTensor:
     """A possibly-quantized [N, K] weight matrix on one device.
 
     kind "i8": arrays codes i8 [N, K], inv_scales / zeropoints f32
     [N, K/128]; kind "sfp"/"nuq": arrays codes u8 [N, K]; kind
-    "f32"/"bf16": arrays w [N, K] (the JAX package's layouts, which the
-    CUDA kernels read as they are)."""
+    "f32"/"bf16": arrays w [N, K]; kind "i4": codes u8 [N, Kp/2], scales /
+    mins f32 [N, Kp/128]; kind "nuq4": codes u8 [N, Kp/2], tables u8
+    [N, round_up(Kp/16, 128)] (the JAX package's layouts, which the CUDA
+    kernels read as they are)."""
 
     kind: str
     shape: tuple[int, int]
@@ -140,11 +194,28 @@ class QuantTensor:
             g = inv.shape[1]
             c = codes.view(n, g, k // g)
             w = (inv[:, :, None] * (c - zp[:, :, None])).reshape(n, k)
+        elif self.kind == "i4":
+            codes = unpack_nuq4(self.arrays["codes"]).float()
+            sc, mn = self.arrays["scales"], self.arrays["mins"]
+            n, kp = codes.shape
+            g = sc.shape[1]
+            c = codes.view(n, g, kp // g)
+            w = (sc[:, :, None] * c + mn[:, :, None]).reshape(n, kp)
+            w = w[:, :self.k]
+        elif self.kind == "nuq4":
+            codes = unpack_nuq4(self.arrays["codes"])[:, :self.k]
+            w = nuq4_gather(sfp_decode(self.arrays["tables"]), codes)
         else:
             raise unknown_kind(self.kind)
         if self.scale != 1.0:
             w = w * self.scale
         return w.to(dtype)
+
+    @property
+    def kp(self) -> int:
+        """The K the arrays store: padded to whole 256-blocks when packed."""
+        return round_up(self.k, PACK_BLOCK) if self.kind in PACKED_KINDS \
+            else self.k
 
     def data(self) -> torch.Tensor:
         """The [N, K] array the kernels read: codes or dense w."""
@@ -152,10 +223,6 @@ class QuantTensor:
 
 
 def unknown_kind(kind: str) -> Exception:
-    if kind in LATER_KINDS:
-        return NotImplementedError(
-            f"weight kind {kind!r}: the 4.5-bit codecs (TPU kernel family "
-            "K7b) arrive with checkpoint loading in slice 4 of the port")
     return ValueError(f"weight kind {kind!r}: one of {KINDS}")
 
 
@@ -174,6 +241,86 @@ def concat_rows(*qts: QuantTensor) -> QuantTensor | None:
               for key in first.arrays}
     return QuantTensor(first.kind, (sum(q.n for q in qts), first.k),
                        first.scale, arrays)
+
+
+def _on(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def quant_tensor_i4(values: np.ndarray, device=None) -> QuantTensor:
+    """Encode an f32 [N, K] matrix into the i4 affine device layout
+    (gemma_tpu/ops/matmul.py:quant_tensor_i4), on `device` (CUDA unless
+    the caller names one)."""
+    from gemma_tpu_torch.compression import int4 as int4_codec
+
+    device = resolve_device(device)
+    n, k = values.shape
+    codes, scales, mins = int4_codec.encode_affine(values)
+    return QuantTensor("i4", (n, k), 1.0, {
+        "codes": _on(pack_nuq4(codes), device), "scales": _on(scales, device),
+        "mins": _on(mins, device)})
+
+
+def quant_tensor_from_packed(pt, kind: str | None = None,
+                             device=None) -> QuantTensor:
+    """A QuantTensor on `device` (CUDA unless the caller names one) from a
+    compression.PackedTensor, as gemma_tpu/ops/matmul.py builds it: in the
+    stream's own kind, or transcoded to `kind`: "i8" and "i4" from any
+    stream type (decoded to f32 and re-encoded per 128-group), "nuq4" from
+    a NUQ stream (codes nibble-packed, tables re-encoded to their exact SFP
+    bytes and padded to a multiple of 128 a row), "bf16" from any."""
+    from gemma_tpu_torch.compression import Type
+    from gemma_tpu_torch.compression import int8 as int8_codec
+    from gemma_tpu_torch.compression import nuq as nuq_codec
+    from gemma_tpu_torch.compression import sfp as sfp_codec
+
+    device = resolve_device(device)
+    kind = kind or {Type.F32: "f32", Type.BF16: "bf16", Type.SFP: "sfp",
+                    Type.NUQ: "nuq", Type.I8: "i8"}[pt.type]
+    n, k = pt.rows, pt.cols
+    if kind == "f32":
+        w = pt.to_f32() / np.float32(pt.scale)
+        return QuantTensor("f32", (n, k), pt.scale, {"w": _on(w, device)})
+    if kind == "bf16":
+        if pt.type == Type.BF16:
+            bits = pt.data.view(np.int16).reshape(n, k)
+            w = _on(bits, device).view(torch.bfloat16)
+        else:  # decode-to-bf16 mode for any packed type (kReadBF16)
+            w = _on(pt.to_f32() / np.float32(pt.scale), device).to(
+                torch.bfloat16)
+        return QuantTensor("bf16", (n, k), pt.scale, {"w": w})
+    if kind == "sfp":
+        if pt.type != Type.SFP:
+            raise ValueError(f"kind 'sfp' from a {pt.type.name} stream")
+        return QuantTensor("sfp", (n, k), pt.scale,
+                           {"codes": _on(pt.data.reshape(n, k), device)})
+    if kind in ("nuq", "nuq4") and pt.type != Type.NUQ:
+        raise ValueError(f"kind {kind!r} from a {pt.type.name} stream")
+    if kind == "nuq":
+        codes = nuq_codec.to_sfp_codes(pt.data, n, k)
+        return QuantTensor("nuq", (n, k), pt.scale,
+                           {"codes": _on(codes, device)})
+    if kind == "nuq4":
+        tables, codes = nuq_codec.to_device_layout(pt.data, n, k)
+        # Centres are SFP-valued (nuq-inl.h:649-651), so
+        # encode(decode(x)) == x bit for bit.
+        tbytes = sfp_codec.encode(tables.reshape(-1)).reshape(n, -1)
+        tpad = np.zeros((n, round_up(tbytes.shape[1], 128)), np.uint8)
+        tpad[:, :tbytes.shape[1]] = tbytes
+        return QuantTensor("nuq4", (n, k), pt.scale, {
+            "codes": _on(pack_nuq4(codes), device),
+            "tables": _on(tpad, device)})
+    if kind == "i4":
+        return quant_tensor_i4(pt.to_f32().reshape(n, k), device)
+    if kind == "i8":
+        stream, scale = pt.data, pt.scale
+        if pt.type != Type.I8:
+            stream, scale = int8_codec.encode(pt.to_f32().reshape(-1)), 1.0
+        codes, inv_scales, zp = int8_codec.to_device_layout(stream, n, k)
+        return QuantTensor("i8", (n, k), scale, {
+            "codes": _on(codes, device), "inv_scales": _on(inv_scales, device),
+            "zeropoints": _on(zp, device)})
+    raise unknown_kind(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +353,28 @@ def _product_plain(a: torch.Tensor, w: QuantTensor) -> torch.Tensor:
             a_sum = a_g.sum(dim=1, keepdim=True)
             inv_g = inv[:, g][None, :]
             out += inv_g * part - (inv_g * zp[:, g][None, :]) * a_sum
+    elif w.kind == "i4":
+        # Raw codes feed the product (exact in bf16); the group affine
+        # lands on the output.  A is zero-padded to Kp: padding codes are
+        # 0 and a padded group's min multiplies a zero sum.
+        af = F.pad(a.float(), (0, w.kp - w.k))
+        codes = unpack_nuq4(w.arrays["codes"]).float()
+        sc, mn = w.arrays["scales"], w.arrays["mins"]
+        out = torch.zeros(af.shape[0], w.n, dtype=torch.float32,
+                          device=a.device)
+        for g in range(w.kp // GROUP):
+            sl = slice(g * GROUP, (g + 1) * GROUP)
+            a_g = af[:, sl]
+            part = a_g @ codes[:, sl].T
+            a_sum = a_g.sum(dim=1, keepdim=True)
+            out += sc[:, g][None, :] * part + mn[:, g][None, :] * a_sum
+    elif w.kind == "nuq4":
+        # Each code looks its 256-block's table up; the entries are SFP
+        # bytes, exact in bf16, and feed the product at A's dtype.
+        tables = sfp_decode(w.arrays["tables"], torch.bfloat16)
+        dense = nuq4_gather(tables, unpack_nuq4(w.arrays["codes"]))
+        af = F.pad(a.float(), (0, w.kp - w.k))
+        out = af @ dense.to(a.dtype).float().T
     else:
         raise unknown_kind(w.kind)
     if w.scale != 1.0:
@@ -311,8 +480,11 @@ def gated_ffn_plain(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
 
 
 def _b_operand(w: QuantTensor, name: str):
-    """(codec, data ptr, inv ptr, zp ptr) of a weight as the kernels take
-    it; raises on a kind or a shape they do not."""
+    """(codec, data ptr, x, y) of a weight as the kernels take it, x and y
+    being the inv_scales and zeropoints pointers (i8), the scales and mins
+    pointers (i4), the tables pointer and their row stride in bytes
+    (nuq4), else None; raises on a kind or a shape the kernels do not
+    take."""
     if w.kind not in _CODEC:
         raise unknown_kind(w.kind)
     codec = _CODEC[w.kind]
@@ -321,15 +493,26 @@ def _b_operand(w: QuantTensor, name: str):
             f"{name}: for kind {w.kind!r} K must be a multiple of "
             f"{K_MULTIPLE[codec]} and N of 8, got {w.shape}")
     dtype = {"i8": torch.int8, "sfp": torch.uint8, "bf16": torch.bfloat16,
-             "f32": torch.float32}[codec]
-    _cuda.check(w.data(), "weight", dtype, w.shape)
-    if codec != "i8":
+             "f32": torch.float32, "i4": torch.uint8,
+             "nuq4": torch.uint8}[codec]
+    packed = codec in PACKED_KINDS
+    _cuda.check(w.data(), "weight", dtype,
+                (w.n, w.k // 2) if packed else w.shape)
+    if codec == "nuq4":
+        tables = w.arrays["tables"]
+        _cuda.check(tables, "tables", torch.uint8,
+                    (w.n, round_up(w.k // PACK_BLOCK * 16, 128)))
+        return (codec, w.data().data_ptr(), tables.data_ptr(),
+                tables.shape[1])
+    if codec not in ("i8", "i4"):
         return codec, w.data().data_ptr(), None, None
+    mul, off = ("inv_scales", "zeropoints") if codec == "i8" \
+        else ("scales", "mins")
     g = (w.n, w.k // GROUP)
-    _cuda.check(w.arrays["inv_scales"], "inv_scales", torch.float32, g)
-    _cuda.check(w.arrays["zeropoints"], "zeropoints", torch.float32, g)
-    return (codec, w.data().data_ptr(), w.arrays["inv_scales"].data_ptr(),
-            w.arrays["zeropoints"].data_ptr())
+    _cuda.check(w.arrays[mul], mul, torch.float32, g)
+    _cuda.check(w.arrays[off], off, torch.float32, g)
+    return (codec, w.data().data_ptr(), w.arrays[mul].data_ptr(),
+            w.arrays[off].data_ptr())
 
 
 def _a_operand(a: torch.Tensor, k: int, prologue_norm):

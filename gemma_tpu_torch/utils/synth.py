@@ -1,6 +1,6 @@
 """Synthetic model parameters made on the target device (counterpart of
-gemma_tpu/utils/synth.py, whose weight layouts it follows), in the kinds
-i8, sfp, nuq, bf16 and f32.
+gemma_tpu/utils/synth.py, whose weight layouts it follows), in every
+weight kind: i8, sfp, nuq, bf16, f32, i4 and nuq4.
 
 Weights come from a seeded `torch.Generator` on `device`, so a full-size
 Gemma2-2B (2.6 GB of one-byte codes) is built on the card in well under a
@@ -10,8 +10,9 @@ one set of weights across with models/bridge.py instead.
 
 The layout and byte counts are the JAX synth's, but the weights are
 scaled to rms ~1/sqrt(K) (embedding rows: EMBEDDING_RMS): through the
-group scales for i8, through the tensor's `scale` for sfp and nuq (random
-SFP bytes decode to rms 0.42, `sfp_rms`), in the values for bf16 and f32.
+group scales for i8 and i4, through the tensor's `scale` for sfp, nuq and
+nuq4 (random SFP bytes decode to rms 0.42, `sfp_rms`), in the values for
+bf16 and f32.
 The JAX synth's i8 scales of |N(0, 0.05)| + 0.01 give weights of rms
 ~3.7, which saturate every soft cap at Gemma2 width, so checks of the
 logits (decode vs prefill, card vs CPU) would compare ties.
@@ -24,7 +25,7 @@ import torch
 from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.ops.matmul import QuantTensor, sfp_decode, unknown_kind
-from gemma_tpu_torch.utils.basics import resolve_device
+from gemma_tpu_torch.utils.basics import resolve_device, round_up
 
 # The (tied) embedding rows' rms: the logits spread about EMBEDDING_RMS *
 # sqrt(model_dim), 2.4 at Gemma2-2B width.  At 0.25 (a spread of 12) the
@@ -46,7 +47,13 @@ def synth_quant(gen: torch.Generator, n: int, k: int, device,
     i8: codes uniform in [-128, 127) (std ~74), group inverse scales
     U(0.5, 1.5) * rms / 74 and zero points N(0, 2) in code units, per 128
     K.  sfp / nuq: uniformly random bytes (every byte is a valid SFP
-    code), tensor scale rms / sfp_rms().  bf16 / f32: N(0, rms), scale 1."""
+    code), tensor scale rms / sfp_rms().  bf16 / f32: N(0, rms), scale 1.
+    i4: uniformly random packed bytes (codes 0..15, std 4.61 about 7.5),
+    group scales U(0.5, 1.5) * rms / 4.64 and mins -(7.5 + N(0, 0.5)) *
+    scale, per 128 K.  nuq4: the same codes; each 256-block's table is 16
+    random SFP bytes (7 random bits and a sign) sorted by value, as cluster
+    centres are, rows zero-padded to a multiple of 128 bytes; tensor scale
+    rms over the tables' own rms."""
     rms = 1.0 / k ** 0.5 if rms is None else rms
     if kind in ("bf16", "f32"):
         w = torch.randn(n, k, generator=gen, device=device).mul_(rms)
@@ -56,6 +63,27 @@ def synth_quant(gen: torch.Generator, n: int, k: int, device,
         codes = torch.randint(0, 256, (n, k), generator=gen, device=device,
                               dtype=torch.uint8)
         return QuantTensor(kind, (n, k), rms / sfp_rms(), {"codes": codes})
+    if kind in ("i4", "nuq4"):
+        blocks = -(-k // 256)
+        codes = torch.randint(0, 256, (n, blocks * 128), generator=gen,
+                              device=device, dtype=torch.uint8)
+        if kind == "i4":
+            sc = torch.rand(n, blocks * 2, generator=gen, device=device)
+            sc.add_(0.5).mul_(rms / 4.64)
+            off = torch.randn(n, blocks * 2, generator=gen, device=device)
+            mins = off.mul_(0.5).add_(7.5).mul_(sc).neg_()
+            return QuantTensor("i4", (n, k), 1.0,
+                               {"codes": codes, "scales": sc, "mins": mins})
+        entries = torch.randint(0, 256, (n, blocks, 16), generator=gen,
+                                device=device, dtype=torch.uint8)
+        values = sfp_decode(entries)
+        entries = entries.gather(-1, values.argsort(dim=-1))
+        tables = torch.zeros(n, round_up(blocks * 16, 128), dtype=torch.uint8,
+                             device=device)
+        tables[:, :blocks * 16] = entries.reshape(n, -1)
+        table_rms = float(values.square().mean().sqrt())
+        return QuantTensor("nuq4", (n, k), rms / table_rms,
+                           {"codes": codes, "tables": tables})
     if kind != "i8":
         raise unknown_kind(kind)
     g = k // 128

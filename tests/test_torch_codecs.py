@@ -230,15 +230,15 @@ def test_synth_quant_layout_and_rms(kind):
 
 @pytest.mark.parametrize("kind", ["i4", "nuq4"])
 def test_later_kinds_raise(kind):
-    """The 4.5-bit codecs belong to slice 4: every entry names it."""
+    """The 4.5-bit codecs are ported (tests/test_torch_codecs4.py): no
+    entry raises for them any more; a kind nobody knows still does, as a
+    ValueError that lists the kinds."""
     from gemma_tpu.utils.synth import synth_quant as j_synth
 
     jq = j_synth(np.random.default_rng(0), 16, 256, kind)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        bridge.quant_tensor_from_numpy(flatten_qt(jq), "cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        synth.synth_quant(torch.Generator(), 16, 256, "cpu", kind)
-    tq = tmm.QuantTensor(kind, (16, 256), 1.0, {})
+    tq = bridge.quant_tensor_from_numpy(flatten_qt(jq), "cpu")
+    assert tq.kind == kind and kind in tmm.KINDS
+    synth.synth_quant(torch.Generator(), 16, 256, "cpu", kind)
     a = torch.zeros(2, 256, dtype=torch.bfloat16)
     for call in (lambda: tmm.matmul(a, tq), lambda: tq.dequantize(),
                  lambda: tmm.matmul_topk(a, tq, 4),
@@ -246,5 +246,13 @@ def test_later_kinds_raise(kind):
                  lambda: tmm.gated_ffn(a, tq, tq),
                  lambda: t_embed(tq, torch.zeros(1, 1, dtype=torch.long),
                                  256)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        call()
+    unknown = tmm.QuantTensor(kind + "x", (16, 256), 1.0, {})
+    for call in (lambda: tmm.matmul(a, unknown), lambda: unknown.dequantize(),
+                 lambda: synth.synth_quant(torch.Generator(), 16, 256, "cpu",
+                                           kind + "x")):
+        with pytest.raises(ValueError, match="one of"):
             call()
+    with pytest.raises(ValueError, match="one of"):
+        bridge.quant_tensor_from_numpy(
+            dict(flatten_qt(jq), kind=kind + "x"), "cpu")

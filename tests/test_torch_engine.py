@@ -138,13 +138,18 @@ def test_entry_points_default_to_cuda(engines, entry):
     (dict(kind="nuq4"), "slice 4"),
 ])
 def test_later_slices_raise(engines, kw, match):
-    """What is still to port raises and names its slice: the 4.5-bit
-    weight codecs (sampled decode, top_k > 1, works now)."""
+    """Nothing on the serving path is left to a later slice: the 4.5-bit
+    weight codecs (slice 4) synthesize and serve, sampled decode (top_k >
+    1) works, and only a bad top_k raises."""
     from gemma_tpu_torch.utils.synth import synth_params
 
-    _, tc, _, tparams, *_ = engines
-    with pytest.raises(NotImplementedError, match=match):
-        synth_params(tc, device="cpu", **kw)
+    _, tc, _, tparams, *_, prompts = engines
+    params = synth_params(tc, device="cpu", **kw)
+    assert params.embedding.kind == params.layers[0].linear.kind == kw["kind"]
+    out = GemmaEngine(params, tc, RuntimeConfig(seq_len=SEQ),
+                      device="cpu").generate_batch(prompts[:1],
+                                                   max_generated_tokens=2)
+    assert len(out[0]) == 2
     assert GemmaEngine(tparams, tc, RuntimeConfig(top_k=40),
                        device="cpu").runtime.top_k == 40
     with pytest.raises(ValueError, match="top_k"):

@@ -21,17 +21,22 @@ Phases (any failure exits non-zero before the result line):
      whose codes encode their column and nuq4 tables of equal, repeated
      and -0.0 entries; the draw kernel; decode attention and prefill
      attention over i8, bf16 and f32 KV pools at Gemma2-2B's head shape
-     and over a bf16 pool at Gemma2-27B's (32/16 heads of 128);
+     and over a bf16 pool at Gemma2-27B's (32/16 heads of 128); and the
+     split-weight decode kernels at both head shapes: write + attend
+     (in-kernel RoPE, and pre-encoded), the row write alone, attention
+     alone, and the S-blocked write + attend;
   3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
-     plain path on the CPU, for i8, sfp, i4 and nuq4 weights;
+     plain path on the CPU, for i8, sfp, i4 and nuq4 weights, and for
+     split sfp q / kv weights (two decode steps through K8);
      `generate_batch` with a bf16 cache and decode_chunk=4 on both, tokens
      and probs compared, and sampled steps (the top-k head and the draw)
-     on both, for i8, i4 and nuq4; then the loader: four `.sbs` files
+     on both, for i8, i4 and nuq4; then the loader: five `.sbs` files
      written with the port's `write_model` into a temporary directory and
      loaded with `Gemma.load` on the card and on the CPU, kind_override
-     None, "i4", "i8" and "nuq4" (`phase_loader` says at what sizes), last
-     logits compared;
+     None, "i4", "i8" and "nuq4", and None for a file under the split
+     names whose qkv2_w has a tensor scale of its own (`phase_loader` says
+     at what sizes), last logits compared;
   4. the serving paths at Gemma2-2B width, synthetic weights made on the
      card, 4 ragged requests (17, 130, 300, 700 prompt tokens).  For each
      path every kernel launch count is zeroed before the counted run and
@@ -73,9 +78,16 @@ Phases (any failure exits non-zero before the result line):
        K. Gemma2-2B width, 4 layers, nuq4 weights with att_w of kind nuq
           (what a nuq4 model loaded from a file holds): 8 greedy and 4
           sampled tokens;
+     and, at 26 layers, the JAX package's split-weight decode and its
+     switches (`phase_split_paths` says what each runs):
+       L. split q / kv weights (sfp, qkv2's tensor scale apart): K8;
+       M. GEMMA_FUSED_DECODE=0: K9 + K10;
+       N. GEMMA_SBLOCK_DECODE=1: K11;
+     L, M and N each run two chunks under torch.profiler and one under
+     sync debug mode "error";
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-K), then nvidia-smi's line, then the result line.
+     4A-N), then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -219,6 +231,35 @@ LIBRARY_NOTE = {
     "flash_attention_f32": "scaled_dot_product_attention has no soft cap "
                            "(and no ring-window mask short of a dense one)",
 }
+_POOL = {"i8": "i8 pool, _decode_fused_q_pallas", "bf16": "bf16 pool",
+         "f32": "f32 pool"}
+for _kind in ("i8", "bf16", "f32"):
+    _q = "_q" if _kind == "i8" else ""
+    REPLACES[f"decode_write_attend_{_kind}"] = (
+        f"gemma_tpu/ops/decode_attention.py:386 (_decode_fused_kernel, "
+        f"{_POOL[_kind]})")
+    REPLACES[f"kv_write_{_kind}"] = (
+        "gemma_tpu/ops/decode_attention.py:104 (_kv_write_q_kernel)"
+        if _kind == "i8" else
+        f"gemma_tpu/ops/decode_attention.py:61 (_kv_write_kernel, {_kind} pool)")
+    REPLACES[f"decode_attend_{_kind}"] = (
+        f"gemma_tpu/ops/decode_attention.py:212 (_decode_att_kernel through "
+        f"_decode_att{_q}_pallas, {_kind} pool)")
+    REPLACES[f"decode_sblocked_{_kind}"] = (
+        f"gemma_tpu/ops/decode_attention.py:739 (_decode_fused_sblocked_kernel, "
+        f"{_kind} pool)")
+    _no_sdpa = ("scaled_dot_product_attention has no "
+                + ("i8 per-row scales, " if _kind == "i8" else "")
+                + "soft cap or ring mask")
+    LIBRARY_NOTE[f"decode_write_attend_{_kind}"] = (
+        _no_sdpa + ", and no in-place row write or RoPE")
+    LIBRARY_NOTE[f"decode_sblocked_{_kind}"] = (
+        _no_sdpa + ", and no in-place row write or RoPE")
+    LIBRARY_NOTE[f"decode_attend_{_kind}"] = _no_sdpa
+    LIBRARY_NOTE[f"kv_write_{_kind}"] = (
+        "codes and scales are two index_copy_ calls" if _kind == "i8" else
+        "index_copy_ of the same rows at their flat indices (one call, "
+        "indices made beforehand)")
 for _kind in WEIGHT_KINDS:
     _dense = _kind in ("bf16", "f32")
     _what = {"i8": "i8 group-quantized", "sfp": "SFP-coded",
@@ -281,6 +322,25 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def qkv_kind(lp) -> str:
+    """The q / kv projections' kind, fused or split."""
+    if lp.qkv_cat is not None:
+        return lp.qkv_cat.kind
+    if lp.qkv1.kind != lp.qkv2.kind:
+        fail(f"qkv1 is {lp.qkv1.kind} but qkv2 {lp.qkv2.kind}")
+    return lp.qkv1.kind
+
+
+def params_bytes(params) -> int:
+    """The weights' bytes, q / kv projections fused or split."""
+    total = params.embedding.nbytes()
+    for lp in params.layers:
+        for w in (lp.qkv_cat, lp.qkv1, lp.qkv2, lp.att_w, lp.gating1,
+                  lp.gating2, lp.linear):
+            total += 0 if w is None else w.nbytes()
+    return total
 
 
 def weight_bytes(w) -> int:
@@ -445,22 +505,69 @@ def phase_kernels(torch):
     phase_draw(torch, res, cfg)
 
     phase_attention(torch, res, cfg, ("i8", "bf16", "f32"))
+    phase_split_attention(torch, res, cfg, ("i8", "bf16", "f32"))
     # Gemma2-27B's head shape (32 query heads over 16 KV heads of 128, the
     # query scale 1/sqrt(model_dim / heads)): the D=128 instantiations, on
     # a 2-layer cut of its bf16 cache.
     big = config_gemma2_27b()
-    phase_attention(torch, res, dataclasses.replace(
+    big2 = dataclasses.replace(
         big, num_layers=2, layer_configs=big.layer_configs[:2],
-        attention_window_sizes=big.attention_window_sizes[:2]), ("bf16",),
-        primary=False)
+        attention_window_sizes=big.attention_window_sizes[:2])
+    phase_attention(torch, res, big2, ("bf16",), primary=False)
+    phase_split_attention(torch, res, big2, ("bf16",), primary=False)
     return res
+
+
+def check_written_rows(torch, name, label, kind, ck, cp, layer):
+    """The pool a kernel wrote (ck) against the one its plain version wrote
+    (cp): the kernel and the plain version round RoPE alike (-fmad=false),
+    so i8 codes may move by one, bf16 rows by one bf16 ulp (2^-7
+    relative), f32 rows by 1e-5 relative; i8 scales are printed."""
+    pk, idx, _ = ck.pool(layer)
+    pp = cp.pool(layer)[0]
+    if kind == "i8":
+        code_diff = (pk[:, idx].int() - pp[:, idx].int()).abs()
+        row_err, row_tol = float(code_diff.max()), 1.0
+        sc_err = float((ck.pool_scale(layer)
+                        - cp.pool_scale(layer)).abs().max())
+        print(f"[2] {name} {label}: {int((code_diff > 0).sum())} pool codes "
+              f"one off, scale max err {sc_err:.3g}", flush=True)
+    else:
+        a, w = pk[:, idx].float(), pp[:, idx].float()
+        rel = 2 ** -7 if kind == "bf16" else 1e-5
+        row_err = float(((a - w).abs() - rel * w.abs()).max())
+        row_tol = 1e-6
+        print(f"[2] {name} {label}: written rows max excess over {rel:.3g} "
+              f"relative {row_err:.3g}", flush=True)
+    if row_err > row_tol:
+        fail(f"{name} [{label}]: written rows differ from the plain "
+             f"version's ({row_err} > {row_tol})")
+
+
+def random_cache(torch, cfg, kind, gen, seq_len=8192, b=4):
+    """A batch-4 cache of `kind` (local slack 512) filled with random rows:
+    i8 codes in [-127, 127] under scales |N(0, 0.02)|, else N(0, 0.5)."""
+    from gemma_tpu_torch.models.kv_cache import KVCache
+
+    cache = KVCache.create(cfg, b, seq_len, kind=kind, local_slack=512,
+                           device="cuda")
+    for pool, sc in ((cache.kv, cache.kv_scale),
+                     (cache.kv_local, cache.kv_local_scale)):
+        if kind == "i8":
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                     device="cuda", dtype=torch.int8))
+            sc.copy_(torch.randn(*sc.shape, generator=gen,
+                                 device="cuda").mul_(0.02).abs_())
+        else:
+            pool.copy_(torch.randn(*pool.shape, generator=gen,
+                                   device="cuda").mul_(0.5))
+    return cache
 
 
 def phase_attention(torch, res, cfg, kinds, primary=True):
     """K4 and K5 against their plain versions at `cfg`'s head shape, over
     both pools (layer 0 local, layer 1 global) of a seq_len=8192 cache of
     each KV kind in `kinds`, batch 4."""
-    from gemma_tpu_torch.models.kv_cache import KVCache
     from gemma_tpu_torch.ops import decode_attention as da
     from gemma_tpu_torch.ops import flash_attention as fa
     from gemma_tpu_torch.ops.attention import attention_mask
@@ -485,20 +592,7 @@ def phase_attention(torch, res, cfg, kinds, primary=True):
     pos = torch.tensor([[300], [450], [600], [700]], device=dev)
     valid = torch.tensor([[True], [True], [False], [True]], device=dev)
     qkv = randn(b, (heads + 2 * kvh) * hd, s=2.0)
-    caches = {}
-    for kind in kinds:
-        cache = KVCache.create(cfg, b, 8192, kind=kind, local_slack=512,
-                               device=dev)
-        for pool, sc in ((cache.kv, cache.kv_scale),
-                         (cache.kv_local, cache.kv_local_scale)):
-            if kind == "i8":
-                pool.copy_(torch.randint(-127, 128, pool.shape,
-                                         generator=gen, device=dev,
-                                         dtype=torch.int8))
-                sc.copy_(randn(*sc.shape, s=0.02).abs_())
-            else:
-                pool.copy_(randn(*pool.shape, s=0.5))
-        caches[kind] = cache
+    caches = {kind: random_cache(torch, cfg, kind, gen) for kind in kinds}
     # Tolerance: both compute an exact softmax; exp/sum rounding in another
     # order can move a bf16-rounded probability by one ulp (2^-8), and the
     # output is bf16: 1e-2 of max|out|.  Written rows: the kernel and the
@@ -516,28 +610,10 @@ def phase_attention(torch, res, cfg, kinds, primary=True):
             p = lambda: da.decode_attention_write_packed_plain(  # noqa: E731
                 cp, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
             got, want = f(), p()
-            pk, idx, ring = ck.pool(layer)
-            pp = cp.pool(layer)[0]
-            if kind == "i8":
-                code_diff = (pk[:, idx].int() - pp[:, idx].int()).abs()
-                row_err = float(code_diff.max())
-                row_tol = 1.0
-                sc_err = float((ck.pool_scale(layer)
-                                - cp.pool_scale(layer)).abs().max())
-                print(f"[2] {name} {shape} {pool_name}: "
-                      f"{int((code_diff > 0).sum())} pool codes one off, "
-                      f"scale max err {sc_err:.3g}", flush=True)
-            else:
-                a, w = pk[:, idx].float(), pp[:, idx].float()
-                rel = 2 ** -7 if kind == "bf16" else 1e-5
-                row_err = float(((a - w).abs() - rel * w.abs()).max())
-                row_tol = 1e-6
-                print(f"[2] {name} {shape} {pool_name}: written rows max excess "
-                      f"over {rel:.3g} relative {row_err:.3g}", flush=True)
-            if row_err > row_tol:
-                fail(f"{name} [{pool_name}]: written rows differ from the "
-                     f"plain version's ({row_err} > {row_tol})")
-            live = sum(min(int(q) + 1, window, ring) for q in pos[:, 0])
+            check_written_rows(torch, name, f"{shape} {pool_name}", kind, ck,
+                               cp, layer)
+            live = sum(min(int(q) + 1, window, ck.pool(layer)[2])
+                       for q in pos[:, 0])
             row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
             nbytes = (live * kvh * row_bytes + qkv.numel() * 4
                       + b * heads * hd * 2 + b * kvh * row_bytes)
@@ -576,6 +652,218 @@ def phase_attention(torch, res, cfg, kinds, primary=True):
                        want, rel_tol(want, 1e-4 if kind == "f32" else 1e-2),
                        f, p, nbytes, 4 * pairs * hd, iters=5,
                        primary=primary and (start, layer) == (512, 1))
+
+
+def _set_env(name, value):
+    """Set (or with None, remove) an environment switch; returns the old
+    value for _set_env to restore."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    return old
+
+
+def phase_split_attention(torch, res, cfg, kinds, primary=True):
+    """K8, K9, K10 and K11 against their plain versions at `cfg`'s head
+    shape, batch 4 at positions 300, 450, 600, 700 (K4's live rows) over
+    both pools (layer 0 local, layer 1 global) of a seq_len=8192 cache of
+    each KV kind in `kinds`:
+      - K8 with RoPE in the kernel and one invalid slot on the global
+        pool, and pre-encoded (torch-op RoPE, i8 rows quantized by torch
+        ops) on the local pool;
+      - K9: the kernel alone on pre-made rows (the plain version quantizes
+        and writes), with `index_copy_` of the same rows as the library
+        call for bf16 and f32 pools (i8 also writes the scales: two calls);
+      - K10 on both pools;
+      - K11 (GEMMA_SBLOCK_DECODE=1) for bf16 and f32 on both pools (bf16
+        blocks of 48 and 272 rows at Gemma2-2B's shape, f32 of 16), and
+        for i8 on the global pool of a seq_len=8191 cache, whose 8192 rows
+        have 128-row blocks (the local pool's 4640 have none).
+    Tolerances: K8 and K10 compute the plain version's exact softmax in
+    another order: 1e-2 of max|out| covers a flipped bf16 probability;
+    K11 rounds its exp weights against each block's max where the plain
+    version rounds against the running max (the JAX suite's bound between
+    the S-blocked and the one-shot kernel is 5e-3 of max|out| + 5e-3 of
+    |out|): 1e-2 of max|out|.  K9 writes exactly what the plain version
+    writes.  Written rows as check_written_rows says."""
+    from gemma_tpu_torch.ops import decode_attention as da
+    from gemma_tpu_torch.ops.ops import create_inv_timescale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5151)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def rel_tol(want, rel):
+        return rel * float(want.float().abs().max())
+
+    lc = cfg.layer_configs[0]
+    heads, kvh, hd = lc.heads, lc.kv_heads, lc.qkv_dim
+    g = heads // kvh
+    b = 4
+    shape = f"H={heads} KVH={kvh} D={hd}"
+    qscale = cfg.query_scale_value()
+    rope = da.RopeSpec(torch.from_numpy(create_inv_timescale(hd)).to(dev), 0,
+                       qscale)
+    pos = torch.tensor([[300], [450], [600], [700]], device=dev)
+    valid = torch.tensor([[True], [True], [False], [True]], device=dev)
+    # Raw rows as the split GEMMs leave them: q [B, 1, H, D]; k and v
+    # views into one [B, 1, KVH, 2, D] row (qkv2's interleave).
+    q_raw = randn(b, 1, heads, hd, s=2.0)
+    kv_raw = randn(b, 1, kvh, 2, hd, s=2.0)
+    k_raw, v_raw = kv_raw[..., 0, :], kv_raw[..., 1, :]
+    q_enc = randn(b, 1, heads, hd, s=2.0 * qscale)  # pre-encoded
+
+    def live_rows(cache, layer, window):
+        return sum(min(int(p) + 1, window, cache.pool(layer)[2])
+                   for p in pos[:, 0])
+
+    def att_bytes(kind, item, live, new_row):
+        row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
+        return (live * kvh * row_bytes + b * heads * hd * 4 * 2
+                + (b * kvh * (2 * hd * 4 + row_bytes) if new_row else 0))
+
+    def ops_of(live):
+        return 4 * live * g * kvh * hd
+
+    for kind in kinds:
+        cache = random_cache(torch, cfg, kind, gen)
+        item = cache.kv.element_size()
+        # --- K8 ---
+        name = f"decode_write_attend_{kind}"
+        for layer, pool_name, mode in ((1, "global ring 8192", "rope"),
+                                       (0, "local ring 4608", "pre-encoded")):
+            window = cfg.attention_window_sizes[layer]
+            vmask = valid if mode == "rope" else None
+            rp = rope if mode == "rope" else None
+            qq = q_raw if mode == "rope" else q_enc
+            ck, cp = cache.copy(), cache.copy()
+            f = lambda: da.decode_attention_write(  # noqa: E731
+                ck, layer, qq, pos, k_raw, v_raw, window, cfg.att_cap, vmask,
+                rp)
+            p = lambda: da.decode_attention_write_plain(  # noqa: E731
+                cp, layer, qq, pos, k_raw, v_raw, window, cfg.att_cap, vmask,
+                rp)
+            got, want = f(), p()
+            label = f"{shape} {pool_name} {mode}"
+            check_written_rows(torch, name, label, kind, ck, cp, layer)
+            sel = slice(None) if vmask is None else valid[:, 0]
+            live = live_rows(ck, layer, window)
+            record(res, torch, name,
+                   f"B=4 {label} live {live} rows"
+                   + (" (1 invalid slot)" if vmask is not None else ""),
+                   got[sel], want[sel], rel_tol(want[sel], 1e-2), f, p,
+                   att_bytes(kind, item, live, True), ops_of(live),
+                   primary=primary and layer == 1)
+        # --- K9 ---
+        name = f"kv_write_{kind}"
+        ck, cp = cache.copy(), cache.copy()
+        da.kv_write_decode(ck, 1, pos, k_raw, v_raw, valid)
+        da.kv_write_decode_plain(cp, 1, pos, k_raw, v_raw, valid)
+        for a, w in ((ck.kv, cp.kv), (ck.kv_scale, cp.kv_scale)):
+            if a is not None and not torch.equal(a, w):
+                fail(f"{name}: the pool differs from the plain version's")
+        if not torch.equal(ck.kv_local, cache.kv_local):
+            fail(f"{name}: a write to the global pool moved the local one")
+        new, nsc = da._pool_rows(ck, torch.stack([k_raw[:, 0], v_raw[:, 0]],
+                                                 dim=1))
+        pool, idx, ring = ck.pool(1)
+        sc = ck.pool_scale(1)
+        nl, s_alloc = pool.shape[1], pool.shape[4]
+        pos32 = pos.to(torch.int32)
+        kern = da.KV_WRITE[pool.dtype]
+        f = lambda: kern.launch(  # noqa: E731
+            new.data_ptr(), 0 if nsc is None else nsc.data_ptr(),
+            pool.data_ptr(), 0 if sc is None else sc.data_ptr(),
+            pos32.data_ptr(), valid.data_ptr(), b, nl, idx, kvh, s_alloc, hd,
+            ring)
+        p = lambda: da.kv_write_decode_plain(  # noqa: E731
+            cp, 1, pos, k_raw, v_raw, valid)
+        bi = torch.arange(b, device=dev)
+        rows = torch.where(valid[:, 0], pos[:, 0] % ring,
+                           torch.full_like(pos[:, 0], ring))
+        library = None
+        if kind != "i8":
+            # One call, the same function on the same rows: index_copy_ of
+            # the 2*KVH rows of each slot at their flat row indices.
+            panel = ((torch.arange(b, device=dev)[:, None, None] * nl + idx)
+                     * 2 + torch.arange(2, device=dev)[None, :, None]) \
+                * kvh + torch.arange(kvh, device=dev)[None, None, :]
+            flat = (panel * s_alloc + rows[:, None, None]).reshape(-1)
+            flat_pool = pool.view(-1, hd)
+            src = new.reshape(-1, hd)
+            library = lambda: flat_pool.index_copy_(0, flat, src)  # noqa
+        def written(c):  # [B, 2, KVH, D]: the rows K9 writes
+            return c.pool(1)[0][:, idx][bi, :, :, rows]
+
+        record(res, torch, name, f"B=4 {shape} global ring 8192, 1 invalid "
+               "slot (kernel on pre-made rows)", written(ck), written(cp),
+               0.0, f, p,
+               2 * new.numel() * item + (4 * 2 * nsc.numel() if nsc is not
+                                         None else 0), 0,
+               primary=primary, library=library)
+        # --- K10 ---
+        name = f"decode_attend_{kind}"
+        for layer, pool_name in ((1, "global ring 8192"),
+                                 (0, "local ring 4608")):
+            window = cfg.attention_window_sizes[layer]
+            f = lambda: da.decode_attention(  # noqa: E731
+                cache, layer, q_enc, pos, window, cfg.att_cap)
+            p = lambda: da.decode_attention_plain(  # noqa: E731
+                cache, layer, q_enc, pos, window, cfg.att_cap)
+            got, want = f(), p()
+            live = live_rows(cache, layer, window)
+            record(res, torch, name, f"B=4 {shape} {pool_name} live {live} "
+                   "rows", got, want, rel_tol(want, 1e-2), f, p,
+                   att_bytes(kind, item, live, False), ops_of(live),
+                   primary=primary and layer == 1)
+        # --- K11 ---
+        name = f"decode_sblocked_{kind}"
+        sb_cache = cache if kind != "i8" else random_cache(
+            torch, cfg, kind, gen, seq_len=8191)
+        old = _set_env("GEMMA_SBLOCK_DECODE", "1")
+        try:
+            for layer, pool_name, mode in ((1, "global", "rope"),
+                                           (0, "local", "pre-encoded")):
+                block = da._s_block(sb_cache, layer)
+                if block is None:
+                    continue
+                window = cfg.attention_window_sizes[layer]
+                ring = sb_cache.pool(layer)[2]
+                vmask = valid if mode == "rope" else None
+                rp = rope if mode == "rope" else None
+                qq = q_raw if mode == "rope" else q_enc
+                ck, cp = sb_cache.copy(), sb_cache.copy()
+                f = lambda: da.decode_attention_write(  # noqa: E731
+                    ck, layer, qq, pos, k_raw, v_raw, window, cfg.att_cap,
+                    vmask, rp)
+                p = lambda: da.decode_attention_write_sblocked_plain(  # noqa
+                    cp, layer, qq, pos, k_raw, v_raw, window, block,
+                    cfg.att_cap, vmask, rp)
+                before = da.DECODE_SBLOCKED[ck.kv.dtype].launches
+                got, want = f(), p()
+                kern_count = da.DECODE_SBLOCKED[ck.kv.dtype].launches - before
+                if kern_count != 1:
+                    fail(f"{name}: GEMMA_SBLOCK_DECODE=1 did not launch K11")
+                label = (f"{shape} {pool_name} ring {ring} "
+                         f"(s_alloc {ck.pool(layer)[0].shape[4]}, "
+                         f"blocks of {block}) {mode}")
+                check_written_rows(torch, name, label, kind, ck, cp, layer)
+                sel = slice(None) if vmask is None else valid[:, 0]
+                live = live_rows(ck, layer, window)
+                record(res, torch, name,
+                       f"B=4 {label} live {live} rows"
+                       + (" (1 invalid slot)" if vmask is not None else ""),
+                       got[sel], want[sel], rel_tol(want[sel], 1e-2), f, p,
+                       att_bytes(kind, item, live, True), ops_of(live),
+                       primary=primary and layer == 1)
+        finally:
+            _set_env("GEMMA_SBLOCK_DECODE", old)
+        del sb_cache
+    torch.cuda.empty_cache()
 
 
 def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
@@ -1224,17 +1512,47 @@ def phase_two_layers(torch):
             del flat
         del params, params_cpu
         torch.cuda.empty_cache()
+    # Split q / kv weights (qkv2's tensor scale apart, as a file gives):
+    # decode through K8-i8, card against CPU.
+    params = synth_params(cfg, kind="sfp", seed=7, device="cuda",
+                          fuse_qkv=False)
+    for lp in params.layers:
+        lp.qkv2 = dataclasses.replace(lp.qkv2, scale=lp.qkv2.scale * 1.25)
+    params_cpu = _to_device(params, "cpu")
+    logits = {}
+    for dev, prm in (("cuda", params), ("cpu", params_cpu)):
+        cache = KVCache.create(cfg, 1, 8192, kind="i8", local_slack=256,
+                               device=dev)
+        forward(prm, tokens[:, :-2].to(dev), torch.arange(t - 2)[None].to(dev),
+                cache, cfg, return_logits="none")
+        for i in (t - 2, t - 1):
+            out, _ = forward(prm, tokens[:, i:i + 1].to(dev),
+                             torch.tensor([[i]], device=dev), cache, cfg,
+                             return_logits="last")
+        logits[dev] = out.float().cpu()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    print(f"[3] 2-layer full-width split sfp weights (qkv2 scale x1.25), "
+          f"prefill {t - 2} + decode 2, i8 KV: card vs CPU plain last-logit "
+          f"max_abs_err {err:.4g} (tol {2e-2 * scale:.4g})", flush=True)
+    if not torch.isfinite(logits["cuda"]).all() or err > 2e-2 * scale:
+        fail("the 2-layer split model disagrees between the card and the CPU")
+    del params, params_cpu
+    torch.cuda.empty_cache()
     phase_loader(torch)
 
 
-def write_synth_sbs(torch, path, cfg, type_name: str, seed: int) -> int:
+def write_synth_sbs(torch, path, cfg, type_name: str, seed: int,
+                    split: bool = False) -> int:
     """Write `cfg`'s tensors (the stacked names a converted checkpoint
-    holds: qkv_ein, gating_ein, att_ein, linear_w and the norms) with the
-    port's `write_model`; returns the weights' count.  SFP-typed: every
-    byte but 0x80 is a valid SFP code, so the streams are random bytes
-    drawn on the card (rms 0.42) under a tensor scale that brings the
-    weights to rms 1/sqrt(K).  NUQ-typed: N(0, 1/sqrt(K)) values clustered
-    by the numpy encoder."""
+    holds: qkv_ein, gating_ein, att_ein, linear_w and the norms; with
+    `split` the split ones: qkv1_w, qkv2_w, gating1_w, gating2_w, att_w)
+    with the port's `write_model`; returns the weights' count.  SFP-typed:
+    every byte but 0x80 is a valid SFP code, so the streams are random
+    bytes drawn on the card (rms 0.42) under a tensor scale that brings the
+    weights to rms 1/sqrt(K) (qkv2_w to 1.25 times that: a tensor scale of
+    its own, as a file whose kv weights pass 1.875 has).  NUQ-typed:
+    N(0, 1/sqrt(K)) values clustered by the numpy encoder."""
     import numpy as np
 
     from gemma_tpu_torch.compression import (PackedTensor, Type,
@@ -1246,10 +1564,12 @@ def write_synth_sbs(torch, path, cfg, type_name: str, seed: int) -> int:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     registry = TensorInfoRegistry(cfg)
     names = ["c_embedding", "c_final_norm"]
+    weights = (("qkv1_w", "qkv2_w", "gating1_w", "gating2_w", "att_w")
+               if split else ("qkv_ein", "gating_ein", "att_ein"))
     for i in range(cfg.num_layers):
-        names += [f"{base}_{i}" for base in (
-            "qkv_ein", "gating_ein", "att_ein", "linear_w", "pre_att_ns",
-            "pre_ff_ns", "post_att_ns", "post_ff_ns")]
+        names += [f"{base}_{i}" for base in weights + (
+            "linear_w", "pre_att_ns", "pre_ff_ns", "post_att_ns",
+            "post_ff_ns")]
     tensors, count = [], 0
     for name in names:
         rows, cols = registry.find(name).extents
@@ -1261,6 +1581,8 @@ def write_synth_sbs(torch, path, cfg, type_name: str, seed: int) -> int:
         lc = cfg.layer_configs[0]
         k = lc.heads * lc.qkv_dim if name.startswith("att_ein") else cols
         rms = EMBEDDING_RMS if name == "c_embedding" else k ** -0.5
+        if name.startswith("qkv2_w"):
+            rms *= 1.25
         if type_name == "sfp":
             data = torch.randint(0, 256, (rows * cols,), generator=gen,
                                  device="cuda", dtype=torch.uint8)
@@ -1288,7 +1610,10 @@ def phase_loader(torch):
         head, vocab 2048 (9M weights);
       - "nuq4" from a NUQ-typed file: 1 layer of model_dim 256, ff 512, 2
         heads of 128 over 1 KV head, vocab 256 (0.65M weights); att_w
-        loads as kind nuq beside nuq4 everything else."""
+        loads as kind nuq beside nuq4 everything else;
+      - None from an SFP-typed file under the split names whose qkv2_w
+        has a tensor scale of its own: 2 layers at Gemma2-2B's width,
+        vocab 4096; qkv1 and qkv2 load split and decode runs K8."""
     import dataclasses
     import tempfile
 
@@ -1310,17 +1635,21 @@ def phase_loader(torch):
     narrow = dict(model_dim=512, ff_hidden_dim=2048, heads=2, kv_heads=1)
     tiny = dict(model_dim=256, ff_hidden_dim=512, heads=2, kv_heads=1,
                 qkv_dim=128)
-    cases = (("sfp", cut(2, full.vocab_size), (None,)),
-             ("sfp", cut(2, 4096), ("i4",)),
-             ("sfp", cut(2, 2048, **narrow), ("i8",)),
-             ("nuq", cut(1, 256, **tiny), ("nuq4",)))
+    cases = (("sfp", False, cut(2, full.vocab_size), (None,)),
+             ("sfp", False, cut(2, 4096), ("i4",)),
+             ("sfp", False, cut(2, 2048, **narrow), ("i8",)),
+             ("nuq", False, cut(1, 256, **tiny), ("nuq4",)),
+             ("sfp", True, cut(2, 4096), (None,)))
     gen = torch.Generator().manual_seed(21)
     with tempfile.TemporaryDirectory() as tmp:
-        for ci, (type_name, cfg, overrides) in enumerate(cases):
+        for ci, (type_name, split, cfg, overrides) in enumerate(cases):
             path = os.path.join(tmp, f"model{ci}.sbs")
             t0 = time.monotonic()
-            count = write_synth_sbs(torch, path, cfg, type_name, seed=30 + ci)
-            print(f"[3] wrote a {type_name}-typed .sbs: {cfg.num_layers} "
+            count = write_synth_sbs(torch, path, cfg, type_name, seed=30 + ci,
+                                    split=split)
+            print(f"[3] wrote a {type_name}-typed .sbs"
+                  f"{' under the split names' if split else ''}: "
+                  f"{cfg.num_layers} "
                   f"layers, model_dim {cfg.model_dim}, vocab "
                   f"{cfg.vocab_size}, {count / 1e6:.2f}M weights, "
                   f"{os.path.getsize(path) / 1e6:.1f} MB in "
@@ -1343,8 +1672,12 @@ def phase_loader(torch):
                                      g.config, return_logits="last")
                     logits[dev] = out.float().cpu()
                     lp = g.params.layers[0]
-                    kinds = (g.params.embedding.kind, lp.qkv_cat.kind,
+                    kinds = (g.params.embedding.kind, qkv_kind(lp),
                              lp.att_w.kind, lp.gating1.kind, lp.linear.kind)
+                    if split != (lp.qkv_cat is None):
+                        fail(f"the {'split' if split else 'stacked'}-names "
+                             "file loaded with the q / kv projections "
+                             f"{'fused' if split else 'split'}")
                     if g.params.device.type != dev:
                         fail(f"Gemma.load(device={dev!r}) put the params on "
                              f"{g.params.device}")
@@ -1508,8 +1841,9 @@ def _port_kernel(device_name: str) -> str | None:
         if fn in device_name:
             return name
     for kind in ("i8", "bf16", "f32"):
-        for op in ("decode_attention", "flash_attention"):
-            if f"{op}_{kind}_kernel<" in device_name:
+        for op in ("decode_attention", "flash_attention", "decode_write_attend",
+                   "decode_attend", "decode_sblocked", "kv_write"):
+            if f" {op}_{kind}_kernel" in f" {device_name}":
                 return f"{op}_{kind}"
     return None
 
@@ -1610,6 +1944,9 @@ def counted_run(torch, fn):
              (mm, "matmul_top1_plain"), (mm, "matmul_topk_plain"),
              (mm, "topk_merge_plain"), (sampling, "sample_stream_plain"),
              (da, "decode_attention_write_packed_plain"),
+             (da, "decode_attention_write_plain"),
+             (da, "decode_attention_write_sblocked_plain"),
+             (da, "kv_write_decode_plain"), (da, "decode_attention_plain"),
              (fa, "flash_prefill_attention_plain")}
     saved = {(mod, n): getattr(mod, n) for mod, n in plain}
 
@@ -1708,7 +2045,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     params = synth_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"[4] Gemma2-2B {L} layers, synthetic i8 weights on the card "
-          f"({sum(lp.qkv_cat.nbytes() + lp.att_w.nbytes() + lp.gating1.nbytes() * 2 + lp.linear.nbytes() for lp in params.layers) / 1e9 + params.embedding.nbytes() / 1e9:.2f} GB) "
+          f"({params_bytes(params) / 1e9:.2f} GB) "
           f"in {time.monotonic() - t0:.2f} s", flush=True)
     gen = torch.Generator().manual_seed(3)
     lens = (17, 130, 300, 700)
@@ -1720,25 +2057,31 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         for name, c in counts.items():
             totals[name] = totals.get(name, 0) + c
 
-    def schedule(engine, steps, head, kv="bf16", wkind="i8", att_kind=None):
+    def schedule(engine, steps, head, kv="bf16", wkind="i8", att_kind=None,
+                 dec=None):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
         and prefill attention per layer; a decode step 3 GEMMs, the gated
         GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
         decode attention per layer, then its head: "top1" the fused greedy
         head, "topk" the fused top-k head with its merge pass and the
-        draw, "gemm" the head as one more GEMM (one-step chunks).
-        att_kind: the codec of att_w where it differs from the rest's."""
+        draw, "gemm" the head as one more GEMM (one-step chunks).  Split
+        q / kv weights add one GEMM per layer, and its prologue pass in a
+        decode step.  att_kind: the codec of att_w where it differs from
+        the rest's.  dec: the decode attention kernels' launches per step
+        by name (default K4 of the KV kind on every layer)."""
         layers = len(engine.params.layers)
+        split = int(engine.params.layers[0].qkv_cat is None)
         chunk = engine.prefill_chunk(len(prompts), max(lens))
         rounds = -(-(max(lens) - 1) // chunk)
         want = {f"matmul_{wkind}": (rounds + steps)
-                * (2 if att_kind else 3) * layers
+                * ((2 if att_kind else 3) + split) * layers
                 + (steps if head == "gemm" else 0),
-                "matmul_prenorm": steps * (2 * layers + 1),
+                "matmul_prenorm": steps * ((2 + split) * layers + 1),
                 "matmul_postnorm_add": steps * 2 * layers,
                 f"gated_{wkind}": (rounds + steps) * layers,
-                f"decode_attention_{kv}": steps * layers,
                 f"flash_attention_{kv}": rounds * layers}
+        for name, n in (dec or {f"decode_attention_{kv}": layers}).items():
+            want[name] = steps * n
         if head == "top1":
             want[f"top1_{wkind}"] = steps
         if head == "topk":
@@ -1984,10 +2327,168 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         del prm, engine
         torch.cuda.empty_cache()
 
+    phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
+                      new_tokens)
+
     missing = [name for name, c in totals.items() if c == 0]
     if missing:
         fail(f"kernels no counted path launched: {missing}")
     return totals
+
+
+def check_same_tokens(torch, engine, prompts, got, want, cfg, label):
+    """A switch's tokens (got) against the same model and runtime with the
+    switch unset (want): equal up to each request's first difference,
+    where the top1-top2 margin of a prefill-only forward over the prompt
+    and the common tokens must be within the i8-KV logit tolerance of
+    test_parity_full.py (2e-2 of max|logit|): a near tie, which either
+    path may break."""
+    from gemma_tpu_torch.models.gemma import forward
+
+    equal = 0
+    for qi, (p, g, w) in enumerate(zip(prompts, got, want)):
+        n = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if n is None:
+            equal += len(w)
+            continue
+        equal += n
+        seq = p + w[:n]
+        ref, _ = forward(engine.params, torch.tensor([seq], device="cuda"),
+                         torch.arange(len(seq), device="cuda")[None],
+                         engine.new_cache(1), cfg, return_logits="last")
+        top2 = ref[0].topk(2).values
+        margin = float(top2[0] - top2[1])
+        tol = 2e-2 * float(ref.abs().max())
+        print(f"[{label}] request {qi}: tokens part at step {n} ({g[n]} vs "
+              f"{w[n]}), margin there {margin:.4g} (tol {tol:.4g})",
+              flush=True)
+        if margin > tol:
+            fail(f"path {label}: request {qi}'s tokens differ from the "
+                 f"switch-off run's at step {n} with a clear margin")
+    print(f"[{label}] {equal} of {sum(map(len, want))} tokens equal the "
+          "run with the switch unset", flush=True)
+    if equal <= len(prompts):
+        fail(f"path {label}: no decoded token matched the switch-off run")
+
+
+def phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
+                      new_tokens):
+    """Paths L, M and N: Gemma2-2B at 26 layers, the environment restored
+    after each.
+
+    L. Split q / kv weights: synth_params(kind="sfp", fuse_qkv=False) with
+       qkv2's tensor scale 1.25 times qkv1's (they cannot join, as in a
+       file whose kv weights pass 1.875): two GEMMs and K8 per decode
+       layer.  Default runtime: 32 greedy tokens (3 runs, two chunks under
+       torch.profiler, one under sync debug mode "error", first tokens
+       against a prefill-only forward), 8 sampled; then 4 greedy tokens
+       each over i8 and f32 KV (K8-i8, K8-f32).
+    M. GEMMA_FUSED_DECODE=0, i8 weights, kv_kind="i8": RoPE in torch ops,
+       then K9-i8 and K10-i8; 8 tokens against the same run with the
+       switch unset (K4), 3 runs, two chunks under torch.profiler and one
+       under sync debug mode "error"; then 4 tokens each over bf16 and
+       f32 KV.
+    N. GEMMA_SBLOCK_DECODE=1, the default runtime with fused i8 weights:
+       the packed call routes to the split one and K11-bf16 (48-row
+       blocks on the global pool, 48 on the local); 8 tokens against the
+       switch unset, profiled as M; then 4 tokens over f32 KV (K11-f32)
+       and over i8 KV at seq_len=8191 (8192-row global pools have 128-row
+       blocks: K11-i8; the local pools have none: K8-i8)."""
+    import dataclasses
+
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig
+    from gemma_tpu_torch.ops import decode_attention as da
+    from gemma_tpu_torch.utils.synth import synth_params
+
+    L = cfg.num_layers
+
+    # --- L ---
+    t0 = time.monotonic()
+    prm = synth_params(cfg, kind="sfp", seed=0, device="cuda", fuse_qkv=False)
+    for lp in prm.layers:
+        lp.qkv2 = dataclasses.replace(lp.qkv2, scale=lp.qkv2.scale * 1.25)
+    torch.cuda.synchronize()
+    print(f"[4L] Gemma2-2B {L} layers, split synthetic sfp q / kv weights "
+          f"(qkv2 scale {prm.layers[0].qkv2.scale:.4g}, qkv1 "
+          f"{prm.layers[0].qkv1.scale:.4g}) on the card in "
+          f"{time.monotonic() - t0:.2f} s, {params_bytes(prm) / 1e9:.2f} GB",
+          flush=True)
+    engine = GemmaEngine(prm, cfg, RuntimeConfig(seq_len=8192))
+    engine.generate_batch([p[:40] for p in prompts], max_generated_tokens=6)
+    outs, timing = counted_generate(
+        "4L greedy", engine, "top1", "sfp", new_tokens,
+        dec={"decode_write_attend_bf16": L})
+    print(f"[4L] first tokens: {[o[:8] for o in outs]}", flush=True)
+    timed_runs(torch, engine, prompts, new_tokens, "4L", timing)
+    profile_chunks(torch, engine, prompts, label="4L")
+    check_first_tokens(torch, engine, prompts, outs, cfg, "4L")
+    counted_generate("4L sampled", GemmaEngine(
+        prm, cfg, RuntimeConfig(seq_len=8192, **sampled)), "topk", "sfp", 8,
+        dec={"decode_write_attend_bf16": L})
+    for kv in ("i8", "f32"):
+        counted_generate(f"4L {kv} KV", GemmaEngine(
+            prm, cfg, RuntimeConfig(seq_len=8192, kv_kind=kv)), "top1", "sfp",
+            4, kv=kv, dec={f"decode_write_attend_{kv}": L})
+    del prm, engine
+    torch.cuda.empty_cache()
+
+    params = synth_params(cfg, seed=0, device="cuda")  # i8, fused
+
+    # --- M ---
+    ref_engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                        kv_kind="i8"))
+    want = ref_engine.generate_batch(prompts, max_generated_tokens=8)
+    old = _set_env("GEMMA_FUSED_DECODE", "0")
+    try:
+        engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                        kv_kind="i8"))
+        outs, timing = counted_generate(
+            "4M i8 KV", engine, "top1", "i8", 8, kv="i8",
+            dec={"kv_write_i8": L, "decode_attend_i8": L})
+        check_same_tokens(torch, ref_engine, prompts, outs, want, cfg, "4M")
+        timed_runs(torch, engine, prompts, 8, "4M", timing)
+        profile_chunks(torch, engine, prompts, label="4M")
+        for kv in ("bf16", "f32"):
+            counted_generate(f"4M {kv} KV", GemmaEngine(
+                params, cfg, RuntimeConfig(seq_len=8192, kv_kind=kv)),
+                "top1", "i8", 4, kv=kv,
+                dec={f"kv_write_{kv}": L, f"decode_attend_{kv}": L})
+    finally:
+        _set_env("GEMMA_FUSED_DECODE", old)
+
+    # --- N ---
+    ref_engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192))
+    want = ref_engine.generate_batch(prompts, max_generated_tokens=8)
+    old = _set_env("GEMMA_SBLOCK_DECODE", "1")
+    try:
+        engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192))
+        blocks = {da._s_block(engine.new_cache(1), i) for i in range(L)}
+        print(f"[4N] S blocks of the bf16 pools: {sorted(blocks)}", flush=True)
+        outs, timing = counted_generate(
+            "4N bf16 KV", engine, "top1", "i8", 8,
+            dec={"decode_sblocked_bf16": L})
+        check_same_tokens(torch, ref_engine, prompts, outs, want, cfg, "4N")
+        timed_runs(torch, engine, prompts, 8, "4N", timing)
+        profile_chunks(torch, engine, prompts, label="4N")
+        counted_generate("4N f32 KV", GemmaEngine(
+            params, cfg, RuntimeConfig(seq_len=8192, kv_kind="f32")),
+            "top1", "i8", 4, kv="f32", dec={"decode_sblocked_f32": L})
+        engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8191,
+                                                        kv_kind="i8"))
+        cache = engine.new_cache(1)
+        n_sb = sum(da._s_block(cache, i) is not None for i in range(L))
+        print(f"[4N] i8 KV at seq_len 8191: {n_sb} layers with S blocks "
+              f"(s_alloc {cache.kv.shape[4]}), {L - n_sb} one-shot (local "
+              f"s_alloc {cache.kv_local.shape[4]})", flush=True)
+        if not 0 < n_sb < L:
+            fail("path N: the i8 pools do not mix S-blocked and one-shot")
+        counted_generate("4N i8 KV", engine, "top1", "i8", 4, kv="i8",
+                         dec={"decode_sblocked_i8": n_sb,
+                              "decode_write_attend_i8": L - n_sb})
+    finally:
+        _set_env("GEMMA_SBLOCK_DECODE", old)
+    del params, engine, ref_engine
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,28 +1,44 @@
-// Fused decode attention over a KV ring for Hopper (sm_90a): K4.
+// Decode attention over a KV ring for Hopper (sm_90a): K4, K8, K9, K10
+// and K11 of the port.
 //
-// Replaces gemma_tpu/ops/decode_attention.py:_decode_fused_packed_kernel
-// over an i8 pool (called through _decode_fused_packed_q_pallas) and over
-// a bf16 or f32 pool (_decode_fused_packed_pallas).  Per batch row b and
-// KV head h, from the qkv GEMM's f32 row (q heads kv-major, then
-// per-KV-head interleaved K, V):
-//   1. optional (1 + w) RMSNorms of k and q, RoPE or half-RoPE (query
-//      scale folded in as _pe_apply does), then the new K and V rows in
-//      the pool's type, written in place at ring row pos % ring (or the
-//      garbage row `ring` for an invalid slot): i8 codes (scale =
-//      amax/127, inv = 0 when the scale is 0, codes rounded half to even)
-//      with their scale lanes, or the rows rounded to bf16, or as they are;
+// Replaces, in gemma_tpu/ops/decode_attention.py:
+//   K4  _decode_fused_packed_kernel (:545), over an i8 pool (through
+//       _decode_fused_packed_q_pallas) and a bf16 or f32 pool
+//       (_decode_fused_packed_pallas): decode_attention_<kind>_kernel;
+//   K8  _decode_fused_kernel (:386; _decode_fused_pallas :949 and
+//       _decode_fused_q_pallas :1081 without s_block):
+//       decode_write_attend_<kind>_kernel;
+//   K9  _kv_write_kernel (:61) and _kv_write_q_kernel (:104):
+//       kv_write_<kind>_kernel;
+//   K10 _decode_att_kernel (:212; _decode_att_pallas, _decode_att_q_pallas):
+//       decode_attend_<kind>_kernel;
+//   K11 _decode_fused_sblocked_kernel (:739; the s_block variants of the
+//       two K8 callers): decode_sblocked_<kind>_kernel.
+//
+// K4, K8 and K10 share one body.  Per batch row b and KV head h:
+//   1. the new K and V rows: from the fused qkv row (K4) or from the split
+//      q / kv GEMMs' outputs through their strides (K8), raw f32 rows that
+//      get optional (1 + w) RMSNorms of k and q, RoPE or half-RoPE (query
+//      scale folded in as _pe_apply does) and become the pool's type: i8
+//      codes (scale = amax/127, inv = 0 when the scale is 0, codes rounded
+//      half to even) with their scale lanes, or rows rounded to bf16, or
+//      as they are.  K8 also takes pre-encoded rows (pe_mode -1): q as
+//      given, the rows already in the pool's type, i8 scales from `nsc`.
+//      The row is written in place at ring row pos % ring, or at the
+//      garbage row `ring` for an invalid slot.  K10 has no new row;
 //   2. attention of the G query heads over the ring with the new row
 //      substituted: scores q . k (times scale_k for i8), soft cap, window
 //      mask, an exact softmax (pass 1 finds each row's max and
 //      denominator, pass 2 recomputes the scores), probabilities (times
-//      scale_v for i8) rounded to the compute type before the V product,
-//      bf16 out [B, H*D].  The compute type is f32 for an f32 pool and
-//      bf16 otherwise (decode_attention.py:662-663): q, the new row and the
-//      probabilities round to it.
+//      scale_v for i8) rounded to the compute type before the V product.
+//      The compute type is f32 for an f32 pool and bf16 otherwise
+//      (decode_attention.py:487-488): q, the new row and the probabilities
+//      round to it.  Output bf16 [B, H*D] (K4) or f32 [B, H, D] (K8, K10),
+//      heads kv-major.
 // Rows the mask rules out (outside the window, or never written yet) are
 // skipped: the walk covers absolute positions
 // max(pos-window+1, pos-ring+1, 0)..pos.  No panel is staged whole, so
-// this kernel serves every ring length.
+// these kernels serve every ring length.
 //
 // Design: one thread-block cluster of CL = 8 blocks per (b, h), 16 warps
 // each; warp w of rank r takes every 128th live position from r*16 + w.
@@ -32,14 +48,29 @@
 // and every block substitutes it in-compute where s == row, so no block
 // reads a row another block is writing.
 //
-// What bounds it on an H100: bytes.  Per call it must read the live K and
-// V rows, 2*D*sizeof(T) bytes per live row per (b, h) (+ 8 for i8's
-// scales), plus the qkv row and the output; at B=4, 4 KV heads, D=256 and
-// 700 live rows that is 5.8 MB (i8), 11.5 MB (bf16) or 23 MB (f32) ->
-// 1.7, 3.4 or 6.9 us at 3.35 TB/s.  This design reads K twice and runs
-// B*KVH*8 blocks; a single online-softmax pass is left for later.  Built
-// with -fmad=false so RoPE and the norms round like the plain version's
-// separate multiplies and adds.
+// K11: one block per (b, h, S block of `bs` rows); blocks past the live
+// frontier min(pos, ring-1) / bs return at once, so the reads follow the
+// ring's occupancy.  A block finds its rows' max m (pass 1), then sums
+// e = exp(score - m) of the ok rows (s), the new row's share apart (er),
+// and the panel rows' e (times scale_v for i8) rounded to the compute
+// type times V (acc).  The last live block of (b, h) to finish (an atomic
+// ticket, as K3 merges) combines the partials with weights exp(m_j - M),
+// a block with no ok row weighing 0, normalizes once by max(s, 1e-30) and
+// adds the new row's V times its share (times scale_v, rounded to the
+// compute type).  Block j = 0 writes the row.
+//
+// K9: one block per (b, k/v, h) copies the pool-typed row (and its scale)
+// to the ring row; nothing else of the pool moves.
+//
+// What bounds them on an H100: bytes.  Per call the attention kernels
+// must read the live K and V rows, 2*D*sizeof(T) bytes per live row per
+// (b, h) (+ 8 for i8's scales), plus q, the new rows and the output; at
+// B=4, 4 KV heads, D=256 and 700 live rows that is 5.8 MB (i8), 11.5 MB
+// (bf16) or 23 MB (f32) -> 1.7, 3.4 or 6.9 us at 3.35 TB/s.  These designs
+// read K twice and are latency-bound at decode sizes; a single
+// online-softmax pass is left for later.  Built with -fmad=false so RoPE
+// and the norms round like the plain version's separate multiplies and
+// adds.
 
 #include <cooperative_groups.h>
 
@@ -47,6 +78,7 @@
 
 using namespace gemma;
 
+// K4's arguments: the fused qkv row per slot.
 struct DecArgs {
   const float* qkv;     // [B, (heads + 2*kvh) * D]
   const float* inv_ts;  // [D/2] (rope) or [D/4] (half rope)
@@ -59,6 +91,34 @@ struct DecArgs {
   __nv_bfloat16* out;   // [B, heads*D]
   int n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode;
   float qscale, att_cap;
+};
+
+// K8's, K10's and K11's arguments: q and the new rows from the split
+// GEMMs.
+struct SplitArgs {
+  const float* q;       // slot b's heads*D query values at q + b*q_bs
+  const void* knew;     // new K row of (b, h) at knew + b*new_bs + h*new_hs,
+  const void* vnew;     //   and V: f32 with pe_mode >= 0, the pool's type
+                        //   with pe_mode -1; null: no new row (K10)
+  const float* nsc;     // [B, 2, KVH] scales of pre-encoded i8 rows, or null
+  const float* inv_ts;  // [D/2] (rope) or [D/4] (half rope), or null
+  const float* knorm;   // [D] or null
+  const float* qnorm;   // [D] or null
+  void* pool;
+  float* scales;
+  const int* pos;
+  const bool* valid;
+  float* out;           // [B, heads, D]
+  int q_bs, new_bs, new_hs;
+  int n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode;
+  float qscale, att_cap;
+};
+
+// The new row of (b, h) after step 1: its ring row (-1: none) and, for
+// i8, its K and V scales.
+struct NewRow {
+  int row;
+  float sk, sv;
 };
 
 template <int NW, bool MAX>
@@ -141,8 +201,164 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
-template <typename T, int D, int G>
-__device__ __forceinline__ void decode_attention_body(const DecArgs& p) {
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// The (b, l, k/v, h) panel index of the pool, times s_alloc * D for its
+// first element.
+template <typename Args>
+__device__ __forceinline__ size_t panel_of(const Args& p, int b, int kv, int h) {
+  return (((size_t)b * p.n_layers + p.layer) * 2 + kv) * p.kvh + h;
+}
+
+// Step 1 for slot b, KV head h: q (G rows) into sq, rounded to the compute
+// type; the new K and V rows into sk and sv, encoded and in the pool's
+// type (i8: codes as floats), written to the pool by the `writer` block.
+// Every thread of the block calls it.  K4's, from the fused qkv row:
+template <typename T, int D, int G, int NW>
+__device__ __forceinline__ NewRow encode_rows(const DecArgs& p, int b, int h,
+                                              bool writer, float* sk,
+                                              float* sv, float* sq,
+                                              float* red) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  const int tid = threadIdx.x;
+  const size_t row_len = (size_t)(p.heads + 2 * p.kvh) * D;
+  const float* qkv = p.qkv + b * row_len;
+  if (tid < D) {
+    sk[tid] = qkv[(size_t)(p.heads + 2 * h) * D + tid];
+    sv[tid] = qkv[(size_t)(p.heads + 2 * h + 1) * D + tid];
+  }
+  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = qkv[(size_t)h * G * D + i];
+  __syncthreads();
+
+  const int pos = p.pos[b];
+  if (p.knorm != nullptr) norm_row<D, NW>(sk, p.knorm, red);
+  rope_rows<D>(sk, 1, pos, p.inv_ts, p.pe_mode, 1.0f);
+  if (p.qnorm != nullptr)
+    for (int g = 0; g < G; ++g) norm_row<D, NW>(sq + g * D, p.qnorm, red);
+  rope_rows<D>(sq, G, pos, p.inv_ts, p.pe_mode, p.qscale);
+
+  const size_t plane = (size_t)p.s_alloc * D;  // one (b, l, kv, h) panel
+  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
+  T* kpan = static_cast<T*>(p.pool) + kbase * plane;
+  T* vpan = static_cast<T*>(p.pool) + vbase * plane;
+  const int row = (p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring;
+  float new_sk = 1.f, new_sv = 1.f;  // the new row's scales (i8)
+  if constexpr (kQuant) {
+    const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
+    const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
+    new_sk = ka / 127.0f;
+    new_sv = va / 127.0f;
+    if (tid < D) {
+      sk[tid] = rintf(sk[tid] * (new_sk > 0.f ? 1.0f / new_sk : 0.f));
+      sv[tid] = rintf(sv[tid] * (new_sv > 0.f ? 1.0f / new_sv : 0.f));
+    }
+    if (writer && tid == 0) {
+      p.scales[kbase * p.s_alloc + row] = new_sk;
+      p.scales[vbase * p.s_alloc + row] = new_sv;
+    }
+  } else if (tid < D) {
+    sk[tid] = cdt_round<T>(sk[tid]);  // the row in the pool's type
+    sv[tid] = cdt_round<T>(sv[tid]);
+  }
+  if (tid < D && writer) {
+    kpan[(size_t)row * D + tid] = from_f32<T>(sk[tid]);
+    vpan[(size_t)row * D + tid] = from_f32<T>(sv[tid]);
+  }
+  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = cdt_round<T>(sq[i]);
+  __syncthreads();
+  return {row, new_sk, new_sv};
+}
+
+// K8's, K10's and K11's, from q and the rows through their strides, or
+// pre-encoded; K10 has no new row.
+template <typename T, int D, int G, int NW>
+__device__ __forceinline__ NewRow encode_rows(const SplitArgs& p, int b,
+                                              int h, bool writer, float* sk,
+                                              float* sv, float* sq,
+                                              float* red) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  const int tid = threadIdx.x;
+  const bool has_new = p.knew != nullptr;
+  if (has_new && tid < D) {
+    const size_t at = (size_t)b * p.new_bs + (size_t)h * p.new_hs + tid;
+    if (p.pe_mode >= 0) {
+      sk[tid] = static_cast<const float*>(p.knew)[at];
+      sv[tid] = static_cast<const float*>(p.vnew)[at];
+    } else {
+      sk[tid] = to_f32(static_cast<const T*>(p.knew)[at]);
+      sv[tid] = to_f32(static_cast<const T*>(p.vnew)[at]);
+    }
+  }
+  const float* q = p.q + (size_t)b * p.q_bs + (size_t)h * G * D;
+  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = q[i];
+  __syncthreads();
+
+  const int pos = p.pos[b];
+  if (p.pe_mode >= 0) {
+    if (has_new) {
+      if (p.knorm != nullptr) norm_row<D, NW>(sk, p.knorm, red);
+      rope_rows<D>(sk, 1, pos, p.inv_ts, p.pe_mode, 1.0f);
+    }
+    if (p.qnorm != nullptr)
+      for (int g = 0; g < G; ++g) norm_row<D, NW>(sq + g * D, p.qnorm, red);
+    rope_rows<D>(sq, G, pos, p.inv_ts, p.pe_mode, p.qscale);
+  }
+
+  NewRow nr = {-1, 1.f, 1.f};
+  if (has_new) {
+    nr.row = (p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring;
+    const size_t kp = panel_of(p, b, 0, h), vp = panel_of(p, b, 1, h);
+    if constexpr (kQuant) {
+      if (p.pe_mode >= 0) {
+        const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
+        const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
+        nr.sk = ka / 127.0f;
+        nr.sv = va / 127.0f;
+        if (tid < D) {
+          sk[tid] = rintf(sk[tid] * (nr.sk > 0.f ? 1.0f / nr.sk : 0.f));
+          sv[tid] = rintf(sv[tid] * (nr.sv > 0.f ? 1.0f / nr.sv : 0.f));
+        }
+      } else {
+        nr.sk = p.nsc[((size_t)b * 2 + 0) * p.kvh + h];
+        nr.sv = p.nsc[((size_t)b * 2 + 1) * p.kvh + h];
+      }
+      if (writer && tid == 0) {
+        p.scales[kp * p.s_alloc + nr.row] = nr.sk;
+        p.scales[vp * p.s_alloc + nr.row] = nr.sv;
+      }
+    } else if (p.pe_mode >= 0 && tid < D) {
+      sk[tid] = cdt_round<T>(sk[tid]);  // the row in the pool's type
+      sv[tid] = cdt_round<T>(sv[tid]);
+    }
+    if (writer && tid < D) {
+      T* pool = static_cast<T*>(p.pool);
+      pool[(kp * p.s_alloc + nr.row) * D + tid] = from_f32<T>(sk[tid]);
+      pool[(vp * p.s_alloc + nr.row) * D + tid] = from_f32<T>(sv[tid]);
+    }
+  }
+  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = cdt_round<T>(sq[i]);
+  __syncthreads();
+  return nr;
+}
+
+__device__ __forceinline__ void store_out(const DecArgs& p, size_t at, float o) {
+  p.out[at] = __float2bfloat16_rn(o);
+}
+__device__ __forceinline__ void store_out(const SplitArgs& p, size_t at, float o) {
+  p.out[at] = o;
+}
+
+// The absolute position ring row s holds, given the newest position pos
+// (pm = pos % ring): pos - ((pm - s) mod ring).
+__device__ __forceinline__ int key_abs(int pos, int pm, int s, int ring) {
+  const int d = (pm - s) % ring;
+  return pos - (d < 0 ? d + ring : d);
+}
+
+template <typename T, int D, int G, typename Args>
+__device__ __forceinline__ void decode_attention_body(const Args& p) {
   namespace cg = cooperative_groups;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   cg::cluster_group cluster = cg::this_cluster();
@@ -159,55 +375,18 @@ __device__ __forceinline__ void decode_attention_body(const DecArgs& p) {
   __shared__ float cm[G], cl[G];  // this block's pass-1 max and denominator
   __shared__ float part[G * D];   // this block's share of the output
 
-  const size_t row_len = (size_t)(p.heads + 2 * p.kvh) * D;
-  const float* qkv = p.qkv + b * row_len;
-  if (tid < D) {
-    sk[tid] = qkv[(size_t)(p.heads + 2 * h) * D + tid];
-    sv[tid] = qkv[(size_t)(p.heads + 2 * h + 1) * D + tid];
-  }
-  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = qkv[(size_t)h * G * D + i];
-  __syncthreads();
-
   // Every block of the cluster encodes the new row (cheap: D values);
   // rank 0 writes it, and every block substitutes it where s == row
   // instead of reading the panel, so no block waits for another's write.
+  const NewRow nr = encode_rows<T, D, G, NW>(p, b, h, rank == 0, sk, sv, sq,
+                                             red);
+  const int row = nr.row;
+  const float new_sk = nr.sk, new_sv = nr.sv;  // the new row's scales (i8)
   const int pos = p.pos[b];
-  if (p.knorm != nullptr) norm_row<D, NW>(sk, p.knorm, red);
-  rope_rows<D>(sk, 1, pos, p.inv_ts, p.pe_mode, 1.0f);
-  if (p.qnorm != nullptr)
-    for (int g = 0; g < G; ++g) norm_row<D, NW>(sq + g * D, p.qnorm, red);
-  rope_rows<D>(sq, G, pos, p.inv_ts, p.pe_mode, p.qscale);
-
   const size_t plane = (size_t)p.s_alloc * D;  // one (b, l, kv, h) panel
-  const size_t kbase = ((((size_t)b * p.n_layers + p.layer) * 2 + 0) * p.kvh + h);
-  const size_t vbase = ((((size_t)b * p.n_layers + p.layer) * 2 + 1) * p.kvh + h);
+  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
   T* kpan = static_cast<T*>(p.pool) + kbase * plane;
   T* vpan = static_cast<T*>(p.pool) + vbase * plane;
-  const int row = (p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring;
-  float new_sk = 1.f, new_sv = 1.f;  // the new row's scales (i8)
-  if constexpr (kQuant) {
-    const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
-    const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
-    new_sk = ka / 127.0f;
-    new_sv = va / 127.0f;
-    if (tid < D) {
-      sk[tid] = rintf(sk[tid] * (new_sk > 0.f ? 1.0f / new_sk : 0.f));
-      sv[tid] = rintf(sv[tid] * (new_sv > 0.f ? 1.0f / new_sv : 0.f));
-    }
-    if (rank == 0 && tid == 0) {
-      p.scales[kbase * p.s_alloc + row] = new_sk;
-      p.scales[vbase * p.s_alloc + row] = new_sv;
-    }
-  } else if (tid < D) {
-    sk[tid] = cdt_round<T>(sk[tid]);  // the row in the pool's type
-    sv[tid] = cdt_round<T>(sv[tid]);
-  }
-  if (tid < D && rank == 0) {
-    kpan[(size_t)row * D + tid] = from_f32<T>(sk[tid]);
-    vpan[(size_t)row * D + tid] = from_f32<T>(sv[tid]);
-  }
-  for (int i = tid; i < G * D; i += blockDim.x) sq[i] = cdt_round<T>(sq[i]);
-  __syncthreads();
 
   float qr[G][DPL];
 #pragma unroll
@@ -333,51 +512,66 @@ __device__ __forceinline__ void decode_attention_body(const DecArgs& p) {
       float o = 0.f;
       for (int r = 0; r < CL; ++r) o += cluster.map_shared_rank(part, r)[g * D + tid];
       if (!(l[g] > 0.f)) o = 0.f;
-      p.out[(size_t)b * p.heads * D + (size_t)(h * G + g) * D + tid] = __float2bfloat16_rn(o);
+      store_out(p, (size_t)b * p.heads * D + (size_t)(h * G + g) * D + tid, o);
     }
   }
   cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
 }
 
-// One kernel name per pool type, so a profiler trace tells them apart.
-template <int D, int G>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
-    decode_attention_i8_kernel(DecArgs p) {
-  decode_attention_body<int8_t, D, G>(p);
-}
-template <int D, int G>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
-    decode_attention_bf16_kernel(DecArgs p) {
-  decode_attention_body<__nv_bfloat16, D, G>(p);
-}
-template <int D, int G>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32)
-    decode_attention_f32_kernel(DecArgs p) {
-  decode_attention_body<float, D, G>(p);
-}
+// One kernel name per entry and pool type, so a profiler trace tells them
+// apart.
+#define GEMMA_DEC_KERNEL(NAME, T, ARGS)                                     \
+  template <int D, int G>                                                   \
+  __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32) \
+      NAME(ARGS p) {                                                        \
+    decode_attention_body<T, D, G>(p);                                      \
+  }
+GEMMA_DEC_KERNEL(decode_attention_i8_kernel, int8_t, DecArgs)
+GEMMA_DEC_KERNEL(decode_attention_bf16_kernel, __nv_bfloat16, DecArgs)
+GEMMA_DEC_KERNEL(decode_attention_f32_kernel, float, DecArgs)
+GEMMA_DEC_KERNEL(decode_write_attend_i8_kernel, int8_t, SplitArgs)
+GEMMA_DEC_KERNEL(decode_write_attend_bf16_kernel, __nv_bfloat16, SplitArgs)
+GEMMA_DEC_KERNEL(decode_write_attend_f32_kernel, float, SplitArgs)
+GEMMA_DEC_KERNEL(decode_attend_i8_kernel, int8_t, SplitArgs)
+GEMMA_DEC_KERNEL(decode_attend_bf16_kernel, __nv_bfloat16, SplitArgs)
+GEMMA_DEC_KERNEL(decode_attend_f32_kernel, float, SplitArgs)
+#undef GEMMA_DEC_KERNEL
 
-template <typename T, int D, int G>
-static void launch_dec(const DecArgs& p, int batch, cudaStream_t st) {
+// K4 (DecArgs); K8 (op 1) or K10 (op 2) (SplitArgs).
+template <typename T, int D, int G, typename Args>
+static void launch_dec(const Args& p, int op, int batch, cudaStream_t st) {
   const dim3 grid(batch * p.kvh * CL), block(dec_warps<G>() * 32);
-  if constexpr (std::is_same<T, int8_t>::value)
-    decode_attention_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
-  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    decode_attention_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
-  else
-    decode_attention_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+  if constexpr (std::is_same<Args, DecArgs>::value) {
+    if constexpr (std::is_same<T, int8_t>::value)
+      decode_attention_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
+    else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      decode_attention_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
+    else
+      decode_attention_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    if (op == 1) decode_write_attend_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
+    else decode_attend_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (op == 1) decode_write_attend_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
+    else decode_attend_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
+  } else {
+    if (op == 1) decode_write_attend_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+    else decode_attend_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+  }
 }
 
-template <typename T>
-static int dispatch_dec(const DecArgs& p, int batch, int d, int* launched,
-                        cudaStream_t st) {
+template <typename T, typename Args>
+static int dispatch_dec(const Args& p, int op, int batch, int d,
+                        int* launched, cudaStream_t st) {
   *launched = 0;
   const int g = p.heads / p.kvh;
-  if (d == 256 && g == 2) launch_dec<T, 256, 2>(p, batch, st);
-  else if (d == 256 && g == 1) launch_dec<T, 256, 1>(p, batch, st);
-  else if (d == 256 && g == 4) launch_dec<T, 256, 4>(p, batch, st);
-  else if (d == 128 && g == 2) launch_dec<T, 128, 2>(p, batch, st);
-  else if (d == 128 && g == 1) launch_dec<T, 128, 1>(p, batch, st);
-  else if (d == 128 && g == 4) launch_dec<T, 128, 4>(p, batch, st);
+  if (p.heads % p.kvh != 0) return (int)cudaErrorInvalidValue;
+  if (d == 256 && g == 2) launch_dec<T, 256, 2>(p, op, batch, st);
+  else if (d == 256 && g == 1) launch_dec<T, 256, 1>(p, op, batch, st);
+  else if (d == 256 && g == 4) launch_dec<T, 256, 4>(p, op, batch, st);
+  else if (d == 128 && g == 2) launch_dec<T, 128, 2>(p, op, batch, st);
+  else if (d == 128 && g == 1) launch_dec<T, 128, 1>(p, op, batch, st);
+  else if (d == 128 && g == 4) launch_dec<T, 128, 4>(p, op, batch, st);
   else return (int)cudaErrorInvalidValue;
   *launched = 1;
   return (int)cudaGetLastError();
@@ -393,7 +587,7 @@ extern "C" int gemma_decode_attention_i8(
   DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, scales, pos, valid, out,
                n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
                qscale, att_cap};
-  return dispatch_dec<int8_t>(p, batch, d, launched, st);
+  return dispatch_dec<int8_t>(p, 0, batch, d, launched, st);
 }
 
 extern "C" int gemma_decode_attention_bf16(
@@ -406,7 +600,7 @@ extern "C" int gemma_decode_attention_bf16(
   DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, nullptr, pos, valid, out,
                n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
                qscale, att_cap};
-  return dispatch_dec<__nv_bfloat16>(p, batch, d, launched, st);
+  return dispatch_dec<__nv_bfloat16>(p, 0, batch, d, launched, st);
 }
 
 extern "C" int gemma_decode_attention_f32(
@@ -418,5 +612,519 @@ extern "C" int gemma_decode_attention_f32(
   DecArgs p = {qkv, inv_ts, knorm, qnorm, pool, nullptr, pos, valid, out,
                n_layers, layer, kvh, heads, s_alloc, ring, window, pe_mode,
                qscale, att_cap};
-  return dispatch_dec<float>(p, batch, d, launched, st);
+  return dispatch_dec<float>(p, 0, batch, d, launched, st);
+}
+
+// K8's, K10's and K11's arguments: q [B, 1, heads, D] at batch stride
+// q_bs; the new rows through (new_bs, new_hs); out f32 [B, heads, D].
+static SplitArgs split_args(const float* q, const void* knew, const void* vnew,
+                          int new_bs, int new_hs, const float* nsc,
+                          const float* inv_ts, const float* knorm,
+                          const float* qnorm, void* pool, float* scales,
+                          const int* pos, const bool* valid, float* out,
+                          int n_layers, int layer, int kvh, int heads,
+                          int s_alloc, int ring, int window, int q_bs,
+                          int pe_mode, float qscale, float att_cap) {
+  SplitArgs p = {};
+  p.q = q; p.q_bs = q_bs;
+  p.knew = knew; p.vnew = vnew; p.new_bs = new_bs; p.new_hs = new_hs;
+  p.nsc = nsc; p.inv_ts = inv_ts; p.knorm = knorm; p.qnorm = qnorm;
+  p.pool = pool; p.scales = scales; p.pos = pos; p.valid = valid;
+  p.out = out;
+  p.n_layers = n_layers; p.layer = layer; p.kvh = kvh; p.heads = heads;
+  p.s_alloc = s_alloc; p.ring = ring; p.window = window; p.pe_mode = pe_mode;
+  p.qscale = qscale; p.att_cap = att_cap;
+  return p;
+}
+
+// K8: pe_mode 0 / 1 encodes in the kernel (inv_ts required, the rows
+// f32); -1 takes q and the rows pre-encoded (i8: nsc required).
+template <typename T>
+static int write_attend(const float* q, const void* knew, const void* vnew,
+                        int new_bs, int new_hs, const float* nsc,
+                        const float* inv_ts, const float* knorm,
+                        const float* qnorm, T* pool, float* scales,
+                        const int* pos, const bool* valid, float* out,
+                        int batch, int n_layers, int layer, int kvh, int heads,
+                        int s_alloc, int d, int ring, int window, int q_bs,
+                        int pe_mode, float qscale, float att_cap,
+                        int* launched, cudaStream_t st) {
+  *launched = 0;
+  if ((pe_mode >= 0) != (inv_ts != nullptr)) return (int)cudaErrorInvalidValue;
+  if (std::is_same<T, int8_t>::value &&
+      (scales == nullptr || (pe_mode < 0 && nsc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs p = split_args(q, knew, vnew, new_bs, new_hs, nsc, inv_ts,
+                               knorm, qnorm, pool, scales, pos, valid, out,
+                               n_layers, layer, kvh, heads, s_alloc, ring,
+                               window, q_bs, pe_mode, qscale, att_cap);
+  return dispatch_dec<T>(p, 1, batch, d, launched, st);
+}
+
+extern "C" int gemma_decode_write_attend_i8(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, int8_t* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, int* launched,
+    cudaStream_t st) {
+  return write_attend(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm,
+                      qnorm, pool, scales, pos, valid, out, batch, n_layers,
+                      layer, kvh, heads, s_alloc, d, ring, window, q_bs,
+                      pe_mode, qscale, att_cap, launched, st);
+}
+
+extern "C" int gemma_decode_write_attend_bf16(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, __nv_bfloat16* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, int* launched,
+    cudaStream_t st) {
+  return write_attend(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm,
+                      qnorm, pool, scales, pos, valid, out, batch, n_layers,
+                      layer, kvh, heads, s_alloc, d, ring, window, q_bs,
+                      pe_mode, qscale, att_cap, launched, st);
+}
+
+extern "C" int gemma_decode_write_attend_f32(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, float* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, int* launched,
+    cudaStream_t st) {
+  return write_attend(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm,
+                      qnorm, pool, scales, pos, valid, out, batch, n_layers,
+                      layer, kvh, heads, s_alloc, d, ring, window, q_bs,
+                      pe_mode, qscale, att_cap, launched, st);
+}
+
+// K10: q pre-encoded; no new row.
+template <typename T>
+static int attend(const float* q, const T* pool, const float* scales,
+                  const int* pos, float* out, int batch, int n_layers,
+                  int layer, int kvh, int heads, int s_alloc, int d, int ring,
+                  int window, int q_bs, float att_cap, int* launched,
+                  cudaStream_t st) {
+  *launched = 0;
+  if (std::is_same<T, int8_t>::value && scales == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const SplitArgs p = split_args(q, nullptr, nullptr, 0, 0, nullptr, nullptr,
+                               nullptr, nullptr, const_cast<T*>(pool),
+                               const_cast<float*>(scales), pos, nullptr, out,
+                               n_layers, layer, kvh, heads, s_alloc, ring,
+                               window, q_bs, -1, 1.0f, att_cap);
+  return dispatch_dec<T>(p, 2, batch, d, launched, st);
+}
+
+extern "C" int gemma_decode_attend_i8(
+    const float* q, const int8_t* pool, const float* scales, const int* pos,
+    float* out, int batch, int n_layers, int layer, int kvh, int heads,
+    int s_alloc, int d, int ring, int window, int q_bs, float att_cap,
+    int* launched, cudaStream_t st) {
+  return attend(q, pool, scales, pos, out, batch, n_layers, layer, kvh, heads,
+                s_alloc, d, ring, window, q_bs, att_cap, launched, st);
+}
+
+extern "C" int gemma_decode_attend_bf16(
+    const float* q, const __nv_bfloat16* pool, const float* scales,
+    const int* pos, float* out, int batch, int n_layers, int layer, int kvh,
+    int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    float att_cap, int* launched, cudaStream_t st) {
+  return attend(q, pool, scales, pos, out, batch, n_layers, layer, kvh, heads,
+                s_alloc, d, ring, window, q_bs, att_cap, launched, st);
+}
+
+extern "C" int gemma_decode_attend_f32(
+    const float* q, const float* pool, const float* scales, const int* pos,
+    float* out, int batch, int n_layers, int layer, int kvh, int heads,
+    int s_alloc, int d, int ring, int window, int q_bs, float att_cap,
+    int* launched, cudaStream_t st) {
+  return attend(q, pool, scales, pos, out, batch, n_layers, layer, kvh, heads,
+                s_alloc, d, ring, window, q_bs, att_cap, launched, st);
+}
+
+// ---------------------------------------------------------------------------
+// K9: the in-place ring-row write.
+// ---------------------------------------------------------------------------
+
+struct KvWriteArgs {
+  const void* rows;      // [B, 2, KVH, D] in the pool's type
+  const float* nsc;      // [B, 2, KVH] (i8), else null
+  void* pool;
+  float* scales;         // (i8), else null
+  const int* pos;
+  const bool* valid;
+  int n_layers, layer, kvh, s_alloc, d, ring;
+};
+
+// Block (b, k/v, h), flattened as the rows' [B, 2, KVH] index.
+template <typename T>
+__device__ __forceinline__ void kv_write_body(const KvWriteArgs& p) {
+  const int bkh = blockIdx.x;
+  const int h = bkh % p.kvh, kv = (bkh / p.kvh) % 2, b = bkh / (2 * p.kvh);
+  const int row = (p.valid == nullptr || p.valid[b]) ? p.pos[b] % p.ring : p.ring;
+  const size_t panel = (((size_t)b * p.n_layers + p.layer) * 2 + kv) * p.kvh + h;
+  const T* src = static_cast<const T*>(p.rows) + (size_t)bkh * p.d;
+  T* dst = static_cast<T*>(p.pool) + (panel * p.s_alloc + row) * p.d;
+  for (int i = threadIdx.x; i < p.d; i += blockDim.x) dst[i] = src[i];
+  if (p.scales != nullptr && threadIdx.x == 0)
+    p.scales[panel * p.s_alloc + row] = p.nsc[bkh];
+}
+
+__global__ void kv_write_i8_kernel(KvWriteArgs p) { kv_write_body<int8_t>(p); }
+__global__ void kv_write_bf16_kernel(KvWriteArgs p) { kv_write_body<__nv_bfloat16>(p); }
+__global__ void kv_write_f32_kernel(KvWriteArgs p) { kv_write_body<float>(p); }
+
+template <typename T>
+static int kv_write(const T* rows, const float* nsc, T* pool, float* scales,
+                    const int* pos, const bool* valid, int batch, int n_layers,
+                    int layer, int kvh, int s_alloc, int d, int ring,
+                    int* launched, cudaStream_t st) {
+  *launched = 0;
+  if (std::is_same<T, int8_t>::value != (scales != nullptr) ||
+      (scales != nullptr && nsc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const KvWriteArgs p = {rows, nsc, pool, scales, pos, valid, n_layers,
+                         layer, kvh, s_alloc, d, ring};
+  const dim3 grid(batch * 2 * kvh), block(128);
+  if constexpr (std::is_same<T, int8_t>::value)
+    kv_write_i8_kernel<<<grid, block, 0, st>>>(p);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    kv_write_bf16_kernel<<<grid, block, 0, st>>>(p);
+  else
+    kv_write_f32_kernel<<<grid, block, 0, st>>>(p);
+  *launched = 1;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gemma_kv_write_i8(
+    const int8_t* rows, const float* nsc, int8_t* pool, float* scales,
+    const int* pos, const bool* valid, int batch, int n_layers, int layer,
+    int kvh, int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
+  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
+                  kvh, s_alloc, d, ring, launched, st);
+}
+
+extern "C" int gemma_kv_write_bf16(
+    const __nv_bfloat16* rows, const float* nsc, __nv_bfloat16* pool,
+    float* scales, const int* pos, const bool* valid, int batch,
+    int n_layers, int layer, int kvh, int s_alloc, int d, int ring,
+    int* launched, cudaStream_t st) {
+  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
+                  kvh, s_alloc, d, ring, launched, st);
+}
+
+extern "C" int gemma_kv_write_f32(
+    const float* rows, const float* nsc, float* pool, float* scales,
+    const int* pos, const bool* valid, int batch, int n_layers, int layer,
+    int kvh, int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
+  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
+                  kvh, s_alloc, d, ring, launched, st);
+}
+
+// ---------------------------------------------------------------------------
+// K11: S-blocked write + attend with an online softmax across blocks.
+// ---------------------------------------------------------------------------
+
+struct SblockArgs {
+  SplitArgs d;
+  float* part;   // [B, KVH, nj, G, D + 4]: m, s, er, pad, then acc[D]
+  int* ticket;   // [B * KVH], zero between launches
+  int bs;        // rows per block; s_alloc % bs == 0
+};
+
+constexpr int SB_WARPS = 8;
+
+template <typename T, int D, int G>
+__device__ __forceinline__ void sblocked_body(const SblockArgs& a) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  constexpr int NW = SB_WARPS;
+  constexpr int DPL = D / 32;
+  const SplitArgs& p = a.d;
+  const int nj = p.s_alloc / a.bs;
+  const int j = blockIdx.x % nj;
+  const int bh = blockIdx.x / nj;
+  const int b = bh / p.kvh, h = bh % p.kvh;
+  const int pos = p.pos[b];
+  const int hi = min(pos, p.ring - 1) / a.bs;
+  if (j > hi) return;  // past the live frontier: nothing to read
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  __shared__ float sk[D], sv[D], sq[G * D];
+  __shared__ float red[32];
+  __shared__ float wm[NW][G], ws[NW][G], wr[NW][G];
+  __shared__ float acc_s[NW][G][D];
+  __shared__ int is_last;
+
+  const NewRow nr = encode_rows<T, D, G, NW>(p, b, h, j == 0, sk, sv, sq,
+                                             red);
+  const int row = nr.row;
+  const float new_sk = nr.sk, new_sv = nr.sv;
+  const size_t plane = (size_t)p.s_alloc * D;
+  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
+  const T* kpan = static_cast<const T*>(p.pool) + kbase * plane;
+  const T* vpan = static_cast<const T*>(p.pool) + vbase * plane;
+  const float* ksc = kQuant ? p.scales + kbase * p.s_alloc : nullptr;
+  const float* vsc = kQuant ? p.scales + vbase * p.s_alloc : nullptr;
+
+  float qr[G][DPL];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) qr[g][i] = sq[g * D + lane * DPL + i];
+
+  const int start = max(pos - p.window + 1, 0);
+  const int pm = pos % p.ring;
+  const int s0 = j * a.bs, s1 = s0 + a.bs;
+  const float cap = p.att_cap;
+  auto ok_row = [&](int s) {
+    if (s >= p.ring) return false;
+    const int ka = key_abs(pos, pm, s, p.ring);
+    return ka >= start && ka <= pos;
+  };
+  // The new row's score, like every other, is an f32 multiply-and-sum of
+  // q and the row in the compute type.
+  auto score = [&](int s, float* out_sc) {
+    float c[DPL];
+    if (s == row) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) c[i] = sk[lane * DPL + i];
+    } else {
+      const T* src = kpan + (size_t)s * D + lane * DPL;
+#pragma unroll
+      for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) d += qr[g][i] * c[i];
+      float v = warp_sum(d);
+      if constexpr (kQuant) v *= s == row ? new_sk : ksc[s];
+      if (cap != 0.f) v = cap * tanhf(v / cap);
+      out_sc[g] = v;
+    }
+  };
+
+  // Pass 1: the block's max over its ok rows.
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) m[g] = -INFINITY;
+  for (int s = s0 + warp; s < s1; s += NW) {
+    if (!ok_row(s)) continue;
+    float sc[G];
+    score(s, sc);
+#pragma unroll
+    for (int g = 0; g < G; ++g) m[g] = fmaxf(m[g], sc[g]);
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < G; ++g) wm[warp][g] = m[g];
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mm = -INFINITY;
+    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w][g]);
+    m[g] = mm;
+  }
+
+  // Pass 2: exp weights from the block max; the new row's apart.
+  float acc[G][DPL], ssum[G], er[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    ssum[g] = er[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
+  }
+  for (int s = s0 + warp; s < s1; s += NW) {
+    if (!ok_row(s)) continue;
+    float sc[G];
+    score(s, sc);
+    if (s == row) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float e = expf(sc[g] - m[g]);
+        ssum[g] += e;
+        er[g] += e;
+      }
+      continue;
+    }
+    float c[DPL];
+    const T* src = vpan + (size_t)s * D + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
+    const float sv_s = kQuant ? vsc[s] : 1.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float e = expf(sc[g] - m[g]);
+      ssum[g] += e;
+      const float w = cdt_round<T>(e * sv_s);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[g][i] += w * c[i];
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < G; ++g) { ws[warp][g] = ssum[g]; wr[warp][g] = er[g]; }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc_s[warp][g][lane * DPL + i] = acc[g][i];
+  __syncthreads();
+
+  float* mine = a.part + ((size_t)bh * nj + j) * G * (D + 4);
+  if (tid < G) {
+    float st = 0.f, rt = 0.f;
+    for (int w = 0; w < NW; ++w) { st += ws[w][tid]; rt += wr[w][tid]; }
+    mine[tid * (D + 4) + 0] = m[tid];
+    mine[tid * (D + 4) + 1] = st;
+    mine[tid * (D + 4) + 2] = rt;
+  }
+  if (tid < D) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float o = 0.f;
+      for (int w = 0; w < NW; ++w) o += acc_s[w][g][tid];
+      mine[g * (D + 4) + 4 + tid] = o;
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(a.ticket + bh, 1) == hi;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // The last live block of (b, h): combine blocks 0..hi.
+  const float* all = a.part + (size_t)bh * nj * G * (D + 4);
+  if (tid < D) {
+    const float nv = sv[tid];  // the new V in the pool's type (i8: codes)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = -INFINITY;
+      for (int jj = 0; jj <= hi; ++jj)
+        mx = fmaxf(mx, __ldcg(all + ((size_t)jj * G + g) * (D + 4)));
+      float st = 0.f, rt = 0.f, o = 0.f;
+      for (int jj = 0; jj <= hi; ++jj) {
+        const float* pj = all + ((size_t)jj * G + g) * (D + 4);
+        const float mj = __ldcg(pj);
+        if (mj == -INFINITY) continue;  // no ok row in block jj
+        const float w = expf(mj - mx);
+        st += __ldcg(pj + 1) * w;
+        rt += __ldcg(pj + 2) * w;
+        o += __ldcg(pj + 4 + tid) * w;
+      }
+      const float den = fmaxf(st, 1e-30f);
+      float pr = rt / den;
+      if constexpr (kQuant) pr *= new_sv;
+      o = o / den + cdt_round<T>(pr) * nv;
+      p.out[(size_t)b * p.heads * D + (size_t)(h * G + g) * D + tid] = o;
+    }
+  }
+  if (tid == 0) a.ticket[bh] = 0;
+}
+
+#define GEMMA_SBLOCK_KERNEL(NAME, T)                                        \
+  template <int D, int G>                                                   \
+  __global__ void __launch_bounds__(SB_WARPS * 32) NAME(SblockArgs a) {     \
+    sblocked_body<T, D, G>(a);                                              \
+  }
+GEMMA_SBLOCK_KERNEL(decode_sblocked_i8_kernel, int8_t)
+GEMMA_SBLOCK_KERNEL(decode_sblocked_bf16_kernel, __nv_bfloat16)
+GEMMA_SBLOCK_KERNEL(decode_sblocked_f32_kernel, float)
+#undef GEMMA_SBLOCK_KERNEL
+
+template <typename T, int D, int G>
+static void launch_sb(const SblockArgs& a, int batch, cudaStream_t st) {
+  const dim3 grid(batch * a.d.kvh * (a.d.s_alloc / a.bs)), block(SB_WARPS * 32);
+  if constexpr (std::is_same<T, int8_t>::value)
+    decode_sblocked_i8_kernel<D, G><<<grid, block, 0, st>>>(a);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    decode_sblocked_bf16_kernel<D, G><<<grid, block, 0, st>>>(a);
+  else
+    decode_sblocked_f32_kernel<D, G><<<grid, block, 0, st>>>(a);
+}
+
+template <typename T>
+static int sblocked(const float* q, const void* knew, const void* vnew,
+                    int new_bs, int new_hs, const float* nsc,
+                    const float* inv_ts, const float* knorm,
+                    const float* qnorm, T* pool, float* scales, const int* pos,
+                    const bool* valid, float* out, int batch, int n_layers,
+                    int layer, int kvh, int heads, int s_alloc, int d,
+                    int ring, int window, int q_bs, int pe_mode, float qscale,
+                    float att_cap, float* part, int* ticket, int s_block,
+                    int* launched, cudaStream_t st) {
+  *launched = 0;
+  if ((pe_mode >= 0) != (inv_ts != nullptr) || s_block <= 0 ||
+      s_alloc % s_block != 0 || heads % kvh != 0)
+    return (int)cudaErrorInvalidValue;
+  if (std::is_same<T, int8_t>::value &&
+      (scales == nullptr || (pe_mode < 0 && nsc == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  SblockArgs a;
+  a.d = split_args(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
+                   pool, scales, pos, valid, out, n_layers, layer, kvh, heads,
+                   s_alloc, ring, window, q_bs, pe_mode, qscale, att_cap);
+  a.part = part;
+  a.ticket = ticket;
+  a.bs = s_block;
+  const int g = heads / kvh;
+  if (d == 256 && g == 2) launch_sb<T, 256, 2>(a, batch, st);
+  else if (d == 256 && g == 1) launch_sb<T, 256, 1>(a, batch, st);
+  else if (d == 256 && g == 4) launch_sb<T, 256, 4>(a, batch, st);
+  else if (d == 128 && g == 2) launch_sb<T, 128, 2>(a, batch, st);
+  else if (d == 128 && g == 1) launch_sb<T, 128, 1>(a, batch, st);
+  else if (d == 128 && g == 4) launch_sb<T, 128, 4>(a, batch, st);
+  else return (int)cudaErrorInvalidValue;
+  *launched = 1;
+  return (int)cudaGetLastError();
+}
+
+// K11: K8's parameters, then the partials [B, KVH, s_alloc / s_block, G,
+// D + 4], the [B * KVH] tickets and the block's rows.
+extern "C" int gemma_decode_sblocked_i8(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, int8_t* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
+    int s_block, int* launched, cudaStream_t st) {
+  return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
+                  pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
+                  heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
+                  att_cap, part, ticket, s_block, launched, st);
+}
+
+extern "C" int gemma_decode_sblocked_bf16(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, __nv_bfloat16* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
+    int s_block, int* launched, cudaStream_t st) {
+  return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
+                  pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
+                  heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
+                  att_cap, part, ticket, s_block, launched, st);
+}
+
+extern "C" int gemma_decode_sblocked_f32(
+    const float* q, const void* knew, const void* vnew, int new_bs,
+    int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
+    const float* qnorm, float* pool, float* scales, const int* pos,
+    const bool* valid, float* out, int batch, int n_layers, int layer,
+    int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
+    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
+    int s_block, int* launched, cudaStream_t st) {
+  return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
+                  pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
+                  heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
+                  att_cap, part, ticket, s_block, launched, st);
 }

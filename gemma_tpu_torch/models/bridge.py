@@ -15,8 +15,9 @@ with arrays {"w": [N, K]}, kind "i4" with {"codes": u8 [N, Kp/2],
 `scale`).  JAX's layouts are taken as they are: the CUDA GEMMs read codes
 and dense weights row-major, the group scales as [N, K/128] and the
 tables at their padded row stride, so nothing is re-laid.  A
-layer carries either "qkv_cat" or the split "qkv1"/"qkv2", which are
-row-concatenated here (the port runs one qkv GEMM per layer).
+layer carries either "qkv_cat" or the split "qkv1"/"qkv2", and keeps
+what it carries: a split pair runs as two GEMMs and the split decode
+kernel, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ import torch
 from gemma_tpu_torch.models.configs import ModelConfig
 from gemma_tpu_torch.models.gemma import LayerParams, Params
 from gemma_tpu_torch.models.kv_cache import KVCache
-from gemma_tpu_torch.ops.matmul import (KINDS, QuantTensor, unknown_kind,
-                                        concat_rows)
+from gemma_tpu_torch.ops.matmul import KINDS, QuantTensor, unknown_kind
 from gemma_tpu_torch.utils.basics import resolve_device
 
 
@@ -57,22 +57,17 @@ def params_from_numpy(tree: dict, config: ModelConfig,
         return None if a is None else tensor_from_numpy(
             np.asarray(a, np.float32), device)
 
+    def quant(lt, name):
+        return None if lt.get(name) is None else quant_tensor_from_numpy(
+            lt[name], device)
+
     layers = []
     for lt in tree["layers"]:
-        if lt.get("qkv_cat") is not None:
-            qkv = quant_tensor_from_numpy(lt["qkv_cat"], device)
-        else:
-            qkv = concat_rows(quant_tensor_from_numpy(lt["qkv1"], device),
-                              quant_tensor_from_numpy(lt["qkv2"], device))
-            if qkv is None:
-                raise ValueError("qkv1 and qkv2 differ in kind, K or scale "
-                                 "and cannot become one qkv GEMM")
         layers.append(LayerParams(
-            qkv_cat=qkv,
-            att_w=quant_tensor_from_numpy(lt["att_w"], device),
-            gating1=quant_tensor_from_numpy(lt["gating1"], device),
-            gating2=quant_tensor_from_numpy(lt["gating2"], device),
-            linear=quant_tensor_from_numpy(lt["linear"], device),
+            qkv1=quant(lt, "qkv1"), qkv2=quant(lt, "qkv2"),
+            qkv_cat=quant(lt, "qkv_cat"), att_w=quant(lt, "att_w"),
+            gating1=quant(lt, "gating1"), gating2=quant(lt, "gating2"),
+            linear=quant(lt, "linear"),
             pre_att_norm=norm(lt["pre_att_norm"]),
             pre_ffw_norm=norm(lt["pre_ffw_norm"]),
             post_att_norm=norm(lt.get("post_att_norm")),

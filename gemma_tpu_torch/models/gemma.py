@@ -7,9 +7,11 @@ token step and returns (logits, (token, prob) or None; cache); the cache
 is updated in place.  Decode (T == 1) runs the fused layer: the pre-norms
 ride the GEMM prologues, the post-norms and residual adds the K1 epilogue
 pass, and QK norms + RoPE + the row write + attention run in the K4
-kernel.  The greedy head (return_logits="top1") is K3 and the top-k head
-of sampled decode (return_logits="topk") is K6, each with the final norm
-as its prologue.
+kernel over the fused qkv GEMM's row, or, for split q / kv weights (two
+GEMMs), in K8 (K11, or K9 + K10, under the JAX package's switches:
+ops/decode_attention.py).  The greedy head (return_logits="top1") is K3
+and the top-k head of sampled decode (return_logits="topk") is K6, each
+with the final norm as its prologue.
 Prefill keeps the composed path: plain-torch norms, RoPE and the cache
 scatter around the K1/K2 GEMMs and the K5 attention kernel.
 
@@ -32,7 +34,7 @@ from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig, \
 from gemma_tpu_torch.models.kv_cache import KVCache
 from gemma_tpu_torch.ops import ops
 from gemma_tpu_torch.ops.decode_attention import (
-    RopeSpec, decode_attention_write_packed)
+    RopeSpec, decode_attention_write, decode_attention_write_packed)
 from gemma_tpu_torch.ops.flash_attention import flash_prefill_attention
 from gemma_tpu_torch.ops.matmul import (QuantTensor, concat_rows, gated_ffn,
                                         matmul, matmul_top1, matmul_topk,
@@ -46,10 +48,14 @@ from gemma_tpu_torch.utils.basics import resolve_device
 class LayerParams:
     """One layer's weights (gemma/weights.h:93-269, post-Fixup).
 
-    The q and kv projections live row-concatenated in `qkv_cat`
-    [(heads + 2*kv_heads) * qkv_dim, model_dim], one GEMM per layer."""
+    The q and kv projections live either row-concatenated in `qkv_cat`
+    [(heads + 2*kv_heads) * qkv_dim, model_dim], one GEMM per layer, with
+    qkv1 and qkv2 None (the weights exist once), or split in qkv1 and
+    qkv2 with qkv_cat None: when they differ in kind, K or tensor scale,
+    or when the caller asks for the split layout."""
 
-    qkv_cat: QuantTensor
+    qkv1: QuantTensor | None  # [heads * qkv_dim, model_dim]
+    qkv2: QuantTensor | None  # [2 * kv_heads * qkv_dim, model_dim]
     att_w: QuantTensor      # [model_dim, heads * qkv_dim]
     gating1: QuantTensor    # [ff_hidden, model_dim]
     gating2: QuantTensor    # [ff_hidden, model_dim]
@@ -60,6 +66,7 @@ class LayerParams:
     post_ffw_norm: torch.Tensor | None = None
     key_norm: torch.Tensor | None = None
     query_norm: torch.Tensor | None = None
+    qkv_cat: QuantTensor | None = None
 
 
 @dataclasses.dataclass
@@ -107,13 +114,6 @@ def embed_tokens(embedding: QuantTensor, tokens: torch.Tensor,
     return rows * emb_scale
 
 
-def _position_encode(x, positions, inv_timescale, mul, post_qk):
-    pos = positions[..., None]  # broadcast over heads
-    if post_qk == PostQKType.HALF_ROPE:
-        return ops.half_rope(x, pos, inv_timescale, mul)
-    return ops.rope(x, pos, inv_timescale, mul)
-
-
 def transformer_layer(layer: LayerParams, layer_idx: int, x: torch.Tensor,
                       positions: torch.Tensor, cache: KVCache,
                       config: ModelConfig, prefix_end=0,
@@ -138,30 +138,43 @@ def transformer_layer(layer: LayerParams, layer_idx: int, x: torch.Tensor,
     window = config.attention_window_sizes[layer_idx]
     is_decode = t == 1 and isinstance(prefix_end, int) and prefix_end == 0
 
-    qkv_all = matmul(a_in, layer.qkv_cat, out_dtype=torch.float32,
-                     prologue_norm=pro)
-    if is_decode:
-        rope = RopeSpec(ts, int(lc.post_qk), query_scale,
-                        key_norm=layer.key_norm if lc.use_qk_norm else None,
-                        query_norm=layer.query_norm if lc.use_qk_norm
-                        else None)
-        att_flat = decode_attention_write_packed(
-            cache, layer_idx, qkv_all, positions, window, heads=heads,
-            att_cap=config.att_cap, valid=valid, rope=rope)
+    rope = RopeSpec(ts, int(lc.post_qk), query_scale,
+                    key_norm=layer.key_norm if lc.use_qk_norm else None,
+                    query_norm=layer.query_norm if lc.use_qk_norm else None)
+    att_flat = None  # [bt, heads*D] bf16 once attention ran
+    if layer.qkv_cat is not None:
+        qkv_all = matmul(a_in, layer.qkv_cat, out_dtype=torch.float32,
+                         prologue_norm=pro)
+        if is_decode:
+            att_flat = decode_attention_write_packed(
+                cache, layer_idx, qkv_all, positions, window, heads=heads,
+                att_cap=config.att_cap, valid=valid, rope=rope)
+        else:
+            q = qkv_all[:, :heads * qkv_dim]
+            kv = qkv_all[:, heads * qkv_dim:]
     else:
-        q = qkv_all[:, :heads * qkv_dim].reshape(b, t, heads, qkv_dim)
-        kv = qkv_all[:, heads * qkv_dim:].reshape(b, t, kv_heads, 2, qkv_dim)
+        # Split q and kv weights: two GEMMs, each with the pre-attention
+        # norm as its prologue (gemma.py:205-209).
+        q = matmul(a_in, layer.qkv1, out_dtype=torch.float32,
+                   prologue_norm=pro)
+        kv = matmul(a_in, layer.qkv2, out_dtype=torch.float32,
+                    prologue_norm=pro)
+    if att_flat is None:
+        q = q.reshape(b, t, heads, qkv_dim)
+        # qkv2's rows interleave K and V per KV head.
+        kv = kv.reshape(b, t, kv_heads, 2, qkv_dim)
         k, v = kv[..., 0, :], kv[..., 1, :]
-        if lc.use_qk_norm and layer.key_norm is not None:
-            k = ops.rms_norm(k, layer.key_norm)
-        k = _position_encode(k, positions, ts, 1.0, lc.post_qk)
-        if lc.use_qk_norm and layer.query_norm is not None:
-            q = ops.rms_norm(q, layer.query_norm)
-        q = _position_encode(q, positions, ts, query_scale, lc.post_qk)
-        cache.update(layer_idx, positions, k, v, valid=valid)
-        att = flash_prefill_attention(cache, layer_idx, q, positions, window,
-                                      att_cap=config.att_cap,
-                                      prefix_end=prefix_end)
+        if is_decode:
+            # K8 (or K11, or K9 + K10 under the JAX package's switches).
+            att = decode_attention_write(
+                cache, layer_idx, q, positions, k, v, window,
+                att_cap=config.att_cap, valid=valid, rope=rope)
+        else:
+            q, k = rope.apply_host(q, k, positions)
+            cache.update(layer_idx, positions, k, v, valid=valid)
+            att = flash_prefill_attention(cache, layer_idx, q, positions,
+                                          window, att_cap=config.att_cap,
+                                          prefix_end=prefix_end)
         att_flat = att.reshape(b * t, heads * qkv_dim).to(torch.bfloat16)
 
     post_att = layer.post_att_norm \
@@ -289,15 +302,18 @@ def _fixup_att_weights(qt: QuantTensor, heads: int, model_dim: int,
 
 
 def load_params(store, kind_override: str | None = None,
-                device=None) -> Params:
+                device=None, fuse_qkv: bool = True) -> Params:
     """Params on `device` (CUDA unless the caller names one) from an
     io.model_store.ModelStore, tensor for tensor as the JAX loader builds
     them.  kind_override transcodes every weight at load: "i8", "i4",
     "bf16" from any stream type, "nuq4" from NUQ streams.  Under "nuq4"
     `att_ein` loads as kind "nuq": its per-256 blocks do not survive the
     permutation to att_w when qkv_dim < 256, while the per-element byte
-    layout always does, so such a model mixes kinds per tensor.  The q and
-    kv projections are row-concatenated into `qkv_cat`."""
+    layout always does, so such a model mixes kinds per tensor.  With
+    fuse_qkv the q and kv projections are row-concatenated into `qkv_cat`
+    where they can be (same kind, K and tensor scale: `concat_rows`);
+    otherwise, or without fuse_qkv, they stay split in qkv1 / qkv2, as
+    the JAX loader keeps them (gemma.py:524-528)."""
     config: ModelConfig = store.config
     device = resolve_device(device)
 
@@ -330,12 +346,6 @@ def load_params(store, kind_override: str | None = None,
             q1 = _slice_rows(stacked, 0, w1_rows)
             q2 = _slice_rows(stacked, w1_rows,
                              w1_rows + 2 * kv_heads * qkv_dim)
-        qkv = concat_rows(q1, q2)
-        if qkv is None:
-            raise ValueError(
-                f"layer {i}: qkv1_w and qkv2_w differ in kind, K or scale "
-                "and cannot become one qkv GEMM")
-
         g1 = qt("gating1_w" + s)
         g2 = qt("gating2_w" + s)
         if g1 is None:
@@ -359,8 +369,12 @@ def load_params(store, kind_override: str | None = None,
                 att_w = _fixup_att_weights(att_ein, heads, config.model_dim,
                                            qkv_dim)
 
+        cat = concat_rows(q1, q2) if fuse_qkv else None
+        if cat is not None:
+            q1 = q2 = None
         layers.append(LayerParams(
-            qkv_cat=qkv, att_w=att_w, gating1=g1, gating2=g2,
+            qkv1=q1, qkv2=q2, qkv_cat=cat, att_w=att_w, gating1=g1,
+            gating2=g2,
             linear=qt("linear_w" + s),
             pre_att_norm=norm("pre_att_ns" + s),
             pre_ffw_norm=norm("pre_ff_ns" + s),

@@ -16,7 +16,7 @@ kind "i8" stores codes with per-(b, layer, k/v, head, row) f32 scales in
     kv_scale: [batch, n_layers, 2, kv_heads, 1, s_alloc]
 
 The pools are updated in place: the prefill scatter here and the decode
-kernel (ops/decode_attention.py) write rows into the existing tensors
+kernels (ops/decode_attention.py) write rows into the existing tensors
 rather than building new ones, which saves a copy of the cache per
 layer and step (the JAX package needs donation to get the same effect).
 """
@@ -71,6 +71,15 @@ class KVCache:
     @property
     def batch(self) -> int:
         return self.kv.shape[0]
+
+    @property
+    def s_alloc(self) -> int:
+        """Rows of the global pool: ring, garbage row and padding."""
+        return self.kv.shape[4]
+
+    @property
+    def garbage_row(self) -> int:
+        return self.seq_len  # first row past the global ring
 
     @classmethod
     def create(cls, config: ModelConfig, batch: int,

@@ -187,4 +187,8 @@ def all_kernels() -> list[Kernel]:
             decode_attention.DECODE_ATTENTION_F32,
             flash_attention.FLASH_ATTENTION_I8,
             flash_attention.FLASH_ATTENTION_BF16,
-            flash_attention.FLASH_ATTENTION_F32]
+            flash_attention.FLASH_ATTENTION_F32,
+            *decode_attention.DECODE_WRITE_ATTEND.values(),
+            *decode_attention.KV_WRITE.values(),
+            *decode_attention.DECODE_ATTEND.values(),
+            *decode_attention.DECODE_SBLOCKED.values()]

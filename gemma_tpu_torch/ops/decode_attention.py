@@ -1,42 +1,95 @@
-"""Fused KV-row write + single-token attention for decode (counterpart of
-gemma_tpu/ops/decode_attention.py:decode_attention_write_packed).
+"""Decode attention over the KV ring (counterpart of
+gemma_tpu/ops/decode_attention.py): five entry points, each a kernel of
+csrc/decode_attention.cu on CUDA tensors and its plain version below on
+CPU tensors.
 
-`decode_attention_write_packed` takes the fused qkv GEMM's f32 row per
-batch slot (q heads kv-major, then per-KV-head interleaved K, V), applies
-the QK norms and RoPE, writes the new K/V row into the ring in place in
-the pool's type (i8 codes with their scales, bf16 or f32; the garbage row
-for invalid slots), attends over the ring and returns the att_w GEMM's
-bf16 A-row [B, heads*D].  On CUDA tensors it launches the kernel of
-csrc/decode_attention.cu (K4) for the pool's type at every ring length;
-on CPU tensors it runs the plain version below.
+  - `decode_attention_write_packed` (K4): the fused qkv GEMM's f32 row
+    per batch slot (q heads kv-major, then per-KV-head interleaved K, V);
+    QK norms, RoPE, the new K/V row written into the ring in place in the
+    pool's type (i8 codes with their scales, bf16 or f32; the garbage row
+    for invalid slots), attention over the ring; returns the att_w GEMM's
+    bf16 A-row [B, heads*D].
+  - `decode_attention_write` (K8): the same from the split q / kv GEMMs,
+    q [B, 1, heads, D] and new K, V [B, 1, KVH, D]; with a RopeSpec the
+    norms, RoPE and the i8 quantization run in the kernel, without one q
+    and the rows come pre-encoded.  The new row's score and value come
+    from the kernel's registers, not the pool.  Returns f32
+    [B, 1, heads, D].  With GEMMA_SBLOCK_DECODE=1, and a block from
+    `pick_s_block`, it runs K11 instead: the same over S blocks with an
+    online softmax, reading only blocks at or below the live frontier.
+  - `kv_write_decode` (K9): the row write alone (i8 rows are quantized by
+    torch ops first, as the JAX package quantizes outside its kernel).
+  - `decode_attention` (K10): single-token attention, no write.
+
+GEMMA_FUSED_DECODE=0 sends `decode_attention_write` to the composed pair
+(RoPE and the QK norms in torch ops, then K9 and K10), and
+GEMMA_FUSED_DECODE=0, GEMMA_PACKED_DECODE=0 or GEMMA_SBLOCK_DECODE=1 send
+the packed call to the split one.  They are the JAX package's own
+switches, read where it reads them, with its defaults.  Its TPU-only exits
+do not carry over: no VMEM panel budget (no move to flash attention), no
+d % 128 rule, no compile probes; the kernels serve every ring length.
+The pool and its scales are updated in place.
 """
 
 from __future__ import annotations
+
+import functools
+import os
 
 import torch
 
 from gemma_tpu_torch.ops import _cuda
 from gemma_tpu_torch.ops import ops
-from gemma_tpu_torch.ops.attention import (attention_mask,
+from gemma_tpu_torch.ops.attention import (NEG_INF, attention_mask,
                                            dot_softmax_weighted_sum,
                                            dot_softmax_weighted_sum_q)
 from gemma_tpu_torch.ops.kv_quant import quantize_rows
 
+_P, _I, _F = _cuda.P, _cuda.I, _cuda.F
+_KINDS = {torch.int8: "i8", torch.bfloat16: "bf16", torch.float32: "f32"}
+
 DECODE_ATTENTION_I8 = _cuda.Kernel(
     "decode_attention_i8", "decode_attention.cu", "gemma_decode_attention_i8",
-    [_cuda.P] * 9 + [_cuda.I] * 10 + [_cuda.F, _cuda.F])
+    [_P] * 9 + [_I] * 10 + [_F, _F])
 # bf16 and f32 pools: the same entry without the scales pointer.
 DECODE_ATTENTION_BF16 = _cuda.Kernel(
     "decode_attention_bf16", "decode_attention.cu",
     "gemma_decode_attention_bf16",
-    [_cuda.P] * 8 + [_cuda.I] * 10 + [_cuda.F, _cuda.F])
+    [_P] * 8 + [_I] * 10 + [_F, _F])
 DECODE_ATTENTION_F32 = _cuda.Kernel(
     "decode_attention_f32", "decode_attention.cu",
     "gemma_decode_attention_f32",
-    [_cuda.P] * 8 + [_cuda.I] * 10 + [_cuda.F, _cuda.F])
+    [_P] * 8 + [_I] * 10 + [_F, _F])
 _KERNELS = {torch.int8: DECODE_ATTENTION_I8,
             torch.bfloat16: DECODE_ATTENTION_BF16,
             torch.float32: DECODE_ATTENTION_F32}
+
+
+def _per_kind(name: str, argtypes: list) -> dict:
+    """One Kernel per pool type; every kind's C entry has the same
+    parameters (the scale pointers are null for bf16 and f32 pools)."""
+    return {dt: _cuda.Kernel(f"{name}_{kind}", "decode_attention.cu",
+                             f"gemma_{name}_{kind}", argtypes)
+            for dt, kind in _KINDS.items()}
+
+
+# K8: q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm, pool,
+# scales, pos, valid, out; batch, n_layers, layer, kvh, heads, s_alloc, d,
+# ring, window, q_bs, pe_mode; qscale, att_cap.
+_WRITE_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 9 + [_I] * 11 + [_F, _F])
+DECODE_WRITE_ATTEND = _per_kind("decode_write_attend", _WRITE_ARGS)
+# K11: K8's parameters, then part, ticket, s_block.
+DECODE_SBLOCKED = _per_kind("decode_sblocked", _WRITE_ARGS + [_P, _P, _I])
+# K9: new, new_scales, pool, scales, pos, valid; batch, n_layers, layer,
+# kvh, s_alloc, d, ring.
+KV_WRITE = _per_kind("kv_write", [_P] * 6 + [_I] * 7)
+# K10: q, pool, scales, pos, out; batch, n_layers, layer, kvh, heads,
+# s_alloc, d, ring, window, q_bs; att_cap.
+DECODE_ATTEND = _per_kind("decode_attend", [_P] * 5 + [_I] * 10 + [_F])
+
+# K11's per-(batch, KV head) arrival counters, zero between launches (the
+# last block of each pair re-zeroes its own).
+_sblocked_tickets: dict[torch.device, torch.Tensor] = {}
 
 
 class RopeSpec:
@@ -55,52 +108,295 @@ class RopeSpec:
         pe = ops.half_rope if self.post_qk == 1 else ops.rope
         return pe(x, positions, self.inv_timescale, mul)
 
+    def apply_host(self, q, k, positions):
+        """The QK norms and RoPE as torch ops (the composed path's
+        encoding): (q, k) for q [B, 1, heads, D], k [B, 1, KVH, D]."""
+        if self.key_norm is not None:
+            k = ops.rms_norm(k, self.key_norm)
+        if self.query_norm is not None:
+            q = ops.rms_norm(q, self.query_norm)
+        pos = positions[..., None]  # broadcast over heads
+        return self.encode(q, pos, self.query_scale), self.encode(k, pos, 1.0)
 
-def decode_attention_write_packed_plain(cache, layer_idx, qkv_all, positions,
-                                        window, heads, att_cap=0.0,
-                                        valid=None, rope: RopeSpec = None):
-    """K4's function in plain PyTorch (writes the cache in place)."""
-    pool, idx, ring = cache.pool(layer_idx)
-    sc = cache.pool_scale(layer_idx)
-    b = qkv_all.shape[0]
-    kvh, d = pool.shape[3], pool.shape[5]
-    q = qkv_all[:, :heads * d].reshape(b, 1, heads, d).float()
-    kvp = qkv_all[:, heads * d:].reshape(b, 1, kvh, 2, d).float()
-    k, v = kvp[..., 0, :], kvp[..., 1, :]
-    if rope.key_norm is not None:
-        k = ops.rms_norm(k, rope.key_norm)
-    if rope.query_norm is not None:
-        q = ops.rms_norm(q, rope.query_norm)
-    pos = positions[..., None]  # broadcast over heads
-    k = rope.encode(k, pos, 1.0)
-    q = rope.encode(q, pos, rope.query_scale)
 
+def _sublane(dtype: torch.dtype) -> int:
+    """The TPU's native sublane tile height for a pool dtype, which sizes
+    `pick_s_block`'s candidates (decode_attention.py:51)."""
+    return {2: 16, 1: 32, 4: 8}[dtype.itemsize]
+
+
+@functools.lru_cache(maxsize=None)
+def pick_s_block(s_alloc: int, sublane: int, row_bytes: int,
+                 min_dma: int = 64 << 10,
+                 lane_multiple: int | None = None) -> int | None:
+    """The S block of K11: a divisor of s_alloc, a multiple of `sublane`
+    (of `lane_multiple` for quantized pools), leaving at least 2 blocks;
+    the smallest whose K panel reaches `min_dma` bytes (row_bytes =
+    kv_heads * qkv_dim * itemsize), else the largest; None when there is
+    no such divisor.  The JAX package's rule (decode_attention.py:713-736),
+    kept so that both packages pick K11 or the one-shot K8 for the same
+    pool.  Cached: the JAX package computes it once per trace, the port
+    on every decode layer."""
+    step = lane_multiple or sublane
+    cands = [bs for bs in range(step, s_alloc, step)
+             if s_alloc % bs == 0 and s_alloc // bs >= 2]
+    if not cands:
+        return None
+    good = [bs for bs in cands if bs * row_bytes >= min_dma]
+    return min(good) if good else max(cands)
+
+
+def _s_block(cache, layer_idx: int) -> int | None:
+    pool = cache.pool(layer_idx)[0]
+    row_bytes = pool.shape[3] * pool.shape[5] * pool.dtype.itemsize
+    return pick_s_block(pool.shape[4], _sublane(pool.dtype), row_bytes,
+                        lane_multiple=128 if cache.quantized else None)
+
+
+def _fused() -> bool:
+    return os.environ.get("GEMMA_FUSED_DECODE", "1") != "0"
+
+
+def _sblocked() -> bool:
+    return os.environ.get("GEMMA_SBLOCK_DECODE", "0") == "1"
+
+
+# --- plain versions ---------------------------------------------------------
+
+
+def _ring_rows(positions, ring: int, valid) -> torch.Tensor:
+    """[B] ring row of each slot's new token; invalid slots get the
+    garbage row `ring`."""
     rows = torch.remainder(positions[:, 0].long(), ring)
-    if valid is not None:  # invalid slots write the garbage row
+    if valid is not None:
         rows = torch.where(valid[:, 0], rows, torch.full_like(rows, ring))
-    new = torch.stack([k[:, 0], v[:, 0]], dim=1)  # [B, 2, KVH, D]
-    if sc is not None:
-        new, scale = quantize_rows(new)
-    bi = torch.arange(b, device=pool.device)
+    return rows
+
+
+def _pool_rows(cache, new: torch.Tensor):
+    """[B, 2, KVH, D] rows -> (the rows in the pool's type, or i8 codes
+    with their f32 scales [B, 2, KVH]; None for unquantized pools)."""
+    if cache.quantized:
+        return quantize_rows(new)
+    return new.to(cache.kv.dtype), None
+
+
+def _write_rows_plain(cache, layer_idx, new, scale, rows) -> None:
+    """Write new [B, 2, KVH, D] (pool-typed) and scale [B, 2, KVH] at ring
+    row rows[b] of each batch slot, in place."""
+    pool, idx, _ = cache.pool(layer_idx)
+    sc = cache.pool_scale(layer_idx)
+    bi = torch.arange(new.shape[0], device=pool.device)
     for kv in range(2):
-        # The row is cast to the pool's type before it is used (:636-638).
         pool[:, idx, kv].permute(0, 2, 1, 3)[bi, rows] = \
             new[:, kv].to(pool.dtype)
         if sc is not None:
             sc[:, idx, kv, :, 0].permute(0, 2, 1)[bi, rows] = scale[:, kv]
 
-    s_alloc = pool.shape[4]
+
+def _decode_mask(positions, ring: int, window: int, s_alloc: int):
+    """[B, 1, s_alloc] attendable rows of a decode step: the ring's
+    window, none of the garbage or padding rows."""
     mask = attention_mask(positions, ring, window, 0)
-    mask = torch.cat([mask, torch.zeros(b, 1, s_alloc - ring, dtype=torch.bool,
+    return torch.cat([mask, torch.zeros(mask.shape[0], 1, s_alloc - ring,
+                                        dtype=torch.bool,
                                         device=mask.device)], dim=-1)
+
+
+def decode_attention_plain(cache, layer_idx, q, positions, window,
+                           att_cap=0.0):
+    """K10's function in plain PyTorch: f32 [B, 1, heads, D]."""
+    pool, idx, ring = cache.pool(layer_idx)
+    sc = cache.pool_scale(layer_idx)
+    mask = _decode_mask(positions, ring, window, pool.shape[4])
     if sc is None:
-        out = dot_softmax_weighted_sum(q, pool[:, idx, 0], pool[:, idx, 1],
-                                       mask, att_cap=att_cap)
-    else:
-        out = dot_softmax_weighted_sum_q(
-            q, pool[:, idx, 0], pool[:, idx, 1], sc[:, idx, 0, :, 0],
-            sc[:, idx, 1, :, 0], mask, att_cap=att_cap)
+        return dot_softmax_weighted_sum(q.float(), pool[:, idx, 0],
+                                        pool[:, idx, 1], mask,
+                                        att_cap=att_cap)
+    return dot_softmax_weighted_sum_q(
+        q.float(), pool[:, idx, 0], pool[:, idx, 1], sc[:, idx, 0, :, 0],
+        sc[:, idx, 1, :, 0], mask, att_cap=att_cap)
+
+
+def decode_attention_write_packed_plain(cache, layer_idx, qkv_all, positions,
+                                        window, heads, att_cap=0.0,
+                                        valid=None, rope: RopeSpec = None):
+    """K4's function in plain PyTorch (writes the cache in place): K8's
+    on the row's q, k and v, as bf16 [B, heads*D]."""
+    pool = cache.pool(layer_idx)[0]
+    b = qkv_all.shape[0]
+    kvh, d = pool.shape[3], pool.shape[5]
+    q = qkv_all[:, :heads * d].reshape(b, 1, heads, d)
+    kvp = qkv_all[:, heads * d:].reshape(b, 1, kvh, 2, d)
+    out = decode_attention_write_plain(
+        cache, layer_idx, q, positions, kvp[..., 0, :], kvp[..., 1, :],
+        window, att_cap, valid, rope)
     return out.reshape(b, heads * d).to(torch.bfloat16)
+
+
+def kv_write_decode_plain(cache, layer_idx, positions, k, v, valid=None):
+    """K9's function in plain PyTorch: the rows in the pool's type (i8:
+    quantized, with their scales) at each slot's ring row, in place."""
+    new, scale = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
+    _write_rows_plain(cache, layer_idx, new, scale,
+                      _ring_rows(positions, cache.pool(layer_idx)[2], valid))
+
+
+def decode_attention_write_plain(cache, layer_idx, q, positions, k, v,
+                                 window, att_cap=0.0, valid=None,
+                                 rope: RopeSpec | None = None):
+    """K8's function in plain PyTorch: encode, write, attend.  The kernel
+    substitutes the new row's score and value in-compute instead of
+    reading the pool back; the numbers differ only by the order of f32
+    sums (the JAX suite holds the two to 2e-5)."""
+    if rope is not None:
+        q, k = rope.apply_host(q.float(), k.float(), positions)
+    kv_write_decode_plain(cache, layer_idx, positions, k, v, valid)
+    return decode_attention_plain(cache, layer_idx, q, positions, window,
+                                 att_cap)
+
+
+def decode_attention_write_sblocked_plain(cache, layer_idx, q, positions, k,
+                                          v, window, s_block: int,
+                                          att_cap=0.0, valid=None,
+                                          rope: RopeSpec | None = None):
+    """K11's function in plain PyTorch (decode_attention.py:739-928):
+    the row written as K8 writes it, then an online softmax over S blocks
+    of `s_block` rows up to the live frontier min(pos, ring - 1) //
+    s_block.  Per block, from the running max m: alpha = 0 while m is
+    -inf, exp weights of the ok rows, the new row's share `er` kept apart
+    from the panel rows (its score an f32 multiply-and-sum of q and the
+    new K), scale_v on the panel rows only, the panel weights rounded to
+    the compute type before the V product; one normalization at the end
+    by max(s, 1e-30), plus the new row's V times its rounded share."""
+    if rope is not None:
+        q, k = rope.apply_host(q.float(), k.float(), positions)
+    pool, idx, ring = cache.pool(layer_idx)
+    sc = cache.pool_scale(layer_idx)
+    new, scale = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
+    rows = _ring_rows(positions, ring, valid)
+    _write_rows_plain(cache, layer_idx, new, scale, rows)
+
+    b, _, heads, d = q.shape
+    kvh = pool.shape[3]
+    g = heads // kvh
+    cdt = torch.float32 if pool.dtype == torch.float32 else torch.bfloat16
+    qh = q.reshape(b, kvh, g, d).float().to(cdt).float()
+    nk = new[:, 0].to(cdt).float()  # [B, KVH, D]
+    nv = new[:, 1].to(cdt).float()
+    new_score = (qh * nk[:, :, None, :]).sum(-1)  # [B, KVH, G]
+    pos = positions[:, 0].long()
+    start = torch.clamp(pos - (window - 1), min=0)
+    hi = torch.clamp(pos, max=ring - 1) // s_block
+    dev = q.device
+    m = torch.full((b, kvh, g), -torch.inf, device=dev)
+    s = torch.zeros(b, kvh, g, device=dev)
+    er = torch.zeros(b, kvh, g, device=dev)
+    acc = torch.zeros(b, kvh, g, d, device=dev)
+    # Every block in turn, those past a slot's frontier masked out (no
+    # host sync: the plain version is graph-captured on the card too).
+    for j in range(pool.shape[4] // s_block):
+        blk = slice(j * s_block, (j + 1) * s_block)
+        live = (j <= hi)[:, None, None]
+        sa = torch.arange(j * s_block, (j + 1) * s_block, device=dev)
+        key_abs = pos[:, None] - torch.remainder(
+            torch.remainder(pos, ring)[:, None] - sa, ring)
+        ok = ((key_abs >= start[:, None]) & (key_abs <= pos[:, None])
+              & (sa < ring))[:, None, None, :]  # [B, 1, 1, bs]
+        at = (sa[None] == rows[:, None])[:, None, None, :]
+        scores = torch.einsum("bkgd,bksd->bkgs", qh,
+                              pool[:, idx, 0, :, blk].to(cdt).float())
+        scores = torch.where(at, new_score[..., None], scores)
+        if sc is not None:
+            sck = torch.where(at[:, :, 0], scale[:, 0, :, None],
+                              sc[:, idx, 0, :, 0, blk])  # [B, KVH, bs]
+            scores = scores * sck[:, :, None, :]
+        if att_cap:
+            scores = ops.soft_cap(att_cap, scores)
+        scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(-1))
+        safe_m = torch.where(torch.isinf(m_new), torch.zeros_like(m_new),
+                             m_new)
+        alpha = torch.where(torch.isinf(m), torch.zeros_like(m),
+                            torch.exp(m - safe_m))
+        e = torch.where(ok, torch.exp(scores - safe_m[..., None]),
+                        torch.zeros_like(scores))
+        er_j = torch.where(at, e, torch.zeros_like(e)).sum(-1)
+        e_z = torch.where(at, torch.zeros_like(e), e)
+        if sc is not None:
+            e_z = e_z * sc[:, idx, 1, :, 0, blk][:, :, None, :]
+        part = torch.einsum("bkgs,bksd->bkgd", e_z.to(cdt).float(),
+                            pool[:, idx, 1, :, blk].to(cdt).float())
+        s = torch.where(live, alpha * s + e.sum(-1), s)
+        er = torch.where(live, alpha * er + er_j, er)
+        acc = torch.where(live[..., None], alpha[..., None] * acc + part, acc)
+        m = torch.where(live, m_new, m)
+    s_tot = torch.clamp(s, min=1e-30)
+    p_row = er / s_tot
+    if sc is not None:
+        p_row = p_row * scale[:, 1, :, None]
+    out = acc / s_tot[..., None] + p_row.to(cdt).float()[..., None] \
+        * nv[:, :, None, :]
+    return out.reshape(b, 1, heads, d)
+
+
+# --- the kernels' wrappers --------------------------------------------------
+
+
+def _pos_valid(positions, valid, b):
+    """positions [B, 1] -> contiguous int32; valid [B, 1] -> bool or None."""
+    pos = positions if positions.dtype == torch.int32 \
+        else positions.to(torch.int32)
+    pos = pos.contiguous()
+    _cuda.check(pos, "positions", torch.int32, (b, 1))
+    if valid is not None:
+        valid = valid.to(torch.bool).contiguous()
+        _cuda.check(valid, "valid", torch.bool, (b, 1))
+    return pos, valid
+
+
+def _q_operand(q, b, heads, d):
+    """q [B, 1, heads, D] f32 -> (q, its batch stride): any batch stride,
+    each slot's heads*D values contiguous (a column slice of the qkv row
+    is taken as it is)."""
+    if q.dtype != torch.float32:
+        q = q.float()
+    if tuple(q.shape) != (b, 1, heads, d):
+        raise ValueError(f"q must have shape {(b, 1, heads, d)}, "
+                         f"got {tuple(q.shape)}")
+    if q.stride(3) != 1 or q.stride(2) != d:
+        q = q.contiguous()
+    if not q.is_cuda:
+        raise ValueError("q must be a CUDA tensor")
+    return q, q.stride(0)
+
+
+def _pool_operands(cache, layer_idx, kernels):
+    pool, idx, ring = cache.pool(layer_idx)
+    sc = cache.pool_scale(layer_idx)
+    kernel = kernels.get(pool.dtype)
+    if kernel is None:
+        raise ValueError(f"no decode kernel for a {pool.dtype} pool")
+    _cuda.check(pool, "pool", pool.dtype)
+    b, n_layers, _, kvh, s_alloc, d = pool.shape
+    if pool.dtype == torch.int8:
+        _cuda.check(sc, "pool_scale", torch.float32,
+                    (b, n_layers, 2, kvh, 1, s_alloc))
+    return kernel, pool, sc, idx, ring
+
+
+def _rope_operands(rope, d):
+    if rope is None:
+        return None, None, None, -1, 1.0
+    its = rope.inv_timescale
+    _cuda.check(its, "inv_timescale", torch.float32,
+                (d // 4 if rope.post_qk == 1 else d // 2,))
+    for name, w in (("key_norm", rope.key_norm),
+                    ("query_norm", rope.query_norm)):
+        if w is not None:
+            _cuda.check(w, name, torch.float32, (d,))
+    return its, rope.key_norm, rope.query_norm, rope.post_qk, \
+        rope.query_scale
 
 
 def decode_attention_write_packed(cache, layer_idx, qkv_all, positions,
@@ -110,46 +406,153 @@ def decode_attention_write_packed(cache, layer_idx, qkv_all, positions,
 
     qkv_all [B, (heads + 2*kv_heads)*D] f32; positions [B, 1] int;
     valid [B, 1] bool or None.  Returns bf16 [B, heads*D]; the cache's
-    pool and scales are updated in place."""
+    pool and scales are updated in place.  Under GEMMA_FUSED_DECODE=0,
+    GEMMA_PACKED_DECODE=0 or GEMMA_SBLOCK_DECODE=1 the row is sliced into
+    q, k, v and goes to `decode_attention_write` (:1452-1474)."""
     if rope is None:
         raise ValueError("packed decode requires a RopeSpec")
+    if (not _fused() or _sblocked()
+            or os.environ.get("GEMMA_PACKED_DECODE", "1") == "0"):
+        pool = cache.pool(layer_idx)[0]
+        kvh, d = pool.shape[3], pool.shape[5]
+        b = qkv_all.shape[0]
+        q = qkv_all[:, :heads * d].reshape(b, 1, heads, d)
+        kvp = qkv_all[:, heads * d:].reshape(b, 1, kvh, 2, d)
+        out = decode_attention_write(
+            cache, layer_idx, q, positions, kvp[..., 0, :], kvp[..., 1, :],
+            window, att_cap=att_cap, valid=valid, rope=rope)
+        return out.reshape(b, heads * d).to(torch.bfloat16)
     if not qkv_all.is_cuda:
         return decode_attention_write_packed_plain(
             cache, layer_idx, qkv_all, positions, window, heads, att_cap,
             valid, rope)
-    pool, idx, ring = cache.pool(layer_idx)
-    sc = cache.pool_scale(layer_idx)
+    kernel, pool, sc, idx, ring = _pool_operands(cache, layer_idx, _KERNELS)
     b, n_layers, _, kvh, s_alloc, d = pool.shape
     _cuda.check(qkv_all, "qkv_all", torch.float32, (b, (heads + 2 * kvh) * d))
-    kernel = _KERNELS.get(pool.dtype)
-    if kernel is None:
-        raise ValueError(f"no decode attention kernel for a {pool.dtype} pool")
-    _cuda.check(pool, "pool", pool.dtype)
-    if kernel is DECODE_ATTENTION_I8:
-        _cuda.check(sc, "pool_scale", torch.float32,
-                    (b, n_layers, 2, kvh, 1, s_alloc))
-    its = rope.inv_timescale
-    _cuda.check(its, "inv_timescale", torch.float32,
-                (d // 4 if rope.post_qk == 1 else d // 2,))
-    for name, w in (("key_norm", rope.key_norm),
-                    ("query_norm", rope.query_norm)):
-        if w is not None:
-            _cuda.check(w, name, torch.float32, (d,))
+    its, kn, qn, pe_mode, qscale = _rope_operands(rope, d)
     # The kernel derives the ring row (pos % ring, or the garbage row) from
     # the positions and the valid mask itself: no per-layer index ops.
-    pos = positions if positions.dtype == torch.int32 \
-        else positions.to(torch.int32)
-    pos = pos.contiguous()
-    _cuda.check(pos, "positions", torch.int32, (b, 1))
-    if valid is not None:
-        valid = valid.to(torch.bool).contiguous()
-        _cuda.check(valid, "valid", torch.bool, (b, 1))
+    pos, valid = _pos_valid(positions, valid, b)
     out = torch.empty(b, heads * d, dtype=torch.bfloat16, device=pool.device)
     scales = () if sc is None else (sc.data_ptr(),)
     kernel.launch(
-        qkv_all.data_ptr(), its.data_ptr(), _cuda.ptr(rope.key_norm),
-        _cuda.ptr(rope.query_norm), pool.data_ptr(), *scales,
-        pos.data_ptr(), _cuda.ptr(valid), out.data_ptr(),
-        b, n_layers, idx, kvh, heads, s_alloc, d, ring, int(window),
-        rope.post_qk, rope.query_scale, float(att_cap))
+        qkv_all.data_ptr(), its.data_ptr(), _cuda.ptr(kn), _cuda.ptr(qn),
+        pool.data_ptr(), *scales, pos.data_ptr(), _cuda.ptr(valid),
+        out.data_ptr(), b, n_layers, idx, kvh, heads, s_alloc, d, ring,
+        int(window), pe_mode, qscale, float(att_cap))
+    return out
+
+
+def kv_write_decode(cache, layer_idx, positions, k, v, valid=None):
+    """Write one ring row per batch slot, in place (decode_attention.py:
+    176-204).  positions [B, 1]; k, v [B, 1, KVH, D] f32 (or bf16): cast
+    to the pool's type, or for an i8 pool quantized by `quantize_rows`
+    (torch ops), then written with their scales by K9.  Invalid slots
+    write the garbage row."""
+    if not k.is_cuda:
+        return kv_write_decode_plain(cache, layer_idx, positions, k, v, valid)
+    kernel, pool, sc, idx, ring = _pool_operands(cache, layer_idx, KV_WRITE)
+    b, n_layers, _, kvh, s_alloc, d = pool.shape
+    new, scale = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
+    _cuda.check(new, "k, v", pool.dtype, (b, 2, kvh, d))
+    pos, valid = _pos_valid(positions, valid, b)
+    kernel.launch(new.data_ptr(), _cuda.ptr(scale), pool.data_ptr(),
+                  _cuda.ptr(sc), pos.data_ptr(), _cuda.ptr(valid), b,
+                  n_layers, idx, kvh, s_alloc, d, ring)
+
+
+def decode_attention(cache, layer_idx, q, positions, window,
+                     att_cap=0.0) -> torch.Tensor:
+    """Single-token attention over the ring (decode_attention.py:
+    1713-1769), K10.  q [B, 1, heads, D] (RoPE'd and scaled); positions
+    [B, 1].  Returns f32 [B, 1, heads, D]."""
+    if not q.is_cuda:
+        return decode_attention_plain(cache, layer_idx, q, positions, window,
+                                      att_cap)
+    kernel, pool, sc, idx, ring = _pool_operands(cache, layer_idx,
+                                                 DECODE_ATTEND)
+    b, n_layers, _, kvh, s_alloc, d = pool.shape
+    heads = q.shape[2]
+    q, q_bs = _q_operand(q, b, heads, d)
+    pos, _ = _pos_valid(positions, None, b)
+    out = torch.empty(b, 1, heads, d, dtype=torch.float32, device=q.device)
+    kernel.launch(q.data_ptr(), pool.data_ptr(), _cuda.ptr(sc),
+                  pos.data_ptr(), out.data_ptr(), b, n_layers, idx, kvh,
+                  heads, s_alloc, d, ring, int(window), q_bs,
+                  float(att_cap))
+    return out
+
+
+def decode_attention_write(cache, layer_idx, q, positions, k, v, window,
+                           att_cap=0.0, valid=None,
+                           rope: RopeSpec | None = None) -> torch.Tensor:
+    """KV row write + single-token attention (decode_attention.py:
+    1595-1704).  q [B, 1, heads, D]; k, v [B, 1, KVH, D]; positions
+    [B, 1].  With `rope`, q and k arrive raw and the QK norms, RoPE and
+    the i8 row quantization run in the kernel; without it they come
+    pre-encoded.  Returns f32 [B, 1, heads, D] (heads kv-major); the
+    pool is updated in place.
+
+    GEMMA_FUSED_DECODE=0: RoPE in torch ops, then K9 and K10.
+    GEMMA_SBLOCK_DECODE=1 with a block from `pick_s_block`: K11.  Else
+    the one-shot K8."""
+    if not _fused():
+        if rope is not None:
+            q, k = rope.apply_host(q, k, positions)
+        kv_write_decode(cache, layer_idx, positions, k, v, valid=valid)
+        return decode_attention(cache, layer_idx, q, positions, window,
+                                att_cap=att_cap)
+    s_block = _s_block(cache, layer_idx) if _sblocked() else None
+    if not q.is_cuda:
+        if s_block is None:
+            return decode_attention_write_plain(
+                cache, layer_idx, q, positions, k, v, window, att_cap, valid,
+                rope)
+        return decode_attention_write_sblocked_plain(
+            cache, layer_idx, q, positions, k, v, window, s_block, att_cap,
+            valid, rope)
+
+    kernels = DECODE_WRITE_ATTEND if s_block is None else DECODE_SBLOCKED
+    kernel, pool, sc, idx, ring = _pool_operands(cache, layer_idx, kernels)
+    b, n_layers, _, kvh, s_alloc, d = pool.shape
+    heads = q.shape[2]
+    q, q_bs = _q_operand(q, b, heads, d)
+    its, kn, qn, pe_mode, qscale = _rope_operands(rope, d)
+    if rope is not None:
+        # Raw f32 rows as the kv GEMM left them: k and v may be views that
+        # interleave per KV head, read through their strides.
+        k, v = k.float(), v.float()
+        if k.stride() != v.stride():
+            k, v = k.contiguous(), v.contiguous()
+        for name, t in (("k", k), ("v", v)):
+            if not t.is_cuda or tuple(t.shape) != (b, 1, kvh, d) \
+                    or t.stride(3) != 1:
+                raise ValueError(f"{name} must be a CUDA [B, 1, KVH, D] "
+                                 "tensor with unit inner stride")
+        knew, vnew, nsc = k, v, None
+        new_bs, new_hs = k.stride(0), k.stride(2)
+    else:
+        new, nsc = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
+        _cuda.check(new, "k, v", pool.dtype, (b, 2, kvh, d))
+        knew, vnew = new[:, 0], new[:, 1]
+        new_bs, new_hs = 2 * kvh * d, d
+    pos, valid = _pos_valid(positions, valid, b)
+    out = torch.empty(b, 1, heads, d, dtype=torch.float32, device=q.device)
+    args = [q.data_ptr(), knew.data_ptr(), vnew.data_ptr(), new_bs, new_hs,
+            _cuda.ptr(nsc), _cuda.ptr(its), _cuda.ptr(kn), _cuda.ptr(qn),
+            pool.data_ptr(), _cuda.ptr(sc), pos.data_ptr(), _cuda.ptr(valid),
+            out.data_ptr(), b, n_layers, idx, kvh, heads, s_alloc, d, ring,
+            int(window), q_bs, pe_mode, qscale, float(att_cap)]
+    if s_block is not None:
+        nj = s_alloc // s_block
+        # Per (slot, KV head, block, query head): m, s, er, a pad, then the
+        # D partial sums.
+        part = torch.empty(b * kvh * nj * (heads // kvh) * (d + 4),
+                           dtype=torch.float32, device=q.device)
+        ticket = _sblocked_tickets.get(q.device)
+        if ticket is None or ticket.numel() < b * kvh:
+            ticket = _sblocked_tickets[q.device] = torch.zeros(
+                b * kvh, dtype=torch.int32, device=q.device)
+        args += [part.data_ptr(), ticket.data_ptr(), s_block]
+    kernel.launch(*args)
     return out

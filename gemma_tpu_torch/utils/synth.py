@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from gemma_tpu_torch.models.configs import LayerAttentionType, ModelConfig
-from gemma_tpu_torch.models.gemma import LayerParams, Params
+from gemma_tpu_torch.models.gemma import LayerParams, Params, _slice_rows
 from gemma_tpu_torch.ops.matmul import QuantTensor, sfp_decode, unknown_kind
 from gemma_tpu_torch.utils.basics import resolve_device, round_up
 
@@ -97,9 +97,12 @@ def synth_quant(gen: torch.Generator, n: int, k: int, device,
 
 
 def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
-                 device=None, embedding_rms: float = EMBEDDING_RMS) -> Params:
-    """Full Params with synthetic weights, qkv row-concatenated, on
-    `device` (CUDA unless the caller names one).
+                 device=None, embedding_rms: float = EMBEDDING_RMS,
+                 fuse_qkv: bool = True) -> Params:
+    """Full Params with synthetic weights on `device` (CUDA unless the
+    caller names one): the q and kv projections row-concatenated in
+    qkv_cat, or with fuse_qkv=False split into qkv1 / qkv2 (the rows of
+    the same draw, so both layouts hold the same weights).
 
     embedding_rms: the (tied) embedding rows' rms.  At the default the
     last prompt token's own logit leads every other by ~10, so decode
@@ -119,8 +122,14 @@ def synth_params(config: ModelConfig, kind: str = "i8", seed: int = 0,
         if lc.type != LayerAttentionType.GEMMA:
             continue
         h, kvh, q, ff = lc.heads, lc.kv_heads, lc.qkv_dim, lc.ff_hidden_dim
+        cat = synth_quant(gen, (h + 2 * kvh) * q, d, device, kind)
+        q1 = q2 = None
+        if not fuse_qkv:
+            q1, q2 = _slice_rows(cat, 0, h * q), _slice_rows(
+                cat, h * q, (h + 2 * kvh) * q)
+            cat = None
         layers.append(LayerParams(
-            qkv_cat=synth_quant(gen, (h + 2 * kvh) * q, d, device, kind),
+            qkv1=q1, qkv2=q2, qkv_cat=cat,
             att_w=synth_quant(gen, d, h * q, device, kind),
             gating1=synth_quant(gen, ff, d, device, kind),
             gating2=synth_quant(gen, ff, d, device, kind),

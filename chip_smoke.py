@@ -24,7 +24,11 @@ Phases (any failure exits non-zero before the result line):
      and over a bf16 pool at Gemma2-27B's (32/16 heads of 128); and the
      split-weight decode kernels at both head shapes: write + attend
      (in-kernel RoPE, and pre-encoded), the row write alone, attention
-     alone, and the S-blocked write + attend;
+     alone, and the S-blocked write + attend; the stacked GEMMs (K12:
+     qkv, att_w, linear and the gated GEMM on layers 0, 6 and 12 of 13
+     stacked Gemma2-2B layers for every kind, and i4 at Gemma2-27B widths
+     over 2), each timed beside the unstacked kernel on the same layer;
+     and the nuq4 gather diagnostic's three GEMMs (K13);
   3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
      plain path on the CPU, for i8, sfp, i4 and nuq4 weights, and for
@@ -85,9 +89,13 @@ Phases (any failure exits non-zero before the result line):
        N. GEMMA_SBLOCK_DECODE=1: K11;
      L, M and N each run two chunks under torch.profiler and one under
      sync debug mode "error";
+       O. GEMMA_SCAN_DECODE=1: the scan-over-layers decode, stacked GEMMs
+          (K12) and K8 (`phase_scan_path` says what it runs), with its
+          decode speed, device busy and idle share beside path A's;
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-N), then nvidia-smi's line, then the result line.
+     4A-O; the diagnostic's, on no path, 0), then nvidia-smi's line,
+     then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -156,6 +164,8 @@ def main() -> int:
     # line below carries each kernel's primary case and stays short.
     print("[5] cases " + json.dumps(
         {name: r["cases"] for name, r in results.items()}), flush=True)
+    print("[5] profiles taken again " + json.dumps(PROFILE_RETRIES),
+          flush=True)
     line = []
     for k in _cuda.all_kernels():
         r = results[k.name]
@@ -260,6 +270,9 @@ for _kind in ("i8", "bf16", "f32"):
         "codes and scales are two index_copy_ calls" if _kind == "i8" else
         "index_copy_ of the same rows at their flat indices (one call, "
         "indices made beforehand)")
+_INT4PACK_CALL = "torch._weight_int4pack_mm"
+_INT4PACK = (f"{_INT4PACK_CALL} on the same A in bf16 and the codes repacked "
+             "(zero = min + 8 * scale; no prologue, scale 1)")
 for _kind in WEIGHT_KINDS:
     _dense = _kind in ("bf16", "f32")
     _what = {"i8": "i8 group-quantized", "sfp": "SFP-coded",
@@ -275,11 +288,13 @@ for _kind in WEIGHT_KINDS:
         f"gemma_tpu/ops/matmul.py:1423 (_topk_kernel) with {_CODEC_OF[_kind]}")
     LIBRARY_NOTE[f"matmul_{_kind}"] = (
         "torch.nn.functional.linear on the same A and weights (no prologue, "
-        "scale 1)" if _dense else
+        "scale 1)" if _dense else _INT4PACK if _kind == "i4" else
         f"no single PyTorch call multiplies by {_what} weights")
     LIBRARY_NOTE[f"gated_{_kind}"] = (
         "gelu(linear(a, w1), approximate='tanh') * linear(a, w2), three "
         "PyTorch calls" if _dense else
+        f"gelu({_INT4PACK_CALL}(a, w1)) * {_INT4PACK_CALL}(a, w2), three "
+        "PyTorch calls on the same codes repacked" if _kind == "i4" else
         f"no single PyTorch call computes gelu(A.W1^T)*(A.W2^T) over {_what} "
         "weights")
     LIBRARY_NOTE[f"top1_{_kind}"] = (
@@ -291,32 +306,36 @@ for _kind in WEIGHT_KINDS:
         "unordered)")
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 2) -> float:
-    """Device time of one call of `fn`: `iters` calls captured in a CUDA
-    graph, replayed and timed with CUDA events, so host-side Python between
-    launches is not counted.  A call that cannot be captured fails the run."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (3 * iters)
+for _kind in WEIGHT_KINDS:
+    _dense = _kind in ("bf16", "f32")
+    REPLACES[f"matmul_stacked_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:768 (_b_inputs_stacked) feeding _mm_kernel "
+        f":577 through _matmul_pallas's stacked branch :847-900 (call :908), "
+        f"with {_CODEC_OF[_kind]}")
+    REPLACES[f"gated_stacked_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:768 (_b_inputs_stacked) feeding "
+        f"_gated_kernel :629 through _gated_pallas's stacked branch :944-990 "
+        f"(call :998), with {_CODEC_OF[_kind]}")
+    LIBRARY_NOTE[f"matmul_stacked_{_kind}"] = (
+        "torch.nn.functional.linear on the layer's w[t] view (no prologue)"
+        if _dense else "on layer t's weights: "
+        + LIBRARY_NOTE[f"matmul_{_kind}"] if _kind == "i4"
+        else LIBRARY_NOTE[f"matmul_{_kind}"])
+    LIBRARY_NOTE[f"gated_stacked_{_kind}"] = (
+        "gelu(linear(a, w1[t]), approximate='tanh') * linear(a, w2[t]), three "
+        "PyTorch calls" if _dense else "on layer t's weights: "
+        + LIBRARY_NOTE[f"gated_{_kind}"] if _kind == "i4"
+        else LIBRARY_NOTE[f"gated_{_kind}"])
+# K13: a standalone diagnostic, on no serving path.
+STANDALONE = {f"nuq_diag_{_v}" for _v in ("d1", "d2", "d3")}
+for _v, _what in (("d1", "codes read as int8"),
+                  ("d2", "codes zero-extended through int32"),
+                  ("d3", "table entries gathered per 128-chunk")):
+    REPLACES[f"nuq_diag_{_v}"] = (
+        f"scripts/proto_nuq_diag.py:26 (kern, pallas_call :64), variant "
+        f"{_v.upper()}")
+    LIBRARY_NOTE[f"nuq_diag_{_v}"] = (
+        f"no single PyTorch call multiplies bf16 A by {_what}")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -351,8 +370,63 @@ def weight_bytes(w) -> int:
     return w.arrays["codes"].numel() + w.n * (w.kp // 256) * 16
 
 
+def int4pack(torch, a, w, w2=None):
+    """The library call for an i4 GEMM: torch._weight_int4pack_mm (PyTorch's
+    bf16 x group-wise int4 GEMM, 128-wide groups; it dequantizes
+    (q - 8) * scale + zero) on A in bf16 and w's codes repacked, with zero
+    = min + 8 * scale; with w2, gelu(A.W^T) * (A.W2^T) in three calls.  No
+    norm pass and no tensor scale, as the dense kinds' F.linear.  Its
+    products times the tensor scales are held against the plain version
+    (bf16 products: 1e-2 of max|out|, 2e-2 for gelu(y1) * y2).  None, with the error printed,
+    where the card's torch refuses the op."""
+    import torch.nn.functional as F
+
+    from gemma_tpu_torch.ops import matmul as mm
+
+    def repack(w):
+        codes = mm.unpack_nuq4(w.arrays["codes"])  # [N, K] int32, 0..15
+        packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+        sc, mn = w.arrays["scales"], w.arrays["mins"]  # [N, K/128]
+        sz = torch.stack([sc.T, (mn + 8 * sc).T], dim=-1).to(
+            torch.bfloat16).contiguous()  # [K/128, N, 2]
+        return torch._convert_weight_to_int4pack(packed, 8), sz
+
+    a = a.to(torch.bfloat16)
+    try:
+        wp, sz = repack(w)
+        y1 = torch._weight_int4pack_mm(a, wp, 128, sz).float() * w.scale
+        if w2 is None:
+            fn = lambda: torch._weight_int4pack_mm(a, wp, 128, sz)  # noqa
+            got, want = y1, mm.matmul_plain(a, w)
+        else:
+            wp2, sz2 = repack(w2)
+            fn = lambda: F.gelu(  # noqa: E731
+                torch._weight_int4pack_mm(a, wp, 128, sz),
+                approximate="tanh") * torch._weight_int4pack_mm(
+                    a, wp2, 128, sz2)
+            y2 = torch._weight_int4pack_mm(a, wp2, 128, sz2).float()
+            got = F.gelu(y1, approximate="tanh") * (y2 * w2.scale)
+            want = mm.gated_ffn_plain(a, w, w2)
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        print(f"[2] torch._weight_int4pack_mm refused: "
+              f"{type(e).__name__}: {e}"[:400], flush=True)
+        return None
+    err = float((got - want.float()).abs().max())
+    tol = (1e-2 if w2 is None else 2e-2) * float(want.float().abs().max())
+    print(f"[2] library torch._weight_int4pack_mm M={a.shape[0]} "
+          f"K={a.shape[1]} N={w.n}{' gated' if w2 is not None else ''}: "
+          f"max_abs_err {err:.4g} against the plain version (tol "
+          f"{tol:.4g})", flush=True)
+    if err > tol:
+        fail("torch._weight_int4pack_mm does not compute the i4 GEMM's "
+             "function")
+    return fn
+
+
 def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
            ops, iters=20, primary=False, library=None):
+    from gemma_tpu_torch.ops._cuda import time_ms
+
     got = got.float()
     want = want.float()
     if not torch.isfinite(got).all():
@@ -360,9 +434,9 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
     err = float((got - want).abs().max())
     ok = err <= tol
     b_ms, b_by = bound(nbytes, ops)
-    k_ms = time_ms(torch, kern, iters)
-    p_ms = time_ms(torch, plain, max(3, iters // 4), warmup=1)
-    l_ms = None if library is None else time_ms(torch, library, iters)
+    k_ms = time_ms(kern, iters)
+    p_ms = time_ms(plain, max(3, iters // 4), warmup=1)
+    l_ms = None if library is None else time_ms(library, iters)
     lib = "" if l_ms is None else f"library {l_ms:.4f} ms "
     print(f"[2] {name:24s} {case:44s} max_abs_err {err:.4g} (tol {tol:.4g}) "
           f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms {lib}"
@@ -502,6 +576,8 @@ def phase_kernels(torch):
     del w_head
     phase_codecs(torch, res, cfg)
     phase_k7b(torch, res)
+    phase_k12(torch, res)
+    phase_k13(torch, res)
     phase_draw(torch, res, cfg)
 
     phase_attention(torch, res, cfg, ("i8", "bf16", "f32"))
@@ -877,6 +953,7 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
     as K1's do; closer pairs are capped ties, which either may break);
     probs within 1e-4 relative (the same exp sum in another order)."""
     from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.ops._cuda import time_ms
 
     n = cfg.vocab_size
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -949,7 +1026,7 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
     sweep = []
     for blocks in (264, 528, 1056, 2112, 4224):
         mm.TOP1_BLOCKS = blocks
-        sweep.append(f"{blocks}: {time_ms(torch, head, 5):.4f}")
+        sweep.append(f"{blocks}: {time_ms(head, 5):.4f}")
     mm.TOP1_BLOCKS = chosen
     print(f"[2] top1_{kind} prob, ms by TOP1_BLOCKS (the port uses {chosen}): "
           f"{', '.join(sweep)}", flush=True)
@@ -998,6 +1075,7 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
     import dataclasses
 
     from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.ops._cuda import time_ms
 
     name = f"topk_{kind}"
     n, d = cfg.vocab_size, cfg.model_dim
@@ -1065,7 +1143,7 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
     sweep = []
     for blocks in (132, 264, 528, 1056):
         mm.TOPK_BLOCKS = blocks
-        sweep.append(f"{blocks}: {time_ms(torch, head, 5):.4f}")
+        sweep.append(f"{blocks}: {time_ms(head, 5):.4f}")
     mm.TOPK_BLOCKS = chosen
     print(f"[2] {name} k_top=64, ms by TOPK_BLOCKS (the port uses {chosen}): "
           f"{', '.join(sweep)}", flush=True)
@@ -1141,7 +1219,7 @@ def phase_codecs(torch, res, cfg):
         # At decode the library call (dense kinds) is F.linear alone on the
         # normalized bf16 A and the same weights: no pass, no scale.
         w_qkv = quant(4096, d)
-        lib = None
+        lib = int4pack(torch, x_bf, w_qkv) if kind == "i4" else None
         if dense:
             a_lib = x_bf.to(w_qkv.arrays["w"].dtype)
             lib = lambda: F.linear(a_lib, w_qkv.arrays["w"])  # noqa: E731
@@ -1156,7 +1234,7 @@ def phase_codecs(torch, res, cfg):
         w_lin = quant(d, ff)
         a = randn(b, ff, s=3.0).to(torch.bfloat16)
         post, add = randn(d, s=0.05), randn(b, d, s=10.0)
-        lib = None
+        lib = int4pack(torch, a, w_lin) if kind == "i4" else None
         if dense:
             a_lin = a.to(w_lin.arrays["w"].dtype)
             lib = lambda: F.linear(a_lin, w_lin.arrays["w"])  # noqa: E731
@@ -1187,7 +1265,7 @@ def phase_codecs(torch, res, cfg):
                2 * m_pre * 4096 * d, iters=5, primary=dense, library=lib)
         del w_pre, w_qkv
         g1, g2 = quant(ff, d), quant(ff, d)
-        lib = None
+        lib = int4pack(torch, x_bf, g1, g2) if kind == "i4" else None
         if dense:
             a_g = x_bf.to(g1.arrays["w"].dtype)
             lib = lambda: F.gelu(F.linear(a_g, g1.arrays["w"]),  # noqa
@@ -1290,6 +1368,7 @@ def phase_k7b(torch, res):
         k_att = lc.heads * lc.qkv_dim
         x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
         post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+        x_bf = mm.prenorm(x, norm)  # the library calls' A
         w = synth_quant(gen, n_qkv, d, dev, kind)
         f = lambda: mm.matmul(x, w, prologue_norm=norm)  # noqa: E731
         p = lambda: mm.matmul_plain(x, w, prologue_norm=norm)  # noqa: E731
@@ -1298,7 +1377,8 @@ def phase_k7b(torch, res):
                f"{width} decode qkv M=4 K={d} N={n_qkv} (+prenorm pass)", f(),
                want, rel_tol(want, 1e-3), f, p,
                b * d * 4 + d * 4 + weight_bytes(w) + b * n_qkv * 4,
-               2 * b * n_qkv * d)
+               2 * b * n_qkv * d,
+               library=int4pack(torch, x_bf, w) if kind == "i4" else None)
         for name, k_in in (("att_w", k_att), ("linear", ff)):
             w = synth_quant(gen, d, k_in, dev, kind)
             a = randn(b, k_in, s=3.0).to(torch.bfloat16)
@@ -1310,7 +1390,8 @@ def phase_k7b(torch, res):
                    f"{width} decode {name} M=4 K={k_in} N={d} (+postnorm "
                    "pass)", f(), want, rel_tol(want, 1e-3), f, p,
                    b * k_in * 2 + weight_bytes(w) + 2 * b * d * 4,
-                   2 * b * d * k_in)
+                   2 * b * d * k_in,
+                   library=int4pack(torch, a, w) if kind == "i4" else None)
         g1 = synth_quant(gen, ff, d, dev, kind)
         g2 = synth_quant(gen, ff, d, dev, kind)
         f = lambda: mm.gated_ffn(x, g1, g2, prologue_norm=norm)  # noqa: E731
@@ -1319,7 +1400,8 @@ def phase_k7b(torch, res):
         record(res, torch, f"gated_{kind}",
                f"{width} decode M=4 K={d} N={ff} (+prenorm pass)", f(), want,
                rel_tol(want, 1e-2), f, p,
-               b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d)
+               b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
+               library=int4pack(torch, x_bf, g1, g2) if kind == "i4" else None)
         del g1, g2, w
         w_head = synth_quant(gen, n_vocab, d, dev, kind, rms=EMBEDDING_RMS)
         kw = dict(final_cap=cfg.final_cap, prologue_norm=norm)
@@ -1408,6 +1490,172 @@ def phase_k7b(torch, res):
     if err > tol or err_hot != 0.0:
         fail("matmul_nuq4 disagrees with its plain version on degenerate "
              "tables")
+
+
+def phase_k12(torch, res):
+    """K12, the stacked K1 and K2 (ops/matmul.py `matmul(..., layer=)`,
+    `gated_ffn(..., layer=)`), for every kind (nuq runs the sfp kernels) at
+    Gemma2-2B widths over T = 13 stacked layers, at layers t = 0, 6 and
+    12: the qkv GEMM with its prologue pass, att_w and linear with the
+    post-norm + residual pass, and the gated GEMM with its prologue; then
+    i4 at Gemma2-27B widths over T = 2, at t = 0 and 1.  Each is held
+    against its plain version (take_layer, then the unstacked plain
+    version) at K1's and K2's tolerances (1e-3 and 1e-2 of max|out|); the
+    middle layer is timed beside the unstacked kernel on that layer alone
+    ("unstacked_ms") and beside the library call on that layer: F.linear
+    on the w[t] view for bf16 and f32, torch._weight_int4pack_mm on its
+    repacked codes for i4 (`int4pack`)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from gemma_tpu_torch.models.configs import (config_gemma2_2b,
+                                                config_gemma2_27b)
+    from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.ops._cuda import time_ms
+    from gemma_tpu_torch.utils.synth import synth_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1212)
+    b = 4
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def stacked(n, k, kind, t_layers):
+        ws = [synth_quant(gen, n, k, dev, kind) for _ in range(t_layers)]
+        # One tensor scale across layers, as stacking needs (nuq4's synth
+        # scale is per tensor).
+        ws = [dataclasses.replace(w, scale=ws[0].scale) for w in ws]
+        return mm.stack_quant_tensors(ws)
+
+    for kind, cfg, t_layers, width in (
+            *((k, config_gemma2_2b(), 13, "2B") for k in
+              ("i8", "sfp", "nuq", "bf16", "f32", "i4", "nuq4")),
+            ("i4", config_gemma2_27b(), 2, "27B")):
+        codec = "sfp" if kind == "nuq" else kind
+        lc = cfg.layer_configs[0]
+        d, ff = cfg.model_dim, lc.ff_hidden_dim
+        n_qkv = (lc.heads + 2 * lc.kv_heads) * lc.qkv_dim
+        k_att = lc.heads * lc.qkv_dim
+        dense = kind in ("bf16", "f32")
+        ts = (0, t_layers // 2, t_layers - 1)
+        x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
+        post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+        a_att = randn(b, k_att, s=3.0).to(torch.bfloat16)
+        a_lin = randn(b, ff, s=3.0).to(torch.bfloat16)
+        x_bf = mm.prenorm(x, norm)
+        lib_a = x_bf if kind == "bf16" else x_bf.float()
+        cases = []
+        w = stacked(n_qkv, d, kind, t_layers)
+        cases.append((
+            "matmul", f"{width} {kind} qkv M=4 K={d} N={n_qkv} (+prenorm)",
+            w, None, lambda t, w=w: mm.matmul(x, w, prologue_norm=norm,
+                                              layer=t),
+            lambda t, w=w: mm.matmul_plain(x, mm.take_layer(w, t),
+                                           prologue_norm=norm),
+            lambda wl: mm.matmul(x, wl, prologue_norm=norm),
+            (lambda t, w=w: F.linear(lib_a, w.arrays["w"][t])) if dense
+            else None, x_bf, b * d * 4 + b * n_qkv * 4, 2 * b * n_qkv * d,
+            1e-3))
+        for name, a_in, k_in in (("att_w", a_att, k_att),
+                                 ("linear", a_lin, ff)):
+            w = stacked(d, k_in, kind, t_layers)
+            lib_in = a_in if kind == "bf16" else a_in.float()
+            cases.append((
+                "matmul", f"{width} {kind} {name} M=4 K={k_in} N={d} "
+                "(+postnorm)", w, None,
+                lambda t, w=w, a=a_in: mm.matmul(a, w, epilogue_norm=post,
+                                                 add=add, layer=t),
+                lambda t, w=w, a=a_in: mm.matmul_plain(
+                    a, mm.take_layer(w, t), epilogue_norm=post, add=add),
+                lambda wl, a=a_in: mm.matmul(a, wl, epilogue_norm=post,
+                                             add=add),
+                (lambda t, w=w, a=lib_in: F.linear(a, w.arrays["w"][t]))
+                if dense else None, a_in, b * k_in * 2 + 2 * b * d * 4,
+                2 * b * d * k_in, 1e-3))
+        g1, g2 = stacked(ff, d, kind, t_layers), stacked(ff, d, kind,
+                                                         t_layers)
+        cases.append((
+            "gated", f"{width} {kind} M=4 K={d} N={ff} (+prenorm)", g1, g2,
+            lambda t: mm.gated_ffn(x, g1, g2, prologue_norm=norm, layer=t),
+            lambda t: mm.gated_ffn_plain(x, mm.take_layer(g1, t),
+                                         mm.take_layer(g2, t),
+                                         prologue_norm=norm),
+            None,
+            (lambda t: F.gelu(F.linear(lib_a, g1.arrays["w"][t]),
+                              approximate="tanh")
+             * F.linear(lib_a, g2.arrays["w"][t])) if dense else None, x_bf,
+            b * d * 4 + b * ff * 2, 4 * b * ff * d, 1e-2))
+        for op, label, w, w2, kern, plain, unstacked, lib, a_lib, io_bytes, \
+                ops, rel in cases:
+            name = f"{op}_stacked_{codec}"
+            for t in ts:
+                if t == ts[1]:
+                    continue
+                want = plain(t)
+                err = float((kern(t).float() - want.float()).abs().max())
+                tol = rel * float(want.float().abs().max())
+                print(f"[2] {name:24s} {label} layer {t}/{t_layers}: "
+                      f"max_abs_err {err:.4g} (tol {tol:.4g})", flush=True)
+                if err > tol:
+                    fail(f"{name} [{label}] layer {t} disagrees with its "
+                         "plain version")
+            t = ts[1]
+            wl = mm.take_layer(w, t)
+            w2l = None if w2 is None else mm.take_layer(w2, t)
+            nbytes = io_bytes + weight_bytes(wl) * (1 if w2 is None else 2)
+            want = plain(t)
+            # The library call on layer t alone: F.linear on the w[t] view
+            # (dense kinds), torch._weight_int4pack_mm on its repacked codes
+            # (i4).
+            library = (int4pack(torch, a_lib, wl, w2l) if kind == "i4"
+                       else None if lib is None else (lambda: lib(t)))
+            record(res, torch, name, f"{label} layer {t}/{t_layers}",
+                   kern(t), want, rel * float(want.float().abs().max()),
+                   lambda: kern(t), lambda: plain(t), nbytes, ops,
+                   primary=width == "2B" and kind == codec
+                   and (op == "gated" or "qkv" in label),
+                   library=library)
+            if w2 is None:
+                u_ms = time_ms(lambda: unstacked(wl))
+            else:
+                u_ms = time_ms(lambda: mm.gated_ffn(
+                    x, wl, w2l, prologue_norm=norm))
+            res[name]["cases"][-1]["unstacked_ms"] = u_ms
+            print(f"[2] {name:24s} {label} layer {t}: unstacked kernel on "
+                  f"the layer alone {u_ms:.4f} ms", flush=True)
+        del cases, w, g1, g2
+        torch.cuda.empty_cache()
+
+
+def phase_k13(torch, res):
+    """K13, the nuq4 gather diagnostic (gemma_tpu_torch/ops/nuq_diag.py),
+    D1, D2 and D3 at its script's shape (M=16, K=2304, N=9216, codes
+    pre-offset below 128), and D1 and D2 again on codes over all 256
+    bytes, where they part; each against run_plain at K1's rule, 1e-3 of
+    max|out| (exact bf16 products, f32 sums in another order)."""
+    from gemma_tpu_torch.ops import nuq_diag as diag
+    from gemma_tpu_torch.scripts.proto_nuq_diag import make_inputs
+
+    m, k, n = 16, 2304, 9216
+    dev = torch.device("cuda")
+    a, codes, tables = make_inputs(m, k, n, dev)
+    full = torch.randint(0, 256, (n, k), dtype=torch.uint8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(13))
+    for variant in diag.VARIANTS:
+        for c, what in ((codes, "codes < 128"), (full, "codes 0..255")):
+            if variant == "D3" and c is full:
+                continue
+            f = lambda: diag.run(a, c, tables, variant)  # noqa: E731
+            p = lambda: diag.run_plain(a, c, tables, variant)  # noqa: E731
+            want = p()
+            nbytes = m * k * 2 + n * k + m * n * 4 + (
+                tables.numel() * 4 if variant == "D3" else 0)
+            record(res, torch, f"nuq_diag_{variant.lower()}",
+                   f"M={m} K={k} N={n} {what}", f(), want,
+                   1e-3 * float(want.abs().max()), f, p, nbytes,
+                   2 * m * n * k, primary=c is codes)
 
 
 def phase_draw(torch, res, cfg):
@@ -1828,6 +2076,9 @@ def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
 # attention kernels carry their weight or pool type in their names).
 def _port_kernel(device_name: str) -> str | None:
     for kind in WEIGHT_KINDS:
+        if device_name.startswith(f"void mm_stacked_{kind}_kernel<"):
+            return f"gated_stacked_{kind}" if "true>" in device_name \
+                else f"matmul_stacked_{kind}"
         if device_name.startswith(f"void mm_{kind}_kernel<"):
             return f"gated_{kind}" if "true>" in device_name \
                 else f"matmul_{kind}"
@@ -1837,7 +2088,10 @@ def _port_kernel(device_name: str) -> str | None:
     for fn, name in (("prenorm_kernel(", "matmul_prenorm"),
                      ("postnorm_add_kernel(", "matmul_postnorm_add"),
                      ("topk_merge_kernel(", "topk_merge"),
-                     ("draw_topk_kernel(", "draw_topk")):
+                     ("draw_topk_kernel(", "draw_topk"),
+                     ("nuq_diag_d1_kernel(", "nuq_diag_d1"),
+                     ("nuq_diag_d2_kernel(", "nuq_diag_d2"),
+                     ("nuq_diag_d3_kernel(", "nuq_diag_d3")):
         if fn in device_name:
             return name
     for kind in ("i8", "bf16", "f32"):
@@ -1848,6 +2102,24 @@ def _port_kernel(device_name: str) -> str | None:
     return None
 
 
+# Profiles taken again because the tracer dropped device records, printed
+# before the `kernels` line: {path, attempt, missing, orphan_launches}.
+PROFILE_RETRIES: list[dict] = []
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def orphan_launches(torch, prof) -> int:
+    """Runtime kernel-launch records of the profiled window whose
+    correlation id no device record carries: launches that ran (the
+    runtime saw them) but whose device record the tracer dropped."""
+    events = prof.profiler.kineto_results.events()
+    on_device = {e.correlation_id() for e in events
+                 if e.device_type() == torch.autograd.DeviceType.CUDA}
+    return sum(1 for e in events if e.name() in LAUNCH_CALLS
+               and e.correlation_id() not in on_device)
+
+
 def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
                    label: str = "4A"):
     """Device time by kernel over `chunks` decode chunks of k steps
@@ -1856,7 +2128,7 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
     device launches must equal what the launch counters gained over the
     same chunks.  One more chunk then runs with CUDA's sync debug mode
     set to error: a host sync inside a chunk fails the run."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from gemma_tpu_torch.ops import _cuda
 
@@ -1866,31 +2138,75 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
     pos = torch.tensor([len(p) - 1 for p in prompts], dtype=torch.int32,
                        device="cuda")
     torch.cuda.synchronize()
-    before = {kn.name: kn.launches for kn in _cuda.all_kernels()}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(chunks):
+    # One chunk in the profiler's warm-up step first: device activity
+    # recorded while the tracer starts can be lost, and only the active
+    # step's events are read.  The tracer can also drop a run of device
+    # records (seen on an H100 now and then: kineto counts them out of
+    # the window while their runtime launch records stay).  A
+    # window whose trace lacks launches the counters saw is profiled
+    # again, at most three times, only when that second witness covers
+    # the shortfall: at least as many runtime launch records without a
+    # device record (by correlation id) as launches missing.  Each
+    # discarded profile is kept in PROFILE_RETRIES.
+    steps = chunks * k
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             toks, _ = engine._decode_steps(prev, pos, cache, k)
             prev, pos = toks[:, -1].contiguous(), pos + k
-        torch.cuda.synchronize()
-        wall = (time.monotonic() - t0) * 1e3
-    counted = {kn.name: kn.launches - before[kn.name]
-               for kn in _cuda.all_kernels()}
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    seen = {name: 0 for name in counted}
-    for e in kern:
-        name = _port_kernel(e.key)
-        if name is not None:
-            seen[name] += e.count
-    steps = chunks * k
-    print(f"[{label}] {chunks} chunks of {k}: launches by counter "
-          f"{json.dumps(counted)}, by profiler {json.dumps(seen)}",
-          flush=True)
-    if seen != counted:
-        fail("the launch counters disagree with the profiler's device trace")
+            torch.cuda.synchronize()
+            prof.step()
+            before = {kn.name: kn.launches for kn in _cuda.all_kernels()}
+            t0 = time.monotonic()
+            for _ in range(chunks):
+                toks, _ = engine._decode_steps(prev, pos, cache, k)
+                prev, pos = toks[:, -1].contiguous(), pos + k
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+            prof.step()
+        counted = {kn.name: kn.launches - before[kn.name]
+                   for kn in _cuda.all_kernels()}
+        # The step annotation spans the whole step on the device too: it
+        # is not a kernel.
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]
+        seen = {name: 0 for name in counted}
+        for e in kern:
+            name = _port_kernel(e.key)
+            if name is not None:
+                seen[name] += e.count
+        print(f"[{label}] {chunks} chunks of {k}: launches by counter "
+              f"{json.dumps(counted)}, by profiler {json.dumps(seen)}",
+              flush=True)
+        if seen == counted:
+            break
+        short = {n: counted[n] - seen[n] for n in counted
+                 if seen[n] != counted[n]}
+        orphans = orphan_launches(torch, prof)
+        print(f"[{label}] profile {attempt}: the trace lacks launches the "
+              f"counters saw {json.dumps(short)}; runtime launch records "
+              f"without a device record: {orphans}", flush=True)
+        if any(v < 0 for v in short.values()):
+            fail("the profiler's device trace shows launches the counters "
+                 "did not count")
+        if orphans < sum(short.values()):
+            fail(f"path {label}: {sum(short.values())} counted launches are "
+                 f"missing from the device trace, and only {orphans} runtime "
+                 "launch records lack a device record: the counters report "
+                 "launches that did not run")
+        PROFILE_RETRIES.append({"path": label, "attempt": attempt,
+                                "missing": short, "orphan_launches": orphans})
+    else:
+        fail("the launch counters disagree with the profiler's device trace "
+             "in three profiles")
     busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy > wall:
+        fail(f"path {label}: device busy {busy:.3f} ms exceeds the host wall "
+             f"{wall:.3f} ms of the same chunks")
+    launches = sum(counted.values()) / steps
     print(f"[{label}] decode profile, {steps} steps in chunks of {k}: host "
           f"wall {wall / steps:.3f} ms/step, device busy {busy / steps:.3f} "
           f"ms/step, idle share {1 - busy / wall:.3f}", flush=True)
@@ -1908,6 +2224,8 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
     torch.cuda.synchronize()
     print(f"[{label}] one chunk of {k} under sync debug mode 'error': no "
           "host sync", flush=True)
+    return {"wall_ms": wall / steps, "busy_ms": busy / steps,
+            "idle": 1 - busy / wall, "launches": launches}
 
 
 def _to_device(params, dev):
@@ -1942,7 +2260,8 @@ def counted_run(torch, fn):
     plain = {(mm, "matmul_plain"), (mm, "gated_ffn_plain"),
              (mm, "postnorm_add_plain"), (mm, "prenorm_plain"),
              (mm, "matmul_top1_plain"), (mm, "matmul_topk_plain"),
-             (mm, "topk_merge_plain"), (sampling, "sample_stream_plain"),
+             (mm, "topk_merge_plain"), (mm, "take_layer"),
+             (sampling, "sample_stream_plain"),
              (da, "decode_attention_write_packed_plain"),
              (da, "decode_attention_write_plain"),
              (da, "decode_attention_write_sblocked_plain"),
@@ -1997,6 +2316,8 @@ def timed_runs(torch, engine, prompts, new_tokens, label, first):
           f" tok/s; decode step wall median {_med(step_ms):.3f} ms, p90 "
           f"{step_ms[int(0.9 * len(step_ms))]:.3f} ms over {len(step_ms)} "
           "chunk entries", flush=True)
+    return {"tok_s": _med([t.generate_tokens_per_second for t in timings]),
+            "step_ms": _med(step_ms)}
 
 
 def _med(v):
@@ -2058,7 +2379,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
             totals[name] = totals.get(name, 0) + c
 
     def schedule(engine, steps, head, kv="bf16", wkind="i8", att_kind=None,
-                 dec=None):
+                 dec=None, scan=False):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
         and prefill attention per layer; a decode step 3 GEMMs, the gated
         GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
@@ -2068,18 +2389,26 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         q / kv weights add one GEMM per layer, and its prologue pass in a
         decode step.  att_kind: the codec of att_w where it differs from
         the rest's.  dec: the decode attention kernels' launches per step
-        by name (default K4 of the KV kind on every layer)."""
+        by name (default K4 of the KV kind on every layer).  scan: the
+        decode step's GEMMs are the stacked ones (K12), prefill's and the
+        head's stay unstacked."""
         layers = len(engine.params.layers)
         split = int(engine.params.layers[0].qkv_cat is None)
         chunk = engine.prefill_chunk(len(prompts), max(lens))
         rounds = -(-(max(lens) - 1) // chunk)
-        want = {f"matmul_{wkind}": (rounds + steps)
-                * ((2 if att_kind else 3) + split) * layers
+        d_mm = "matmul_stacked_" if scan else "matmul_"
+        d_gated = "gated_stacked_" if scan else "gated_"
+        per_layer = (2 if att_kind else 3) + split
+        want = {f"matmul_{wkind}": rounds * per_layer * layers
                 + (steps if head == "gemm" else 0),
                 "matmul_prenorm": steps * ((2 + split) * layers + 1),
                 "matmul_postnorm_add": steps * 2 * layers,
-                f"gated_{wkind}": (rounds + steps) * layers,
+                f"gated_{wkind}": rounds * layers,
                 f"flash_attention_{kv}": rounds * layers}
+        want[f"{d_mm}{wkind}"] = want.get(f"{d_mm}{wkind}", 0) \
+            + steps * per_layer * layers
+        want[f"{d_gated}{wkind}"] = want.get(f"{d_gated}{wkind}", 0) \
+            + steps * layers
         for name, n in (dec or {f"decode_attention_{kv}": layers}).items():
             want[name] = steps * n
         if head == "top1":
@@ -2088,7 +2417,9 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
             want.update({f"topk_{wkind}": steps, "topk_merge": steps,
                          "draw_topk": steps})
         if att_kind:
-            want[f"matmul_{att_kind}"] = (rounds + steps) * layers
+            want[f"matmul_{att_kind}"] = rounds * layers
+            want[f"{d_mm}{att_kind}"] = want.get(f"{d_mm}{att_kind}", 0) \
+                + steps * layers
         return want, rounds, chunk
 
     # --- A: the default RuntimeConfig ---
@@ -2109,8 +2440,8 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         if not o or any(not (0 <= tok < cfg.vocab_size) for tok in o):
             fail(f"path A, request {qi}: bad tokens {o}")
     print(f"[4A] first tokens: {[o[:8] for o in outs]}", flush=True)
-    timed_runs(torch, engine, prompts, new_tokens, "4A", timing)
-    profile_chunks(torch, engine, prompts)
+    a_runs = timed_runs(torch, engine, prompts, new_tokens, "4A", timing)
+    a_prof = profile_chunks(torch, engine, prompts)
     check_first_tokens(torch, engine, prompts, outs, cfg, "4A")
 
     # --- B: generate_fast over an i8 KV cache, against generate_batch ---
@@ -2329,8 +2660,11 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
 
     phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
                       new_tokens)
+    phase_scan_path(torch, cfg, prompts, counted_generate, sampled,
+                    new_tokens, {**a_runs, **a_prof})
 
-    missing = [name for name, c in totals.items() if c == 0]
+    missing = [name for name, c in totals.items()
+               if c == 0 and name not in STANDALONE]
     if missing:
         fail(f"kernels no counted path launched: {missing}")
     return totals
@@ -2489,6 +2823,120 @@ def phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
         _set_env("GEMMA_SBLOCK_DECODE", old)
     del params, engine, ref_engine
     torch.cuda.empty_cache()
+
+
+def phase_scan_path(torch, cfg, prompts, counted_generate, sampled,
+                    new_tokens, path_a):
+    """Path O: GEMMA_SCAN_DECODE=1, the scan-over-layers decode
+    (engine/scan_decode.py): each decode step runs the 13 iterations of
+    Gemma2-2B's period-2 body over stacked weights, its GEMMs through K12
+    and its attention through K8; prefill stays unrolled.  Gemma2-2B at 26
+    layers, i8 weights, the default runtime (bf16 KV, decode_chunk=4):
+    32 greedy tokens against the same run with the switch unset (3 runs,
+    two chunks under torch.profiler, one under sync debug mode "error"),
+    then 8 sampled tokens (path E's settings and flat head) against the
+    switch unset; then 4 greedy tokens each over i8 and f32 KV; then, at 4
+    layers, 4 greedy tokens each with sfp and nuq4 weights (nuq4 tensor
+    scales made equal per weight across layers, as a loaded file's are:
+    weights that differ in scale do not stack) and with bf16, f32 and i4
+    weights, so that every stacked kernel serves a counted run.  Every run
+    holds its launch counts to the schedule (no unstacked K1 / K2 launch
+    in decode) with the plain versions made to raise; the environment is
+    restored afterwards."""
+    import dataclasses
+
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig
+    from gemma_tpu_torch.utils.synth import synth_params, synth_quant
+
+    L = cfg.num_layers
+    params = synth_params(cfg, seed=0, device="cuda")  # i8, path A's
+    flat = dataclasses.replace(params, embedding=synth_quant(
+        torch.Generator(device="cuda").manual_seed(11), cfg.vocab_size,
+        cfg.model_dim, "cuda", "i8", rms=FLAT_EMBEDDING_RMS))
+    rt = RuntimeConfig(seq_len=8192)
+    ref_engine = GemmaEngine(params, cfg, rt)
+    want = ref_engine.generate_batch(prompts, max_generated_tokens=new_tokens)
+    flat_ref = GemmaEngine(flat, cfg, RuntimeConfig(seq_len=8192, **sampled))
+    want_sampled = flat_ref.generate_batch(prompts, max_generated_tokens=8)
+    old = _set_env("GEMMA_SCAN_DECODE", "1")
+    try:
+        engine = GemmaEngine(params, cfg, rt)
+        t0 = time.monotonic()
+        sp = engine.scan_params
+        torch.cuda.synchronize()
+        if sp is None:
+            fail("path O: Gemma2-2B i8 weights did not stack")
+        print(f"[4O] stacked into {len(sp.layers)} period positions x "
+              f"{sp.layers[0].pre_att_norm.shape[0]} layers in "
+              f"{time.monotonic() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+              flush=True)
+        engine.generate_batch([p[:40] for p in prompts],
+                              max_generated_tokens=6)
+        dec = {"decode_write_attend_bf16": L}
+        outs, timing = counted_generate("4O greedy", engine, "top1", "i8",
+                                        new_tokens, dec=dec, scan=True)
+        check_same_tokens(torch, ref_engine, prompts, outs, want, cfg, "4O")
+        o_runs = timed_runs(torch, engine, prompts, new_tokens, "4O", timing)
+        o_prof = profile_chunks(torch, engine, prompts, label="4O")
+        print(f"[4O] scan against path A in this call: decode "
+              f"{o_runs['tok_s']:.1f} tok/s (A {path_a['tok_s']:.1f}), step "
+              f"wall median {o_runs['step_ms']:.3f} ms (A "
+              f"{path_a['step_ms']:.3f}); profiled host wall "
+              f"{o_prof['wall_ms']:.3f} ms/step (A {path_a['wall_ms']:.3f}), "
+              f"device busy {o_prof['busy_ms']:.3f} ms/step (A "
+              f"{path_a['busy_ms']:.3f}), idle share {o_prof['idle']:.3f} (A "
+              f"{path_a['idle']:.3f}), launches {o_prof['launches']:.2f}/step "
+              f"(A {path_a['launches']:.2f})", flush=True)
+        engine = GemmaEngine(flat, cfg, RuntimeConfig(seq_len=8192,
+                                                      **sampled))
+        outs, _ = counted_generate("4O sampled", engine, "topk", "i8", 8,
+                                   dec=dec, scan=True)
+        check_same_tokens(torch, flat_ref, prompts, outs, want_sampled, cfg,
+                          "4O sampled")
+        del flat, flat_ref, engine
+        for kv in ("i8", "f32"):
+            engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                            kv_kind=kv))
+            outs, _ = counted_generate(
+                f"4O {kv} KV", engine, "top1", "i8", 4, kv=kv,
+                dec={f"decode_write_attend_{kv}": L}, scan=True)
+            print(f"[4O] {kv} KV first tokens: {[o[:4] for o in outs]}",
+                  flush=True)
+        del params, engine, ref_engine, sp
+        torch.cuda.empty_cache()
+        short = dataclasses.replace(
+            cfg, num_layers=4, layer_configs=cfg.layer_configs[:4],
+            attention_window_sizes=cfg.attention_window_sizes[:4])
+        for wkind in ("sfp", "nuq4", "bf16", "f32", "i4"):
+            prm = synth_params(short, kind=wkind, seed=0, device="cuda")
+            if wkind == "nuq4":
+                for name in ("qkv_cat", "att_w", "gating1", "gating2",
+                             "linear"):
+                    s0 = getattr(prm.layers[0], name).scale
+                    for lp in prm.layers:
+                        setattr(lp, name, dataclasses.replace(
+                            getattr(lp, name), scale=s0))
+            engine = GemmaEngine(prm, short, rt)
+            if engine.scan_params is None:
+                fail(f"path O: {wkind} weights did not stack")
+            _set_env("GEMMA_SCAN_DECODE", "0")
+            try:
+                want4 = GemmaEngine(prm, short, rt).generate_batch(
+                    prompts, max_generated_tokens=4)
+            finally:
+                _set_env("GEMMA_SCAN_DECODE", "1")
+            outs, _ = counted_generate(f"4O {wkind} 4 layers", engine, "top1",
+                                       wkind, 4, dec={
+                                           "decode_write_attend_bf16": 4},
+                                       scan=True)
+            check_same_tokens(torch, engine, prompts, outs, want4, short,
+                              f"4O {wkind}")
+            del prm, engine
+            torch.cuda.empty_cache()
+    finally:
+        _set_env("GEMMA_SCAN_DECODE", old)
+    print(f"[4O] GEMMA_SCAN_DECODE restored to {old!r}", flush=True)
 
 
 if __name__ == "__main__":

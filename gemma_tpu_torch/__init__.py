@@ -6,7 +6,8 @@ load a `.sbs`, generate), `models/` (configs, KV cache, the forward pass,
 the loader), `ops/` (elementwise ops, attention references, the
 quantized-weight GEMMs and the hand-written CUDA kernels behind them),
 `compression/` and `io/` (the weight codecs and the `.sbs` file format,
-numpy), `engine/` (the serving loop) and `utils/`.
+numpy), `engine/` (the serving loop and the scan-over-layers decode),
+`scripts/` (diagnostics and timings run on the card) and `utils/`.
 
 Every entry point runs on CUDA unless the caller passes `device="cpu"`;
 on CPU tensors each kernel wrapper takes its plain PyTorch version, on

@@ -8,7 +8,9 @@
 // below), matmul.py:_topk_kernel (K6, the fused top-k head; see topk_body)
 // and, inside all four, matmul.py:_acc_step's i8, sfp/nuq and bf16/f32
 // branches with _sfp_tile_to_bf16 (K7a) and its nuq4 and i4 branches
-// (K7b).  Computes
+// (K7b); and K12, K1 and K2 on one layer of a stacked [L, N, K] weight
+// (matmul.py:_b_inputs_stacked feeding _matmul_pallas / _gated_pallas;
+// see mm_stacked_body).  Computes
 //   C[M, N] = scale * A[M, K] . dequant(B)[N, K]^T
 // with A bf16, the B tile turned into bf16 in registers, products
 // accumulated in f32.  The codecs (template parameter CODEC):
@@ -238,12 +240,28 @@ __device__ __forceinline__ void nuq4_frag(uint32_t sel, const uint4& tbl,
   bf[1] = sfp2_to_bf16x2(__byte_perm(r, 0, 0x4341u));
 }
 
+// Where rows na and na + 1 of affine group g lie in a group array: [N, G]
+// as loaded, or [G, N] (GN) as stack_quant_tensors lays a stacked one.
+template <bool GN>
+__device__ __forceinline__ void group_at(int na, int g, int N, int G,
+                                         size_t& ia, size_t& ib) {
+  if constexpr (GN) {
+    ia = (size_t)g * N + na;
+    ib = ia + 1;
+  } else {
+    ia = (size_t)na * G + g;
+    ib = (size_t)(na + 1) * G + g;
+  }
+}
+
 // The block's (16*MT) x BN output tile at rows m0.., columns nb..: on
 // return the warps with ks == 0 hold the full sums in `acc` (mma.sync
 // fragment layout: lane (gid, t) has rows gid and gid + 8 of each 16-row
 // tile, columns 2t and 2t + 1 of each 8-column tile).  Every thread of
 // the block must call it (it synchronizes), with the same m0 and nb.
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+// GN: the i8 group arrays are [G, N] (a stacked weight's layer).
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED,
+          bool GN = false>
 __device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
                                         float (&acc)[GATED ? 2 : 1][MT][NT][4]) {
   using C = Codec<CODEC>;
@@ -342,10 +360,12 @@ __device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
           const int na = n0 + 8 * j + 2 * t;  // N is even: na + 1 < N too
           float inva = 0.f, invb = 0.f, izpa = 0.f, izpb = 0.f;
           if (na < N) {
-            inva = p.inv[b][(size_t)na * G + g];
-            invb = p.inv[b][(size_t)(na + 1) * G + g];
-            izpa = inva * p.zp[b][(size_t)na * G + g];
-            izpb = invb * p.zp[b][(size_t)(na + 1) * G + g];
+            size_t ia, ib;
+            group_at<GN>(na, g, N, G, ia, ib);
+            inva = p.inv[b][ia];
+            invb = p.inv[b][ib];
+            izpa = inva * p.zp[b][ia];
+            izpb = invb * p.zp[b][ib];
           }
 #pragma unroll
           for (int i = 0; i < MT; ++i) {
@@ -395,8 +415,9 @@ __device__ __forceinline__ void mm_tile(const MMArgs& p, int m0, int nb,
 // takes the four nibbles of two bytes a step and looks them up in the
 // row's table of the chunk, which rides beside the codes in `tcur` /
 // `tnext`.  Kept apart from mm_tile so that the one-byte and dense codecs
-// compile to what they were.
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+// compile to what they were.  GN: i4's group arrays are [G, N].
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED,
+          bool GN = false>
 __device__ __forceinline__ void mm_tile_packed(
     const MMArgs& p, int m0, int nb, float (&acc)[GATED ? 2 : 1][MT][NT][4]) {
   using C = Codec<CODEC>;
@@ -528,10 +549,12 @@ __device__ __forceinline__ void mm_tile_packed(
             // The group's scales (p.inv) and mins (p.zp): s * c + m.
             float sa = 0.f, sb = 0.f, ma = 0.f, mb = 0.f;
             if (na < N) {
-              sa = p.inv[b][(size_t)na * G + g];
-              sb = p.inv[b][(size_t)(na + 1) * G + g];
-              ma = p.zp[b][(size_t)na * G + g];
-              mb = p.zp[b][(size_t)(na + 1) * G + g];
+              size_t ia, ib;
+              group_at<GN>(na, g, N, G, ia, ib);
+              sa = p.inv[b][ia];
+              sb = p.inv[b][ib];
+              ma = p.zp[b][ia];
+              mb = p.zp[b][ib];
             }
 #pragma unroll
             for (int i = 0; i < MT; ++i) {
@@ -576,7 +599,8 @@ __device__ __forceinline__ void mm_tile_packed(
 }
 
 // K1 / K2: one block's output tile, scaled (and gated), to global memory.
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED,
+          bool GN = false>
 __device__ __forceinline__ void mm_body(const MMArgs& p) {
   constexpr int NB = GATED ? 2 : 1;
   constexpr int TILES = WARPS / KSPLIT;
@@ -591,10 +615,11 @@ __device__ __forceinline__ void mm_body(const MMArgs& p) {
 
   float acc[NB][MT][NT][4];
   if constexpr (Codec<CODEC>::kPacked)
-    mm_tile_packed<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0,
-                                                        blockIdx.x * BN, acc);
+    mm_tile_packed<CODEC, MT, NT, KSPLIT, WARPS, GATED, GN>(
+        p, m0, blockIdx.x * BN, acc);
   else
-    mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p, m0, blockIdx.x * BN, acc);
+    mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED, GN>(p, m0, blockIdx.x * BN,
+                                                     acc);
   if (ks != 0) return;
 
 #pragma unroll
@@ -628,6 +653,42 @@ __device__ __forceinline__ void mm_body(const MMArgs& p) {
       }
     }
   }
+}
+
+// K12: K1 / K2 on layer *layer of stacked weights (replaces
+// matmul.py:_b_inputs_stacked, the stacked branches of _matmul_pallas
+// :847-900 and _gated_pallas :944-990).  The TPU kernel takes the layer
+// as a scalar-prefetch value and its block index maps DMA that layer's
+// blocks out of the [L, N, K] array; here every block reads the device
+// int once and offsets its B pointers (codes, group scales and zero points
+// or mins, nuq4 tables) by one layer, then runs the K1 / K2 body with the
+// group arrays in the stacked [G, N] layout.  No layer is copied, and the
+// tile loop is mm_tile's: the same bounds as K1 / K2 (bytes at decode).
+struct MMStackedArgs {
+  MMArgs mm;         // layer 0's B pointers
+  const int* layer;  // device int32: the layer to read
+};
+
+template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
+__device__ __forceinline__ void mm_stacked_body(const MMStackedArgs& q) {
+  using C = Codec<CODEC>;
+  const size_t l = (size_t)__ldg(q.layer);
+  MMArgs p = q.mm;
+  const size_t n = (size_t)p.N;
+  const size_t codes = C::kPacked ? n * (p.K / 2) : n * p.K * C::kEsize;
+  const size_t groups = (size_t)(p.K / 128) * n;  // i8, i4: [G, N] floats
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    p.codes[b] = static_cast<const char*>(p.codes[b]) + l * codes;
+    if constexpr (CODEC == kNuq4) {
+      p.inv[b] = reinterpret_cast<const float*>(
+          reinterpret_cast<const char*>(p.inv[b]) + l * n * nuq4_tstride(p.K));
+    } else if constexpr (CODEC == kI8 || CODEC == kI4) {
+      p.inv[b] += l * groups;
+      p.zp[b] += l * groups;
+    }
+  }
+  mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED, true>(p);
 }
 
 // out[m] = bf16(RMSNorm(a[m]) * (1 + w)): the GEMM prologue, f32 math,
@@ -1043,6 +1104,11 @@ __global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
   __global__ void __launch_bounds__(WARPS * 32) mm_##KIND##_kernel(MMArgs p) { \
     mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p);                         \
   }                                                                          \
+  template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>               \
+  __global__ void __launch_bounds__(WARPS * 32)                              \
+      mm_stacked_##KIND##_kernel(MMStackedArgs q) {                          \
+    mm_stacked_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(q);                 \
+  }                                                                          \
   __global__ void __launch_bounds__(kHeadWarps * 32)                         \
       top1_##KIND##_kernel(Top1Args q) {                                     \
     top1_body<CODEC>(q);                                                     \
@@ -1063,10 +1129,27 @@ GEMMA_CODEC_KERNELS(nuq4, kNuq4, (kHeadWarps * 32, kHeadBlocksPerSM))
 constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
 constexpr int kLaunchedMerge = 4;  // the top-k entries' second pass
 
+// K1 / K2, or with a layer pointer K12 over stacked weights.
 template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
-static void launch_mm(const MMArgs& p, cudaStream_t st) {
+static void launch_mm(const MMArgs& p, const int* layer, cudaStream_t st) {
   constexpr int BN = (WARPS / KSPLIT) * 8 * NT;
   const dim3 grid((p.N + BN - 1) / BN, (p.M + 16 * MT - 1) / (16 * MT));
+  if (layer != nullptr) {
+    const MMStackedArgs q = {p, layer};
+    if constexpr (CODEC == kI8)
+      mm_stacked_i8_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    else if constexpr (CODEC == kSfp)
+      mm_stacked_sfp_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    else if constexpr (CODEC == kBf16)
+      mm_stacked_bf16_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    else if constexpr (CODEC == kF32)
+      mm_stacked_f32_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    else if constexpr (CODEC == kI4)
+      mm_stacked_i4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    else
+      mm_stacked_nuq4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
+    return;
+  }
   if constexpr (CODEC == kI8)
     mm_i8_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
   else if constexpr (CODEC == kSfp)
@@ -1129,9 +1212,10 @@ static bool set_b(MMArgs& p, int b, const BOperand& w, int K) {
 
 // out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
 // y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
+// layer: null (K1), or the device layer index of stacked weights (K12).
 template <int CODEC>
 static int matmul_entry(const void* a, const float* norm, const BOperand& w,
-                        const float* post_w, const float* add,
+                        const int* layer, const float* post_w, const float* add,
                         __nv_bfloat16* a_scratch, float* y, void* out, int M,
                         int N, int K, int out_bf16, int* launched,
                         cudaStream_t st) {
@@ -1145,9 +1229,9 @@ static int matmul_entry(const void* a, const float* norm, const BOperand& w,
   p.M = M; p.N = N; p.K = K;
   p.out_bf16 = post ? 0 : out_bf16;
   if (M <= 16)
-    launch_mm<CODEC, 1, 1, 8, 8, false>(p, st);
+    launch_mm<CODEC, 1, 1, 8, 8, false>(p, layer, st);
   else
-    launch_mm<CODEC, 2, 4, 1, 4, false>(p, st);
+    launch_mm<CODEC, 2, 4, 1, 4, false>(p, layer, st);
   *launched |= kLaunchedSelf;
   if (post) {
     postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
@@ -1158,7 +1242,8 @@ static int matmul_entry(const void* a, const float* norm, const BOperand& w,
 
 template <int CODEC>
 static int gated_entry(const void* a, const float* norm, const BOperand& w1,
-                       const BOperand& w2, __nv_bfloat16* a_scratch, void* out, int M, int N,
+                       const BOperand& w2, const int* layer,
+                       __nv_bfloat16* a_scratch, void* out, int M, int N,
                        int K, int* launched, cudaStream_t st) {
   *launched = 0;
   MMArgs p = {};
@@ -1167,9 +1252,9 @@ static int gated_entry(const void* a, const float* norm, const BOperand& w1,
   p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   p.out = out; p.M = M; p.N = N; p.K = K; p.out_bf16 = 1;
   if (M <= 16)
-    launch_mm<CODEC, 1, 1, 8, 8, true>(p, st);
+    launch_mm<CODEC, 1, 1, 8, 8, true>(p, layer, st);
   else
-    launch_mm<CODEC, 2, 2, 1, 4, true>(p, st);
+    launch_mm<CODEC, 2, 2, 1, 4, true>(p, layer, st);
   *launched |= kLaunchedSelf;
   return (int)cudaGetLastError();
 }
@@ -1268,7 +1353,7 @@ extern "C" int gemma_matmul_i8(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1281,7 +1366,7 @@ extern "C" int gemma_gated_i8(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_i8(const void* a, const float* norm,
@@ -1318,7 +1403,7 @@ extern "C" int gemma_matmul_sfp(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1331,7 +1416,7 @@ extern "C" int gemma_gated_sfp(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_sfp(const void* a, const float* norm,
@@ -1368,7 +1453,7 @@ extern "C" int gemma_matmul_bf16(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1381,7 +1466,7 @@ extern "C" int gemma_gated_bf16(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_bf16(const void* a, const float* norm,
@@ -1418,7 +1503,7 @@ extern "C" int gemma_matmul_f32(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1431,7 +1516,7 @@ extern "C" int gemma_gated_f32(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_f32(const void* a, const float* norm,
@@ -1469,7 +1554,7 @@ extern "C" int gemma_matmul_i4(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), post_w, add,
+  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1482,7 +1567,7 @@ extern "C" int gemma_gated_i4(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), a_scratch, out, M, N, K, launched, st);
+                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_i4(const void* a, const float* norm,
@@ -1519,7 +1604,7 @@ extern "C" int gemma_matmul_nuq4(const void* a, const float* norm,
                                    void* out, int M, int N, int K,
                                    int out_bf16, int* launched,
                                    cudaStream_t st) {
-  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), post_w, add,
+  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), nullptr, post_w, add,
                            a_scratch, y, out, M, N, K, out_bf16, launched, st);
 }
 
@@ -1530,7 +1615,7 @@ extern "C" int gemma_gated_nuq4(const void* a, const float* norm,
                                   int N, int K, int* launched,
                                   cudaStream_t st) {
   return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
-                          nuq4_b(codes2, tables2, tstride2, scale2), a_scratch, out, M, N, K, launched, st);
+                          nuq4_b(codes2, tables2, tstride2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_nuq4(const void* a, const float* norm,
@@ -1555,6 +1640,166 @@ extern "C" int gemma_topk_nuq4(const void* a, const float* norm,
   return topk_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
+}
+
+// K12's C entries: K1 / K2 on layer *layer (a device int32) of stacked
+// weights, their codes [L, N, K] ([L, N, K/2] packed), i8 / i4 group
+// arrays [L, K/128, N], nuq4 tables [L, N, tstride]; the pointers are
+// those of layer 0.
+extern "C" int gemma_matmul_stacked_i8(const void* a, const float* norm,
+                                       const void* codes, const float* inv, const float* zp, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_i8(const void* a, const float* norm,
+                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
+                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
+}
+
+extern "C" int gemma_matmul_stacked_sfp(const void* a, const float* norm,
+                                       const void* codes, const float* inv, const float* zp, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_sfp(const void* a, const float* norm,
+                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
+                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
+}
+
+extern "C" int gemma_matmul_stacked_bf16(const void* a, const float* norm,
+                                       const void* codes, const float* inv, const float* zp, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_bf16(const void* a, const float* norm,
+                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
+                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
+}
+
+extern "C" int gemma_matmul_stacked_f32(const void* a, const float* norm,
+                                       const void* codes, const float* inv, const float* zp, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_f32(const void* a, const float* norm,
+                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
+                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
+}
+
+extern "C" int gemma_matmul_stacked_i4(const void* a, const float* norm,
+                                       const void* codes, const float* inv, const float* zp, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_i4(const void* a, const float* norm,
+                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
+                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
+                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
+}
+
+extern "C" int gemma_matmul_stacked_nuq4(const void* a, const float* norm,
+                                       const void* codes, const void* tables, int tstride, float scale,
+                                       const int* layer, const float* post_w,
+                                       const float* add,
+                                       __nv_bfloat16* a_scratch, float* y,
+                                       void* out, int M, int N, int K,
+                                       int out_bf16, int* launched,
+                                       cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), layer, post_w, add,
+                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
+}
+
+extern "C" int gemma_gated_stacked_nuq4(const void* a, const float* norm,
+                                      const void* codes1, const void* tables1, int tstride1, float scale1,
+                                      const void* codes2, const void* tables2, int tstride2, float scale2,
+                                      const int* layer,
+                                      __nv_bfloat16* a_scratch, void* out,
+                                      int M, int N, int K, int* launched,
+                                      cudaStream_t st) {
+  if (layer == nullptr) return (int)cudaErrorInvalidValue;
+  return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
+                          nuq4_b(codes2, tables2, tstride2, scale2), layer, a_scratch, out,
+                          M, N, K, launched, st);
 }
 
 // The passes alone, for checking each against its plain version.

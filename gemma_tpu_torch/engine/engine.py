@@ -20,17 +20,24 @@ position of the new token), so it is the same in any batch, chunk size
 or path (gemma.cc:470-477).
 `generate_fast` is the benchmark loop: greedy steps through the fused
 head with no host sync until the end.
+Under GEMMA_SCAN_DECODE=1 (read once per engine, `scan_params`) every
+decode step above runs `engine/scan_decode.py:forward_scan` over stacked
+weights, where the model and the cache allow it; prefill stays unrolled.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from gemma_tpu_torch.engine.scan_decode import (build_scan_params,
+                                                forward_scan, scan_plan)
 from gemma_tpu_torch.engine.timing import TimingInfo
 from gemma_tpu_torch.models.configs import ModelConfig
 from gemma_tpu_torch.models.gemma import Params, forward
@@ -90,6 +97,31 @@ class GemmaEngine:
             raise ValueError(f"params live on {params.device}, the engine "
                              f"runs on {self.device}")
         self.params = params
+
+    @functools.cached_property
+    def scan_params(self) -> Params | None:
+        """Stacked [T, ...] params for the scan-over-layers decode
+        (engine/scan_decode.py), built on first use when GEMMA_SCAN_DECODE
+        is "1" (read once per engine, as engine.py:105-126 does).  None
+        when the switch is off or the model cannot scan
+        (`build_scan_params`)."""
+        if os.environ.get("GEMMA_SCAN_DECODE", "0") != "1":
+            return None
+        return build_scan_params(self.params, self.config)
+
+    def _decoder(self, cache: KVCache):
+        """The decode step for `cache`: forward_scan over scan_params, or
+        the unrolled forward when there are none or the cache's layer_map
+        is not periodic-affine (decided before any launch; the scan's
+        plan is made here, once for the steps that follow).  Called as
+        fn(tokens, positions, cache, **forward's keywords)."""
+        sp = self.scan_params
+        plan = None if sp is None else scan_plan(sp, cache, self.config)
+        if plan is not None:
+            return lambda tok, pos, c, **kw: forward_scan(
+                sp, tok, pos, c, self.config, plan=plan, **kw)
+        return lambda tok, pos, c, **kw: forward(
+            self.params, tok, pos, c, self.config, **kw)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -246,14 +278,15 @@ class GemmaEngine:
         chunk = max(1, self.runtime.decode_chunk)
         if accept_token is not None:
             chunk = 1
+        step = self._decoder(cache)
         done = 0
         while done < max_gen and any(non_eos):
             k = min(chunk, max_gen - done)
             t_step = time.monotonic()
             if k == 1:
-                logits, cache = forward(
-                    self.params, self._on_device(prev)[:, None],
-                    self._on_device(pos)[:, None], cache, self.config,
+                logits, cache = step(
+                    self._on_device(prev)[:, None],
+                    self._on_device(pos)[:, None], cache,
                     return_logits="last")
                 tokens, probs = self._sample(logits, pos, accept_token,
                                              allowed_mask)
@@ -305,20 +338,19 @@ class GemmaEngine:
             sampled = rt.top_k > 1
         qi = torch.arange(prev.shape[0], dtype=torch.int32,
                           device=prev.device) if sampled else None
+        step = self._decoder(cache)
         toks, probs = [], []
         for _ in range(k):
             nxt = pos + 1
             if sampled:
-                (vals, idxs), cache = forward(
-                    self.params, prev[:, None], pos[:, None], cache,
-                    self.config, return_logits="topk", top_k_n=rt.top_k,
-                    top1_mask=allowed_mask)
+                (vals, idxs), cache = step(
+                    prev[:, None], pos[:, None], cache, return_logits="topk",
+                    top_k_n=rt.top_k, top1_mask=allowed_mask)
                 tok, prob = sampling.sample_stream(
                     vals, idxs, rt.seed, qi, nxt, rt.temperature)
             else:
-                (tok, prob), cache = forward(
-                    self.params, prev[:, None], pos[:, None], cache,
-                    self.config, return_logits="top1",
+                (tok, prob), cache = step(
+                    prev[:, None], pos[:, None], cache, return_logits="top1",
                     top1_mask=allowed_mask, top1_need_prob=need_prob)
             toks.append(tok)
             probs.append(prob)

@@ -45,9 +45,17 @@ class Gemma:
              wrapping: PromptWrapping | None = None,
              device=None) -> "Gemma":
         """Load a .sbs model file (single-file or pre-2025 + tokenizer)
-        onto `device` (CUDA unless the caller names one)."""
+        onto `device` (CUDA unless the caller names one).  A VLM file
+        with ViT weights raises NotImplementedError: the port has no
+        image path yet (gemma_tpu/gemma.py:60-64 loads them)."""
         store = ModelStore(BlobReader(weights_path),
                            tokenizer_path=tokenizer_path, wrapping=wrapping)
+        if store.config.vit_config.layer_configs and \
+                "img_emb_kernel" in store.tensors:
+            raise NotImplementedError(
+                "this file holds ViT weights (img_emb_kernel): image input "
+                "comes with the port's ViT slice (models/vit.py, ROADMAP "
+                "queue 1); a file without them loads")
         params = load_params(store, kind_override=kind_override,
                              device=device)
         return cls(store.config, params, runtime, store, device=device)

@@ -215,6 +215,18 @@ def _inv_timescale(qkv_dim: int, half: bool, base: float,
         qkv_dim, half, base_frequency=base)).to(device)
 
 
+def _absolute_pe(positions: torch.Tensor, model_dim: int) -> torch.Tensor:
+    """AddAbsolutePositionalEmbeddings (ops-inl.h:316-330; the JAX
+    package's gemma.py:418-424): [..., model_dim] f32, sin then cos of
+    position * 10000^(-i / (half - 1))."""
+    half = model_dim // 2
+    log_inc = float(np.log(10000.0) / max(half - 1, 1))
+    inv = torch.exp(torch.arange(half, dtype=torch.float32,
+                                 device=positions.device) * -log_inc)
+    theta = positions[..., None].float() * inv
+    return torch.cat([torch.sin(theta), torch.cos(theta)], dim=-1)
+
+
 def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cache: KVCache, config: ModelConfig, prefix_end=0,
             return_logits: str = "all", valid: torch.Tensor | None = None,
@@ -236,6 +248,8 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     lc = config.layer_configs[0]
     device = params.device
     x = embed_tokens(params.embedding, tokens, config.model_dim)
+    if config.absolute_pe:
+        x = x + _absolute_pe(positions, config.model_dim)
     half = lc.post_qk == PostQKType.HALF_ROPE
     inv_ts = _inv_timescale(lc.qkv_dim, half, 10000.0, device)
     inv_ts_g = None

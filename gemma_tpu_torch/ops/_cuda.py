@@ -16,7 +16,8 @@ was declared with (the GEMM entries chain norm passes in the same call).
 `Kernel.launch` adds to the counts from that report alone, so a count says
 what ran, not what the wrapper asked for.  `chip_smoke.py` zeroes and
 reads the counts around the main path to show the path ran through the
-kernels.
+kernels.  `time_ms` is the one device timer of `chip_smoke.py` and the
+scripts.
 Nothing here runs at import: the CPU tests import every module, on
 machines with neither `nvcc` nor a card.
 """
@@ -174,10 +175,39 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"got {tuple(t.shape)}")
 
 
+def time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in a CUDA
+    graph, replayed three times between CUDA events, so host-side Python
+    between launches is not counted.  A call that cannot be captured
+    raises."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
+
+
 def all_kernels() -> list[Kernel]:
     """Every kernel of the port, in the order of the TPU kernel table."""
     from gemma_tpu_torch.ops import (decode_attention, flash_attention,
-                                     matmul, sampling)
+                                     matmul, nuq_diag, sampling)
 
     return [*matmul.MATMUL.values(), matmul.PRENORM, matmul.POSTNORM_ADD,
             *matmul.GATED.values(), *matmul.TOP1.values(),
@@ -191,4 +221,6 @@ def all_kernels() -> list[Kernel]:
             *decode_attention.DECODE_WRITE_ATTEND.values(),
             *decode_attention.KV_WRITE.values(),
             *decode_attention.DECODE_ATTEND.values(),
-            *decode_attention.DECODE_SBLOCKED.values()]
+            *decode_attention.DECODE_SBLOCKED.values(),
+            *matmul.MATMUL_STACKED.values(), *matmul.GATED_STACKED.values(),
+            *nuq_diag.KERNELS.values()]

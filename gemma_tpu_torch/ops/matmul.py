@@ -31,6 +31,14 @@ feeds the product, and the group affines are applied to the output:
     i4:  out += s_g * (A_g . C_g) + m_g * sum(A_g).
 The kernels take K in whole chunks (K_MULTIPLE); the plain versions
 zero-pad A to the packed kinds' Kp, as the TPU kernels do.
+
+Stacked weights (the scan-over-layers decode, engine/scan_decode.py):
+`stack_quant_tensors` lays L same-shaped weights into one [L, ...] tensor
+(`stacked=True`), and `matmul` / `gated_ffn` take `layer=t` to multiply
+by layer t of it: on CUDA the stacked entries of K1 and K2 (K12) read the
+layer index from the device and offset their B pointers by one layer,
+so no layer is copied; on the CPU `take_layer` cuts the layer out and the
+plain versions run on it.
 """
 
 from __future__ import annotations
@@ -88,6 +96,17 @@ MATMUL = {c: _cuda.Kernel(
 GATED = {c: _cuda.Kernel(
     f"gated_{c}", SOURCE, f"gemma_gated_{c}",
     [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 2 + [_cuda.I] * 3,
+    passes=(PRENORM,)) for c in K_MULTIPLE}
+# K12: K1 and K2 on layer `layer` of a stacked weight.  The same C entry
+# layout with one more pointer after the B operands: the device int32
+# layer index.
+MATMUL_STACKED = {c: _cuda.Kernel(
+    f"matmul_stacked_{c}", SOURCE, f"gemma_matmul_stacked_{c}",
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] * 6 + [_cuda.I] * 4,
+    passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
+GATED_STACKED = {c: _cuda.Kernel(
+    f"gated_stacked_{c}", SOURCE, f"gemma_gated_stacked_{c}",
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 3 + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 TOP1 = {c: _cuda.Kernel(
     f"top1_{c}", SOURCE, f"gemma_top1_{c}",
@@ -163,12 +182,17 @@ class QuantTensor:
     "f32"/"bf16": arrays w [N, K]; kind "i4": codes u8 [N, Kp/2], scales /
     mins f32 [N, Kp/128]; kind "nuq4": codes u8 [N, Kp/2], tables u8
     [N, round_up(Kp/16, 128)] (the JAX package's layouts, which the CUDA
-    kernels read as they are)."""
+    kernels read as they are).
+
+    stacked: the arrays carry a leading [L] dim of layers, and i8 / i4
+    group arrays are [L, K/128, N] (`stack_quant_tensors`); `shape` is
+    one layer's."""
 
     kind: str
     shape: tuple[int, int]
     scale: float
     arrays: dict[str, torch.Tensor]
+    stacked: bool = False
 
     @property
     def n(self) -> int:
@@ -241,6 +265,90 @@ def concat_rows(*qts: QuantTensor) -> QuantTensor | None:
               for key in first.arrays}
     return QuantTensor(first.kind, (sum(q.n for q in qts), first.k),
                        first.scale, arrays)
+
+
+# The per-(row, group) arrays of the affine kinds, transposed to [L, G, N]
+# when stacked (the stacked kernels read them so).
+_GROUP_KEYS = ("inv_scales", "zeropoints", "scales", "mins")
+
+
+def stack_quant_tensors(qts: list[QuantTensor]) -> QuantTensor:
+    """L same-kind, same-shape weights as one stacked [L, ...] tensor
+    (gemma_tpu/ops/matmul.py:183-229): i8 and i4 group arrays transposed
+    to [L, G, N]; f32 and bf16 tensor scales folded into the weights (one
+    more rounding for bf16); the other kinds must share one tensor scale.
+    Raises ValueError when kind, shape, scale or array keys differ."""
+    base = qts[0]
+    kind = base.kind
+    if kind in ("f32", "bf16"):
+        def fold(q):
+            if q.scale == 1.0:
+                return q
+            w = q.arrays["w"]
+            w = (w.float() * float(np.float32(q.scale))).to(w.dtype)
+            return QuantTensor(q.kind, q.shape, 1.0, {"w": w})
+
+        qts = [fold(q) for q in qts]
+        base = qts[0]
+    for q in qts[1:]:
+        if (q.kind, tuple(q.shape), float(q.scale), sorted(q.arrays)) != (
+                kind, tuple(base.shape), float(base.scale),
+                sorted(base.arrays)):
+            raise ValueError(
+                f"cannot stack: layer aux differs ({q.kind}/{q.shape}/"
+                f"{q.scale} vs {kind}/{base.shape}/{base.scale}); load "
+                "with kind_override 'i8' or 'i4' (scale-normalized "
+                "transcodes)")
+    arrays = {}
+    for key in base.arrays:
+        st = torch.stack([q.arrays[key] for q in qts])
+        if kind in ("i4", "i8") and key in _GROUP_KEYS:
+            st = st.transpose(1, 2).contiguous()  # [L, N, G] -> [L, G, N]
+        arrays[key] = st
+    return QuantTensor(kind, tuple(base.shape), base.scale, arrays,
+                       stacked=True)
+
+
+def take_layer(w: QuantTensor, layer: int) -> QuantTensor:
+    """Layer `layer` of a stacked weight as a plain one, the group arrays
+    transposed back (gemma_tpu/ops/matmul.py:264-279): a copy, the plain
+    path's way to the layer."""
+    if not w.stacked:
+        raise ValueError("take_layer needs a stacked weight")
+    arrays = {}
+    for key, a in w.arrays.items():
+        sl = a[layer]
+        if w.kind in ("i4", "i8") and key in _GROUP_KEYS:
+            sl = sl.T
+        arrays[key] = sl.contiguous()
+    return QuantTensor(w.kind, w.shape, w.scale, arrays)
+
+
+def _check_layer(w: QuantTensor, layer, name: str) -> None:
+    """A stacked weight needs `layer`, a plain one must not get it."""
+    if layer is None and w.stacked:
+        raise ValueError(f"{name}: a stacked weight needs layer=")
+    if layer is not None:
+        if not w.stacked:
+            raise ValueError(f"{name}: layer= needs a stacked weight "
+                             "(stack_quant_tensors)")
+        n_layers = w.data().shape[0]
+        if not 0 <= layer < n_layers:
+            raise ValueError(f"{name}: layer {layer} of {n_layers}")
+
+
+# One int32 arange per (device, L): the stacked kernels read their layer
+# index from it, so a decode step makes no host-to-device copy per layer.
+_layer_ids: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _layer_ptr(w: QuantTensor, layer: int, device) -> int:
+    n_layers = w.data().shape[0]
+    ids = _layer_ids.get((device, n_layers))
+    if ids is None:
+        ids = _layer_ids[(device, n_layers)] = torch.arange(
+            n_layers, dtype=torch.int32, device=device)
+    return ids.data_ptr() + 4 * layer
 
 
 def _on(a: np.ndarray, device) -> torch.Tensor:
@@ -484,7 +592,8 @@ def _b_operand(w: QuantTensor, name: str):
     being the inv_scales and zeropoints pointers (i8), the scales and mins
     pointers (i4), the tables pointer and their row stride in bytes
     (nuq4), else None; raises on a kind or a shape the kernels do not
-    take."""
+    take.  A stacked weight's pointers are those of layer 0, its group
+    arrays [L, K/128, N]."""
     if w.kind not in _CODEC:
         raise unknown_kind(w.kind)
     codec = _CODEC[w.kind]
@@ -495,20 +604,21 @@ def _b_operand(w: QuantTensor, name: str):
     dtype = {"i8": torch.int8, "sfp": torch.uint8, "bf16": torch.bfloat16,
              "f32": torch.float32, "i4": torch.uint8,
              "nuq4": torch.uint8}[codec]
+    lead = (w.data().shape[0],) if w.stacked else ()
     packed = codec in PACKED_KINDS
     _cuda.check(w.data(), "weight", dtype,
-                (w.n, w.k // 2) if packed else w.shape)
+                lead + ((w.n, w.k // 2) if packed else w.shape))
     if codec == "nuq4":
         tables = w.arrays["tables"]
         _cuda.check(tables, "tables", torch.uint8,
-                    (w.n, round_up(w.k // PACK_BLOCK * 16, 128)))
+                    lead + (w.n, round_up(w.k // PACK_BLOCK * 16, 128)))
         return (codec, w.data().data_ptr(), tables.data_ptr(),
-                tables.shape[1])
+                tables.shape[-1])
     if codec not in ("i8", "i4"):
         return codec, w.data().data_ptr(), None, None
     mul, off = ("inv_scales", "zeropoints") if codec == "i8" \
         else ("scales", "mins")
-    g = (w.n, w.k // GROUP)
+    g = lead + ((w.k // GROUP, w.n) if w.stacked else (w.n, w.k // GROUP))
     _cuda.check(w.arrays[mul], mul, torch.float32, g)
     _cuda.check(w.arrays[off], off, torch.float32, g)
     return (codec, w.data().data_ptr(), w.arrays[mul].data_ptr(),
@@ -571,13 +681,17 @@ def postnorm_add(y, weight=None, add=None, out_dtype=torch.float32):
 
 
 def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
-           epilogue_norm=None):
+           epilogue_norm=None, layer: int | None = None):
     """C = add + postnorm(scale * A . W^T) (matmul.py:1015-1177).
 
     prologue_norm: RMSNorm weight [K] applied to A's rows in-kernel (A
     then arrives f32); epilogue_norm: post-RMSNorm weight [N] over the
-    output rows; add: [M, N] residual, added after the post-norm."""
+    output rows; add: [M, N] residual, added after the post-norm;
+    layer: for a stacked w, the layer to multiply by (K12 on CUDA)."""
+    _check_layer(w, layer, "matmul")
     if not a.is_cuda:
+        if layer is not None:
+            w = take_layer(w, layer)
         return matmul_plain(a, w, out_dtype, add, prologue_norm,
                             epilogue_norm)
     codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul")
@@ -592,11 +706,16 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
     if post:
         y = out if out_dtype == torch.float32 else torch.empty(
             m, w.n, dtype=torch.float32, device=a.device)
-    MATMUL[codec].launch(
-        a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
-        float(w.scale), _cuda.ptr(epilogue_norm), _cuda.ptr(add),
-        _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(), m, w.n, w.k,
-        int(out_dtype == torch.bfloat16))
+    b_args = (b_ptr, inv_ptr, zp_ptr, float(w.scale))
+    if layer is None:
+        kernel = MATMUL[codec]
+    else:
+        kernel = MATMUL_STACKED[codec]
+        b_args += (_layer_ptr(w, layer, a.device),)
+    kernel.launch(
+        a.data_ptr(), _cuda.ptr(norm), *b_args, _cuda.ptr(epilogue_norm),
+        _cuda.ptr(add), _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(),
+        m, w.n, w.k, int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -608,6 +727,7 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
     allowed_mask: [N] bool, banned columns leave the argmax and the sum;
     prologue_norm: the final RMSNorm weight [K] (A then arrives f32);
     need_prob=False: raw-logits argmax, prob 1.0."""
+    _check_layer(w, None, "matmul_top1")
     if not a.is_cuda:
         return matmul_top1_plain(a, w, final_cap=final_cap,
                                  prologue_norm=prologue_norm,
@@ -662,6 +782,7 @@ def matmul_topk(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
     k_top > 128 is composed, as in the JAX package, which leaves its kernel
     there too: the K1 head GEMM, the cap, the mask as NEG_INF, and a stable
     descending sort (real indices throughout, as lax.top_k gives)."""
+    _check_layer(w, None, "matmul_topk")
     k_top = int(k_top)
     if not 1 <= k_top <= w.n:
         raise ValueError(f"matmul_topk: k_top {k_top} of {w.n} columns")
@@ -696,10 +817,16 @@ def matmul_topk(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
     return vals, idxs
 
 
-def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
+def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None,
+              layer: int | None = None):
     """TwoMatMul analog: gelu_tanh(x . W1^T) * (x . W2^T) in one kernel
-    (matmul.py:1789), with an optional pre-FFN norm prologue."""
+    (matmul.py:1789), with an optional pre-FFN norm prologue; layer: for
+    stacked w1 and w2, the layer to multiply by (K12 on CUDA)."""
+    _check_layer(w1, layer, "gated_ffn")
+    _check_layer(w2, layer, "gated_ffn")
     if not x.is_cuda:
+        if layer is not None:
+            w1, w2 = take_layer(w1, layer), take_layer(w2, layer)
         return gated_ffn_plain(x, w1, w2, out_dtype, prologue_norm)
     codec, b1, inv1, zp1 = _b_operand(w1, "gated_ffn")
     codec2, b2, inv2, zp2 = _b_operand(w2, "gated_ffn")
@@ -711,8 +838,12 @@ def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
     x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm)
     m = x.shape[0]
     out = torch.empty(m, w1.n, dtype=torch.bfloat16, device=x.device)
-    GATED[codec].launch(
-        x.data_ptr(), _cuda.ptr(norm), b1, inv1, zp1, float(w1.scale),
-        b2, inv2, zp2, float(w2.scale),
-        _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n, w1.k)
+    b_args = (b1, inv1, zp1, float(w1.scale), b2, inv2, zp2, float(w2.scale))
+    if layer is None:
+        kernel = GATED[codec]
+    else:
+        kernel = GATED_STACKED[codec]
+        b_args += (_layer_ptr(w1, layer, x.device),)
+    kernel.launch(x.data_ptr(), _cuda.ptr(norm), *b_args,
+                  _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n, w1.k)
     return out

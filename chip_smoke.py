@@ -28,7 +28,13 @@ Phases (any failure exits non-zero before the result line):
      qkv, att_w, linear and the gated GEMM on layers 0, 6 and 12 of 13
      stacked Gemma2-2B layers for every kind, and i4 at Gemma2-27B widths
      over 2), each timed beside the unstacked kernel on the same layer;
-     and the nuq4 gather diagnostic's three GEMMs (K13);
+     the prefill tile (K1 and K2 at M > 16 rows, csrc/matmul_sm90.cu:
+     TMA, wgmma, weights decoded in shared memory) at M = 2048 for every
+     kind at Gemma2-2B widths (qkv, att_w, linear, gated), i4 at
+     Gemma2-27B's and nuq4 at Gemma2-9B's, beside F.linear (dense kinds)
+     or torch._weight_int4pack_mm (i4), then ragged rows, the passes, a
+     stacked layer and one-hot reads at M = 130 (`phase_prefill` says
+     what); and the nuq4 gather diagnostic's three GEMMs (K13);
   3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
      plain path on the CPU, for i8, sfp, i4 and nuq4 weights, and for
@@ -326,6 +332,19 @@ for _kind in WEIGHT_KINDS:
         "PyTorch calls" if _dense else "on layer t's weights: "
         + LIBRARY_NOTE[f"gated_{_kind}"] if _kind == "i4"
         else LIBRARY_NOTE[f"gated_{_kind}"])
+for _kind in WEIGHT_KINDS:
+    REPLACES[f"matmul_sm90_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:577 (_mm_kernel, call :908) at M > 16 "
+        f"rows, and :768 (_b_inputs_stacked) on a stacked layer, with "
+        f"{_CODEC_OF[_kind]}")
+    REPLACES[f"gated_sm90_{_kind}"] = (
+        f"gemma_tpu/ops/matmul.py:629 (_gated_kernel, call :998) at M > 16 "
+        f"rows, and :768 (_b_inputs_stacked) on a stacked layer, with "
+        f"{_CODEC_OF[_kind]}")
+    LIBRARY_NOTE[f"matmul_sm90_{_kind}"] = (
+        "torch.nn.functional.linear on the same A and weights (scale 1)"
+        if _kind in ("bf16", "f32") else LIBRARY_NOTE[f"matmul_{_kind}"])
+    LIBRARY_NOTE[f"gated_sm90_{_kind}"] = LIBRARY_NOTE[f"gated_{_kind}"]
 # K13: a standalone diagnostic, on no serving path.
 STANDALONE = {f"nuq_diag_{_v}" for _v in ("d1", "d2", "d3")}
 for _v, _what in (("d1", "codes read as int8"),
@@ -526,29 +545,6 @@ def phase_kernels(torch):
            f(), want, rel_tol(want, 1e-3), f, p,
            b * d * 4 + w_head.nbytes() + b * cfg.vocab_size * 4,
            2 * b * cfg.vocab_size * d, iters=5)
-    m_pre = 4 * 512
-    a_pre = randn(m_pre, d, s=1.0).to(torch.bfloat16)
-    f = lambda: mm.matmul(a_pre, w_qkv)  # noqa: E731
-    p = lambda: mm.matmul_plain(a_pre, w_qkv)  # noqa: E731
-    want = p()
-    record(res, torch, "matmul_i8", "prefill qkv M=2048 K=2304 N=4096", f(),
-           want, rel_tol(want, 1e-3), f, p,
-           m_pre * d * 2 + w_qkv.nbytes() + m_pre * 4096 * 4,
-           2 * m_pre * 4096 * d, iters=5)
-    # Prefill att_w and linear: plain bf16 A, f32 out, no epilogue (the
-    # prefill branch norms and adds in plain torch).
-    for name, k_in in (("att_w", 2048), ("linear", ff)):
-        w = synth_quant(gen, d, k_in, dev)
-        a = randn(m_pre, k_in, s=1.0).to(torch.bfloat16)
-        f = lambda: mm.matmul(a, w)  # noqa: E731
-        p = lambda: mm.matmul_plain(a, w)  # noqa: E731
-        want = p()
-        record(res, torch, "matmul_i8",
-               f"prefill {name} M=2048 K={k_in} N={d}", f(), want,
-               rel_tol(want, 1e-3), f, p,
-               m_pre * k_in * 2 + w.nbytes() + m_pre * d * 4,
-               2 * m_pre * d * k_in, iters=5)
-
     # --- K2 ---  (bf16 output: one bf16 ulp, 2^-8 relative, plus the
     # GEMM's f32 reorder; 1e-2 of max|out| bounds it)
     g1 = synth_quant(gen, ff, d, dev)
@@ -563,13 +559,6 @@ def phase_kernels(torch):
            want, rel_tol(want, 1e-2), f, p,
            b * d * 4 + 2 * g1.nbytes() + b * ff * 2, 4 * b * ff * d,
            primary=True)
-    f = lambda: mm.gated_ffn(a_pre, g1, g2)  # noqa: E731
-    p = lambda: mm.gated_ffn_plain(a_pre, g1, g2)  # noqa: E731
-    want = p()
-    record(res, torch, "gated_i8", "prefill M=2048 K=2304 N=9216", f(), want,
-           rel_tol(want, 1e-2), f, p,
-           m_pre * d * 2 + 2 * g1.nbytes() + m_pre * ff * 2,
-           4 * m_pre * ff * d, iters=5)
 
     phase_top1(torch, res, x, w_head, fnorm, cfg)
     phase_topk(torch, res, "i8", w_head, fnorm, cfg)
@@ -577,6 +566,7 @@ def phase_kernels(torch):
     phase_codecs(torch, res, cfg)
     phase_k7b(torch, res)
     phase_k12(torch, res)
+    phase_prefill(torch, res)
     phase_k13(torch, res)
     phase_draw(torch, res, cfg)
 
@@ -1165,11 +1155,11 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
 
 
 def phase_codecs(torch, res, cfg):
-    """K1, K2, K3 and K6 for sfp, bf16, f32, i4 and nuq4 weights (kind nuq
-    holds SFP bytes and runs the sfp kernels: it is not timed twice),
-    every case with a tensor scale != 1 except the dense cases timed
-    beside torch.nn.functional.linear on the same A and weights, which run
-    at scale 1 (prefill; and, at decode, the library call alone).
+    """K1, K2, K3 and K6 at decode rows (M = 4) for sfp, bf16, f32, i4 and
+    nuq4 weights (kind nuq holds SFP bytes and runs the sfp kernels: it is
+    not timed twice), every case with a tensor scale != 1; the library
+    call (F.linear for the dense kinds) runs alone on the normalized A at
+    scale 1.  The prefill rows are phase_prefill's.
 
     Tolerances as for i8: 1e-3 of max|out| for f32 outputs (exact bf16
     products, f32 sums in another order, rare one-ulp flips of the
@@ -1183,7 +1173,7 @@ def phase_codecs(torch, res, cfg):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
-    d, ff, b, m_pre = cfg.model_dim, 9216, 4, 4 * 512
+    d, ff, b = cfg.model_dim, 9216, 4
     esize = {"sfp": 1, "bf16": 2, "f32": 4, "i4": 0.5625, "nuq4": 0.5625}
 
     def randn(*shape, s=1.0):
@@ -1195,7 +1185,6 @@ def phase_codecs(torch, res, cfg):
     norm = randn(d, s=0.05)
     x = randn(b, d, s=30.0)
     x_bf = mm.prenorm(x, norm)  # the decode A of the library calls
-    a_pre = randn(m_pre, d).to(torch.bfloat16)
     nuq = synth_quant(gen, 256, d, dev, "nuq")
     got = mm.matmul(x, nuq, prologue_norm=norm)
     want = mm.matmul_plain(x, nuq, prologue_norm=norm)
@@ -1230,7 +1219,7 @@ def phase_codecs(torch, res, cfg):
                f"decode qkv M=4 K={d} N=4096 (+prenorm pass), scale "
                f"{w_qkv.scale:.3g}", f(), want, rel_tol(want, 1e-3), f, p,
                b * d * 4 + d * 4 + weight_bytes(w_qkv) + b * 4096 * 4,
-               2 * b * 4096 * d, primary=not dense, library=lib)
+               2 * b * 4096 * d, primary=True, library=lib)
         w_lin = quant(d, ff)
         a = randn(b, ff, s=3.0).to(torch.bfloat16)
         post, add = randn(d, s=0.05), randn(b, d, s=10.0)
@@ -1248,22 +1237,7 @@ def phase_codecs(torch, res, cfg):
                b * ff * 2 + weight_bytes(w_lin) + b * d * 4, 2 * b * d * ff,
                library=lib)
         del w_lin
-        # Prefill qkv: dense kinds at scale 1, beside F.linear on the same
-        # A and weights (A cast to the weights' type for f32).
-        w_pre = quant(4096, d, scale=1.0) if dense else w_qkv
-        lib = None
-        if dense:
-            a_lib = a_pre.to(w_pre.arrays["w"].dtype)
-            lib = lambda: F.linear(a_lib, w_pre.arrays["w"])  # noqa: E731
-        f = lambda: mm.matmul(a_pre, w_pre)  # noqa: E731
-        p = lambda: mm.matmul_plain(a_pre, w_pre)  # noqa: E731
-        want = p()
-        record(res, torch, f"matmul_{kind}",
-               f"prefill qkv M=2048 K={d} N=4096, scale {w_pre.scale:.3g}",
-               f(), want, rel_tol(want, 1e-3), f, p,
-               m_pre * d * 2 + weight_bytes(w_pre) + m_pre * 4096 * 4,
-               2 * m_pre * 4096 * d, iters=5, primary=dense, library=lib)
-        del w_pre, w_qkv
+        del w_qkv
         g1, g2 = quant(ff, d), quant(ff, d)
         lib = int4pack(torch, x_bf, g1, g2) if kind == "i4" else None
         if dense:
@@ -1278,22 +1252,7 @@ def phase_codecs(torch, res, cfg):
                f"decode M=4 K={d} N={ff} (+prenorm pass), scales "
                f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
                b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
-               primary=not dense, library=lib)
-        lib = None
-        if dense:
-            g1, g2 = quant(ff, d, scale=1.0), quant(ff, d, scale=1.0)
-            a_lib = a_pre.to(g1.arrays["w"].dtype)
-            lib = lambda: F.gelu(F.linear(a_lib, g1.arrays["w"]),  # noqa
-                                 approximate="tanh") * F.linear(
-                a_lib, g2.arrays["w"])
-        f = lambda: mm.gated_ffn(a_pre, g1, g2)  # noqa: E731
-        p = lambda: mm.gated_ffn_plain(a_pre, g1, g2)  # noqa: E731
-        want = p()
-        record(res, torch, f"gated_{kind}",
-               f"prefill M=2048 K={d} N={ff}, scales {g1.scale:.3g}", f(),
-               want, rel_tol(want, 1e-2), f, p,
-               m_pre * d * 2 + 2 * weight_bytes(g1) + m_pre * ff * 2,
-               4 * m_pre * ff * d, iters=5, primary=dense, library=lib)
+               primary=True, library=lib)
         del g1, g2
         # The heads, at the embedding's size.
         w_head = quant(cfg.vocab_size, d)
@@ -1447,11 +1406,19 @@ def phase_k7b(torch, res):
         codes.to(torch.uint8).cpu().numpy())).to(dev)
     sel = torch.tensor([0, 1, 2, 3, 127, 128, 129, 255, 256, 300, 511, 640,
                         777, 1000, 1023, 64, 65, 191, 192, 16], device=dev)
+    # 110 more distinct columns for the prefill tile's 130 rows.
+    rest = torch.ones(k, dtype=torch.bool, device=dev)
+    rest[sel] = False
+    rest = rest.nonzero()[:, 0]
+    sel = torch.cat([sel, rest[torch.randperm(
+        len(rest), generator=gen, device=dev)[:110]]])
     for kind in ("i4", "nuq4"):
         base = synth_quant(gen, n, k, dev, kind)
         w = dataclasses.replace(base, arrays={**base.arrays, "codes": packed})
         want_all = w.dequantize()
-        for m in (16, 20):  # the decode tile (8 warps split K), the prefill's
+        # the decode tile (8 warps split K); the prefill tile (M > 16), its
+        # second block of rows holding 2 at M = 130
+        for m in (16, 20, 130):
             a = torch.zeros(m, k, device=dev)
             a[torch.arange(m), sel[:m]] = 1.0
             got = mm.matmul(a.to(torch.bfloat16), w)
@@ -1627,6 +1594,175 @@ def phase_k12(torch, res):
                   f"the layer alone {u_ms:.4f} ms", flush=True)
         del cases, w, g1, g2
         torch.cuda.empty_cache()
+
+
+def phase_prefill(torch, res):
+    """K1 and K2 at prefill rows: matmul_sm90.cu's wgmma tile (entries
+    matmul_sm90_<kind>, gated_sm90_<kind>), which takes every M > 16.
+
+    Timed at M = 2048 (path A's first prefill round, 4 x 512 rows), bf16
+    A, f32 out (K2: bf16), no passes (the prefill branch norms and adds in
+    torch ops), for every kind at Gemma2-2B widths (qkv, att_w, linear and
+    the gated FFN; kind nuq through the sfp kernels), i4 at Gemma2-27B's
+    and nuq4 at Gemma2-9B's, each beside its plain version, its ops bound
+    and the library call: F.linear (gelu(linear) * linear for K2) on the
+    same A and weights for bf16 and f32, whose synthetic weights have
+    scale 1; torch._weight_int4pack_mm on the codes repacked for i4
+    (`int4pack`).  Then, untimed, on a 264 x 1024 weight of each kind at
+    scale != 1 (N past a 128-column tile, K over 16 stages): ragged rows
+    (M = 17, 130, 1143) for K1 and K2, the prologue and epilogue passes at
+    M = 130, a stacked weight's layer (K12) at M = 130, and a one-hot A of
+    130 rows whose outputs are single weights (a misplaced k names its
+    16-byte chunk and stage); and a decode entry handed 17 rows, which must
+    raise.  Tolerances as phase_codecs': 1e-3 of max|out| for f32 outputs,
+    1e-2 for the gated GEMM's bf16 output; the one-hot reads 1e-6 (single
+    products; i8 closes inv * c - inv * zp against inv * (c - zp))."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from gemma_tpu_torch.models.configs import (config_gemma2_2b,
+                                                config_gemma2_9b,
+                                                config_gemma2_27b)
+    from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.utils.synth import synth_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2048)
+    m = 4 * 512
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    def rel_tol(want, rel):
+        return rel * float(want.float().abs().max())
+
+    def library(kind, a, w, w2=None):
+        if kind == "i4":
+            return int4pack(torch, a, w, w2)
+        if kind not in ("bf16", "f32"):
+            return None
+        al = a.to(w.arrays["w"].dtype)
+        if w2 is None:
+            return lambda: F.linear(al, w.arrays["w"])
+        return lambda: F.gelu(F.linear(al, w.arrays["w"]),
+                              approximate="tanh") * F.linear(al,
+                                                             w2.arrays["w"])
+
+    for width, cfg, kinds in (
+            ("2B", config_gemma2_2b(),
+             ("i8", "sfp", "nuq", "bf16", "f32", "i4", "nuq4")),
+            ("27B", config_gemma2_27b(), ("i4",)),
+            ("9B", config_gemma2_9b(), ("nuq4",))):
+        lc = cfg.layer_configs[0]
+        d, ff = cfg.model_dim, lc.ff_hidden_dim
+        n_qkv = (lc.heads + 2 * lc.kv_heads) * lc.qkv_dim
+        k_att = lc.heads * lc.qkv_dim
+        for kind in kinds:
+            codec = "sfp" if kind == "nuq" else kind
+            primary = width == "2B" and kind == codec
+            for name, n, k in (("qkv", n_qkv, d), ("att_w", d, k_att),
+                               ("linear", d, ff)):
+                w = synth_quant(gen, n, k, dev, kind)
+                a = randn(m, k).to(torch.bfloat16)
+                f = lambda: mm.matmul(a, w)  # noqa: E731
+                p = lambda: mm.matmul_plain(a, w)  # noqa: E731
+                want = p()
+                record(res, torch, f"matmul_sm90_{codec}",
+                       f"{width} {kind} prefill {name} M={m} K={k} N={n}, "
+                       f"scale {w.scale:.3g}", f(), want, rel_tol(want, 1e-3),
+                       f, p, m * k * 2 + weight_bytes(w) + m * n * 4,
+                       2 * m * n * k, iters=5,
+                       primary=primary and name == "qkv",
+                       library=library(kind, a, w))
+                del w, want
+            g1 = synth_quant(gen, ff, d, dev, kind)
+            g2 = synth_quant(gen, ff, d, dev, kind)
+            a = randn(m, d).to(torch.bfloat16)
+            f = lambda: mm.gated_ffn(a, g1, g2)  # noqa: E731
+            p = lambda: mm.gated_ffn_plain(a, g1, g2)  # noqa: E731
+            want = p()
+            record(res, torch, f"gated_sm90_{codec}",
+                   f"{width} {kind} prefill M={m} K={d} N={ff}, scales "
+                   f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
+                   m * d * 2 + 2 * weight_bytes(g1) + m * ff * 2,
+                   4 * m * ff * d, iters=5, primary=primary,
+                   library=library(kind, a, g1, g2))
+            del g1, g2, want
+            torch.cuda.empty_cache()
+
+    n, k = 264, 1024
+    sel = torch.randperm(k, generator=gen, device=dev)[:130]
+    hot = torch.zeros(130, k, device=dev)
+    hot[torch.arange(130, device=dev), sel] = 1.0
+    hot = hot.to(torch.bfloat16)
+
+    def quant(kind):
+        w = synth_quant(gen, n, k, dev, kind)
+        return w if w.scale != 1.0 else dataclasses.replace(w, scale=0.37)
+
+    def check(label, got, want, rel):
+        err = float((got.float() - want.float()).abs().max())
+        tol = rel * float(want.float().abs().max())
+        if not torch.isfinite(got.float()).all() or err > tol:
+            fail(f"{label}: max_abs_err {err} > {tol}")
+        return err / float(want.float().abs().max())
+
+    for kind in ("i8", "sfp", "bf16", "f32", "i4", "nuq4"):
+        w, w2 = quant(kind), quant(kind)
+        errs = []
+        for rows in (17, 130, 1143):
+            a = randn(rows, k).to(torch.bfloat16)
+            errs.append(check(f"matmul_sm90_{kind} M={rows}", mm.matmul(a, w),
+                              mm.matmul_plain(a, w), 1e-3))
+            errs.append(check(f"gated_sm90_{kind} M={rows}",
+                              mm.gated_ffn(a, w, w2),
+                              mm.gated_ffn_plain(a, w, w2), 1e-2))
+        x, norm = randn(130, k, s=30.0), randn(k, s=0.05)
+        post, add = randn(n, s=0.05), randn(130, n, s=10.0)
+        kw = dict(prologue_norm=norm, epilogue_norm=post, add=add)
+        errs.append(check(f"matmul_sm90_{kind} M=130 +pre +post",
+                          mm.matmul(x, w, **kw), mm.matmul_plain(x, w, **kw),
+                          1e-3))
+        errs.append(check(f"gated_sm90_{kind} M=130 +pre",
+                          mm.gated_ffn(x, w, w2, prologue_norm=norm),
+                          mm.gated_ffn_plain(x, w, w2, prologue_norm=norm),
+                          1e-2))
+        layers = [w] + [dataclasses.replace(quant(kind), scale=w.scale)
+                        for _ in range(2)]
+        st = mm.stack_quant_tensors(layers)
+        a = randn(130, k).to(torch.bfloat16)
+        errs.append(check(f"matmul_sm90_{kind} stacked layer 2 M=130",
+                          mm.matmul(a, st, layer=2),
+                          mm.matmul_plain(a, mm.take_layer(st, 2)), 1e-3))
+        errs.append(check(f"gated_sm90_{kind} stacked layer 1 M=130",
+                          mm.gated_ffn(a, st, st, layer=1),
+                          mm.gated_ffn_plain(a, mm.take_layer(st, 1),
+                                             mm.take_layer(st, 1)), 1e-2))
+        got, want = mm.matmul(hot, w), mm.matmul_plain(hot, w)
+        bad = (got - want).abs() > 1e-6 * float(want.abs().max())
+        if bool(bad.any()):
+            r, c = bad.nonzero()[0].tolist()
+            kk = int(sel[r])
+            fail(f"matmul_sm90_{kind}: one-hot row {r} (k {kk}: stage "
+                 f"{kk // 64}, 16-byte chunk {kk % 64 // 8}, nibble half "
+                 f"{kk % 256 // 128}) column {c} reads {float(got[r, c])}, "
+                 f"not the weight {float(want[r, c])}; {int(bad.sum())} "
+                 "outputs misplaced")
+        print(f"[2] prefill tile {kind}: M=17/130/1143 K1 and K2, M=130 with "
+              f"the passes, stacked layers, one-hot reads of 130 weights "
+              f"exact; max rel err {max(errs):.3g}", flush=True)
+    # A decode entry refuses prefill rows: routed there, 17 rows raise.
+    w = quant("i8")
+    saved, mm.DECODE_ROWS = mm.DECODE_ROWS, 4096
+    try:
+        mm.matmul(randn(17, k).to(torch.bfloat16), w)
+    except RuntimeError as e:
+        print(f"[2] the i8 decode entry refuses 17 rows: {e}", flush=True)
+    else:
+        fail("the decode entry took 17 rows")
+    finally:
+        mm.DECODE_ROWS = saved
 
 
 def phase_k13(torch, res):
@@ -2072,10 +2208,14 @@ def two_layer_chunks(torch, cfg, params, params_cpu, prompt,
 
 
 # The device functions of each counted kernel, as the profiler names them
-# (mm_<kind>_kernel's last template argument is GATED; the heads and the
+# (mm_<kind>_kernel's and mm_sm90_<kind>_kernel's last template argument
+# is GATED; the heads and the
 # attention kernels carry their weight or pool type in their names).
 def _port_kernel(device_name: str) -> str | None:
     for kind in WEIGHT_KINDS:
+        if device_name.startswith(f"void mm_sm90_{kind}_kernel<"):
+            return f"gated_sm90_{kind}" if "true>" in device_name \
+                else f"matmul_sm90_{kind}"
         if device_name.startswith(f"void mm_stacked_{kind}_kernel<"):
             return f"gated_stacked_{kind}" if "true>" in device_name \
                 else f"matmul_stacked_{kind}"
@@ -2381,7 +2521,8 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
     def schedule(engine, steps, head, kv="bf16", wkind="i8", att_kind=None,
                  dec=None, scan=False):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
-        and prefill attention per layer; a decode step 3 GEMMs, the gated
+        (their prefill tile, M = B x chunk rows > 16) and prefill
+        attention per layer; a decode step 3 GEMMs, the gated
         GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
         decode attention per layer, then its head: "top1" the fused greedy
         head, "topk" the fused top-k head with its merge pass and the
@@ -2399,11 +2540,11 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         d_mm = "matmul_stacked_" if scan else "matmul_"
         d_gated = "gated_stacked_" if scan else "gated_"
         per_layer = (2 if att_kind else 3) + split
-        want = {f"matmul_{wkind}": rounds * per_layer * layers
-                + (steps if head == "gemm" else 0),
+        want = {f"matmul_sm90_{wkind}": rounds * per_layer * layers,
+                f"matmul_{wkind}": steps if head == "gemm" else 0,
                 "matmul_prenorm": steps * ((2 + split) * layers + 1),
                 "matmul_postnorm_add": steps * 2 * layers,
-                f"gated_{wkind}": rounds * layers,
+                f"gated_sm90_{wkind}": rounds * layers,
                 f"flash_attention_{kv}": rounds * layers}
         want[f"{d_mm}{wkind}"] = want.get(f"{d_mm}{wkind}", 0) \
             + steps * per_layer * layers
@@ -2417,7 +2558,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
             want.update({f"topk_{wkind}": steps, "topk_merge": steps,
                          "draw_topk": steps})
         if att_kind:
-            want[f"matmul_{att_kind}"] = rounds * layers
+            want[f"matmul_sm90_{att_kind}"] = rounds * layers
             want[f"{d_mm}{att_kind}"] = want.get(f"{d_mm}{att_kind}", 0) \
                 + steps * layers
         return want, rounds, chunk

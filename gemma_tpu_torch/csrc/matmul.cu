@@ -53,19 +53,20 @@
 //                      norm needs all N = 2304 outputs of a row, which
 //                      blocks that split N cannot see.
 // Each entry reports through `launched` which of them it put on the stream
-// (kLaunched* bits), so the caller counts the launches that happened.
+// (kLaunched* bits), so the caller counts the launches that happened.  The
+// passes, the codecs' element decoders and the B operand are
+// gemm_common.cuh's, shared with matmul_sm90.cu.
 //
-// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
-//   decode (M = B <= 16) is bytes-bound on the weights: N*K*esize bytes (+
-//   8*N*K/128 scale bytes for i8; 0.5625 bytes a weight for i4 and nuq4),
-//   e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us, the logits head 256000x2304
-//   = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16), 332 MB (i4, nuq4) -> 182,
-//   176, 352, 99 us;
-//   prefill (M = 4*512) is operations-bound: 2*M*N*K, e.g. the gated FFN
-//   2*2*2048*9216*2304 = 174 GFLOP -> 176 us, whatever the codec;
-//   the heads (K3, K6) read the logits GEMM's weights and write no logits.
-// Simple design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
-// shared-memory staging.  Each warp owns a (16*MT) x (8*NT) output tile
+// This file is the decode tile: K1 and K2 at M = B <= 16 rows (their
+// entries refuse more: M > 16 is matmul_sm90.cu's wgmma tile), and the
+// heads K3 and K6.  What bounds it on an H100 (3.35 TB/s): the weights'
+// bytes, N*K*esize (+ 8*N*K/128 scale bytes for i8; 0.5625 bytes a weight
+// for i4 and nuq4), e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us, the logits
+// head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16), 332 MB
+// (i4, nuq4) -> 182, 176, 352, 99 us; the heads (K3, K6) read the logits
+// GEMM's weights and write no logits.
+// Design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
+// shared-memory staging.  Each warp owns a 16 x 8 output tile
 // and walks K in chunks of 2 x 64 bytes per B row (256 elements at two a
 // byte, else 128, 64 or 32 at 1, 2 or 4 bytes each): a lane loads 2 x 16 B
 // per B row per chunk, so the registers in flight are the same for every
@@ -77,20 +78,17 @@
 // step, so a lane's A columns of a step are c*256 + 128*nb + 64*h + 16*t +
 // 4*w + {0..3}; nuq4 takes the four nibbles of two consecutive bytes a
 // step, A columns c*256 + 64*h + 16*t + 4*w + 2*hf + {0, 1, 128, 129}.
-// At M <= 16 eight warps split the chunks of
-// one 16x8 tile (reduced through shared memory) and the next chunk's bytes
-// are prefetched into registers.  Measured on the card, the decode GEMMs
-// are latency-bound (waves of short blocks), not bandwidth-bound; left for
-// later: TMA/cp.async multi-stage pipelines with persistent blocks,
-// wgmma for prefill, and fusing the passes.
+// Eight warps split the chunks of one 16x8 tile (reduced through shared
+// memory) and the next chunk's bytes are prefetched into registers.
+// Measured on the card, the decode GEMMs are latency-bound (waves of short
+// blocks), not bandwidth-bound; left for later: cp.async/TMA pipelines
+// with persistent blocks, and fusing the passes.
 
 #include <climits>
 
-#include "common.cuh"
+#include "gemm_common.cuh"
 
 using namespace gemma;
-
-enum : int { kI8 = 0, kSfp = 1, kBf16 = 2, kF32 = 3, kI4 = 4, kNuq4 = 5 };
 
 // A codec's element size and what follows from it: a lane loads 16 bytes
 // (kEpl elements) from each half of a chunk, the 4 lanes of a B row cover
@@ -119,12 +117,6 @@ struct MMArgs {
   int M, N, K;
   int out_bf16;
 };
-
-// The bytes of a row of nuq4 tables: 16 per 256-block of K, padded to a
-// multiple of 128 (the layout the tables are loaded in).
-__host__ __device__ __forceinline__ int nuq4_tstride(int K) {
-  return (K / 256 * 16 + 127) / 128 * 128;
-}
 
 template <int CODEC, int NB, int NT>
 __device__ __forceinline__ void load_b(uint4 (&dst)[NB][NT][2],
@@ -174,19 +166,6 @@ __device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
   return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
 }
 
-// Two SFP bytes, one in the low byte of each 16-bit lane of x, -> two bf16
-// (matmul.py:_sfp_tile_to_bf16).  Lane masks come from a 0/1 bit times
-// 0xffff; no step carries from one lane into the other (v <= 127).
-__device__ __forceinline__ uint32_t sfp2_to_bf16x2(uint32_t x) {
-  const uint32_t sign = (x & 0x00800080u) << 8;
-  const uint32_t v = x & 0x007f007fu;
-  const uint32_t big = ((v >> 6) & 0x00010001u) * 0xffffu;  // v >= 64
-  const uint32_t nz = (((v + 0x007f007fu) >> 7) & 0x00010001u) * 0xffffu;
-  const uint32_t lo = 0x34003400u + (v << 5);
-  const uint32_t hi = 0x38003800u + (v << 4);
-  return (((lo & ~big) | (hi & big)) & nz) | sign;
-}
-
 // The B fragment (k, k+1 | k+2, k+3 as two bf16x2 words) of step `w` of
 // the half-chunk a lane holds in `q`.
 template <int CODEC>
@@ -206,36 +185,13 @@ __device__ __forceinline__ void b_frag(const uint4& q, int w, uint32_t* bf) {
   }
 }
 
-// i4: the four nibbles at position nb (0 low, 1 high) of the bytes of x ->
-// two bf16x2 words (bytes 0,1 and 2,3), exactly: a nibble c under the byte
-// 0x43 is the bf16 128 + c (ulp 1 in [128, 256)), minus 128 is c.
-__device__ __forceinline__ void i4_frag(uint32_t x, int nb, uint32_t* bf) {
-  const uint32_t n4 = (x >> (4 * nb)) & 0x0f0f0f0fu;
-  uint32_t raw[2] = {__byte_perm(n4, 0x43434343u, 0x4140u),
-                     __byte_perm(n4, 0x43434343u, 0x4342u)};
-  uint32_t bias = 0x43004300u;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const __nv_bfloat162 d = __hsub2(
-        *reinterpret_cast<__nv_bfloat162*>(&raw[e]),
-        *reinterpret_cast<__nv_bfloat162*>(&bias));
-    bf[e] = *reinterpret_cast<const uint32_t*>(&d);
-  }
-}
-
 // nuq4: the low 16 bits of `sel` are the four codes of two consecutive
 // packed bytes (elements j, 128 + j, j + 1, 129 + j of the 256-block);
-// `tbl` holds the block's 16 SFP table bytes.  A byte permute selects
-// among 8 bytes by the low three bits of each selector nibble (its fourth
-// bit would replicate a sign instead), so: pick from entries 0-7 and from
-// entries 8-15 by the codes' low three bits, then between the two by each
-// code's fourth bit.  bf[0] = (j, j + 1), bf[1] = (128 + j, 129 + j).
+// `tbl` holds the block's 16 SFP table bytes (nuq4_lookup4 picks them).
+// bf[0] = (j, j + 1), bf[1] = (128 + j, 129 + j).
 __device__ __forceinline__ void nuq4_frag(uint32_t sel, const uint4& tbl,
                                           uint32_t* bf) {
-  const uint32_t s7 = sel & 0x7777u;
-  const uint32_t lo = __byte_perm(tbl.x, tbl.y, s7);
-  const uint32_t hi = __byte_perm(tbl.z, tbl.w, s7);
-  const uint32_t r = __byte_perm(lo, hi, 0x3210u | ((sel >> 1) & 0x4444u));
+  const uint32_t r = nuq4_lookup4(sel, tbl);
   bf[0] = sfp2_to_bf16x2(__byte_perm(r, 0, 0x4240u));
   bf[1] = sfp2_to_bf16x2(__byte_perm(r, 0, 0x4341u));
 }
@@ -691,62 +647,6 @@ __device__ __forceinline__ void mm_stacked_body(const MMStackedArgs& q) {
   mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED, true>(p);
 }
 
-// out[m] = bf16(RMSNorm(a[m]) * (1 + w)): the GEMM prologue, f32 math,
-// mean over the logical K.  One block per row.
-__global__ void __launch_bounds__(256) prenorm_kernel(
-    const float* a, const float* w, __nv_bfloat16* out, int K) {
-  const int row = blockIdx.x;
-  const float* ar = a + (size_t)row * K;
-  __shared__ float red[8];
-  float ss = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) ss += ar[k] * ar[k];
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float tot = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) tot += red[i];
-  const float mul = 1.0f / sqrtf(tot / (float)K + 1e-6f);
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const float m = ar[k] * mul;
-    out[(size_t)row * K + k] = __float2bfloat16_rn(m + m * w[k]);
-  }
-}
-
-// out[m] = (add[m]) + postnorm(y[m]) over whole rows of N; w or add may be
-// null.  One block per row; out may alias y.
-__global__ void __launch_bounds__(256) postnorm_add_kernel(
-    const float* y, const float* w, const float* add, void* out, int N,
-    int out_bf16) {
-  const int row = blockIdx.x;
-  const float* yr = y + (size_t)row * N;
-  float mul = 1.f;
-  if (w != nullptr) {
-    __shared__ float red[8];
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < N; k += blockDim.x) ss += yr[k] * yr[k];
-    ss = warp_sum(ss);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-    __syncthreads();
-    float tot = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) tot += red[i];
-    mul = 1.0f / sqrtf(tot / (float)N + 1e-6f);
-  }
-  for (int k = threadIdx.x; k < N; k += blockDim.x) {
-    float v = yr[k];
-    if (w != nullptr) {
-      const float m = v * mul;
-      v = m + m * w[k];
-    }
-    if (add != nullptr) v += add[(size_t)row * N + k];
-    if (out_bf16)
-      static_cast<__nv_bfloat16*>(out)[(size_t)row * N + k] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(out)[(size_t)row * N + k] = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K3: the fused greedy head (replaces matmul.py:_top1_kernel).
 //
@@ -1125,10 +1025,6 @@ GEMMA_CODEC_KERNELS(f32, kF32, (kHeadWarps * 32))
 GEMMA_CODEC_KERNELS(i4, kI4, (kHeadWarps * 32, kHeadBlocksPerSM))
 GEMMA_CODEC_KERNELS(nuq4, kNuq4, (kHeadWarps * 32, kHeadBlocksPerSM))
 
-// Bits of an entry's `launched` report: its own kernel, then the passes.
-constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
-constexpr int kLaunchedMerge = 4;  // the top-k entries' second pass
-
 // K1 / K2, or with a layer pointer K12 over stacked weights.
 template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
 static void launch_mm(const MMArgs& p, const int* layer, cudaStream_t st) {
@@ -1164,39 +1060,6 @@ static void launch_mm(const MMArgs& p, const int* layer, cudaStream_t st) {
     mm_nuq4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
 }
 
-// A for the GEMM: `a` itself (bf16), or RMSNorm(a) written to a_scratch
-// when a prologue norm is given (a is then f32).
-static const __nv_bfloat16* operand_a(const void* a, const float* norm,
-                                      __nv_bfloat16* a_scratch, int M, int K,
-                                      int* launched, cudaStream_t st) {
-  if (norm == nullptr) return static_cast<const __nv_bfloat16*>(a);
-  prenorm_kernel<<<M, 256, 0, st>>>(static_cast<const float*>(a), norm, a_scratch, K);
-  *launched |= kLaunchedPrenorm;
-  return a_scratch;
-}
-
-// One B operand as the C entries receive it: the affine kinds bring
-// inv/zp (i8) or scales/mins (i4); nuq4 brings its tables, which travel in
-// the `inv` slot (it has no other use for it, so the kernels' argument
-// block is the same for every codec), and their row stride in bytes.
-struct BOperand {
-  const void* codes;
-  const float* inv;
-  const float* zp;
-  float scale;
-  int tstride;
-};
-
-static BOperand affine_b(const void* codes, const float* inv, const float* zp,
-                         float scale) {
-  return {codes, inv, zp, scale, 0};
-}
-
-static BOperand nuq4_b(const void* codes, const void* tables, int tstride,
-                       float scale) {
-  return {codes, static_cast<const float*>(tables), nullptr, scale, tstride};
-}
-
 // False when K or (nuq4) the tables' row stride is not what the kernels
 // walk: whole chunks, and table rows of nuq4_tstride(K) bytes.
 template <int CODEC>
@@ -1210,6 +1073,10 @@ static bool set_b(MMArgs& p, int b, const BOperand& w, int K) {
   return true;
 }
 
+// K1 and K2 here take the decode rows only: M > kDecodeRows is the
+// prefill tile's (matmul_sm90.cu), and these entries refuse it.
+constexpr int kDecodeRows = 16;
+
 // out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
 // y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
 // layer: null (K1), or the device layer index of stacked weights (K12).
@@ -1222,16 +1089,14 @@ static int matmul_entry(const void* a, const float* norm, const BOperand& w,
   const bool post = post_w != nullptr || add != nullptr;
   *launched = 0;
   MMArgs p = {};
-  if (!set_b<CODEC>(p, 0, w, K) || !set_b<CODEC>(p, 1, w, K))
+  if (M > kDecodeRows || !set_b<CODEC>(p, 0, w, K) ||
+      !set_b<CODEC>(p, 1, w, K))
     return (int)cudaErrorInvalidValue;
   p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   p.out = post ? static_cast<void*>(y) : out;
   p.M = M; p.N = N; p.K = K;
   p.out_bf16 = post ? 0 : out_bf16;
-  if (M <= 16)
-    launch_mm<CODEC, 1, 1, 8, 8, false>(p, layer, st);
-  else
-    launch_mm<CODEC, 2, 4, 1, 4, false>(p, layer, st);
+  launch_mm<CODEC, 1, 1, 8, 8, false>(p, layer, st);
   *launched |= kLaunchedSelf;
   if (post) {
     postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
@@ -1247,14 +1112,12 @@ static int gated_entry(const void* a, const float* norm, const BOperand& w1,
                        int K, int* launched, cudaStream_t st) {
   *launched = 0;
   MMArgs p = {};
-  if (!set_b<CODEC>(p, 0, w1, K) || !set_b<CODEC>(p, 1, w2, K))
+  if (M > kDecodeRows || !set_b<CODEC>(p, 0, w1, K) ||
+      !set_b<CODEC>(p, 1, w2, K))
     return (int)cudaErrorInvalidValue;
   p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   p.out = out; p.M = M; p.N = N; p.K = K; p.out_bf16 = 1;
-  if (M <= 16)
-    launch_mm<CODEC, 1, 1, 8, 8, true>(p, layer, st);
-  else
-    launch_mm<CODEC, 2, 2, 1, 4, true>(p, layer, st);
+  launch_mm<CODEC, 1, 1, 8, 8, true>(p, layer, st);
   *launched |= kLaunchedSelf;
   return (int)cudaGetLastError();
 }

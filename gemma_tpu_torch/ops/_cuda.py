@@ -42,7 +42,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # Per-source extra flags.  decode_attention.cu keeps mul/add unfused so
 # its RoPE and quantization round like the plain (separate-op) version.
 EXTRA_FLAGS = {"decode_attention.cu": ["-fmad=false"]}
-SHARED_HEADERS = ["common.cuh"]
+SHARED_HEADERS = ["common.cuh", "gemm_common.cuh"]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -223,4 +223,5 @@ def all_kernels() -> list[Kernel]:
             *decode_attention.DECODE_ATTEND.values(),
             *decode_attention.DECODE_SBLOCKED.values(),
             *matmul.MATMUL_STACKED.values(), *matmul.GATED_STACKED.values(),
+            *matmul.MATMUL_SM90.values(), *matmul.GATED_SM90.values(),
             *nuq_diag.KERNELS.values()]

@@ -21,10 +21,13 @@ port carries (QuantTensor.kind):
 Both 4.5-bit kinds take 0.5625 bytes a weight.
 
 Every GEMM has a kernel path and a plain path.  For CUDA tensors the
-wrappers launch the hand-written kernels of csrc/matmul.cu (K1 with its
-norm prologue and post-norm passes, K2, K3 the fused greedy head
+wrappers launch the hand-written kernels of csrc/ (K1 with its norm
+prologue and post-norm passes, K2, K3 the fused greedy head
 `matmul_top1`, K6 the fused top-k head `matmul_topk`, each built once per
-codec) or raise; for CPU tensors they take the plain versions below,
+codec) or raise: K1 and K2 take the decode tile of matmul.cu at M <=
+DECODE_ROWS rows and the wgmma tile of matmul_sm90.cu above it (prefill),
+whose entries also take stacked weights; for CPU tensors they take the
+plain versions below,
 which compute the same function: the B tile becomes bf16 (A's dtype) and
 feeds the product, and the group affines are applied to the output:
     i8:  out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g)
@@ -36,8 +39,9 @@ Stacked weights (the scan-over-layers decode, engine/scan_decode.py):
 `stack_quant_tensors` lays L same-shaped weights into one [L, ...] tensor
 (`stacked=True`), and `matmul` / `gated_ffn` take `layer=t` to multiply
 by layer t of it: on CUDA the stacked entries of K1 and K2 (K12) read the
-layer index from the device and offset their B pointers by one layer,
-so no layer is copied; on the CPU `take_layer` cuts the layer out and the
+layer index from the device and offset their B pointers by one layer (the
+prefill tile: address it as the third coordinate of its tensor maps), so
+no layer is copied; on the CPU `take_layer` cuts the layer out and the
 plain versions run on it.
 """
 
@@ -67,6 +71,10 @@ K_MULTIPLE = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32, "i4": 256,
 MAX_TOPK = 128  # K6's list per row; above it the head is composed
 
 SOURCE = "matmul.cu"
+SM90_SOURCE = "matmul_sm90.cu"
+# K1 and K2 at M <= DECODE_ROWS run matmul.cu's decode tile (whose entries
+# refuse more rows), above it matmul_sm90.cu's prefill tile.
+DECODE_ROWS = 16
 PRENORM = _cuda.Kernel(
     "matmul_prenorm", SOURCE, "gemma_prenorm_bf16",
     [_cuda.P] * 3 + [_cuda.I] * 2)
@@ -107,6 +115,19 @@ MATMUL_STACKED = {c: _cuda.Kernel(
 GATED_STACKED = {c: _cuda.Kernel(
     f"gated_stacked_{c}", SOURCE, f"gemma_gated_stacked_{c}",
     [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 3 + [_cuda.I] * 3,
+    passes=(PRENORM,)) for c in K_MULTIPLE}
+# K1 and K2 at M > DECODE_ROWS (prefill), plain or stacked: the stacked
+# entries' layout with the layer pointer (None when plain) followed by the
+# number of layers.
+MATMUL_SM90 = {c: _cuda.Kernel(
+    f"matmul_sm90_{c}", SM90_SOURCE, f"gemma_matmul_sm90_{c}",
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.P, _cuda.I] + [_cuda.P] * 5
+    + [_cuda.I] * 4,
+    passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
+GATED_SM90 = {c: _cuda.Kernel(
+    f"gated_sm90_{c}", SM90_SOURCE, f"gemma_gated_sm90_{c}",
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P, _cuda.I]
+    + [_cuda.P] * 2 + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 TOP1 = {c: _cuda.Kernel(
     f"top1_{c}", SOURCE, f"gemma_top1_{c}",
@@ -349,6 +370,23 @@ def _layer_ptr(w: QuantTensor, layer: int, device) -> int:
         ids = _layer_ids[(device, n_layers)] = torch.arange(
             n_layers, dtype=torch.int32, device=device)
     return ids.data_ptr() + 4 * layer
+
+
+def _gemm_kernel(m: int, w: QuantTensor, layer, device, decode: dict,
+                 stacked: dict, sm90: dict):
+    """The K1 / K2 entry for M = m rows of A, and the arguments it takes
+    after the B operands: the prefill tile's (layer pointer or None, the
+    number of layers) above DECODE_ROWS, else the decode tile's (plain,
+    or stacked with its layer pointer)."""
+    codec = _CODEC[w.kind]
+    if m > DECODE_ROWS:
+        if layer is None:
+            return sm90[codec], (None, 1)
+        return sm90[codec], (_layer_ptr(w, layer, device),
+                             w.data().shape[0])
+    if layer is None:
+        return decode[codec], ()
+    return stacked[codec], (_layer_ptr(w, layer, device),)
 
 
 def _on(a: np.ndarray, device) -> torch.Tensor:
@@ -694,7 +732,13 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
             w = take_layer(w, layer)
         return matmul_plain(a, w, out_dtype, add, prologue_norm,
                             epilogue_norm)
-    codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul")
+    return _matmul_cuda(a, w, out_dtype, add, prologue_norm, epilogue_norm,
+                        layer)
+
+
+def _matmul_cuda(a, w, out_dtype, add, prologue_norm, epilogue_norm, layer):
+    """matmul's kernel path: checks, allocates and launches."""
+    _, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul")
     a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype}")
@@ -706,14 +750,11 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
     if post:
         y = out if out_dtype == torch.float32 else torch.empty(
             m, w.n, dtype=torch.float32, device=a.device)
-    b_args = (b_ptr, inv_ptr, zp_ptr, float(w.scale))
-    if layer is None:
-        kernel = MATMUL[codec]
-    else:
-        kernel = MATMUL_STACKED[codec]
-        b_args += (_layer_ptr(w, layer, a.device),)
+    kernel, layer_args = _gemm_kernel(m, w, layer, a.device, MATMUL,
+                                      MATMUL_STACKED, MATMUL_SM90)
     kernel.launch(
-        a.data_ptr(), _cuda.ptr(norm), *b_args, _cuda.ptr(epilogue_norm),
+        a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
+        float(w.scale), *layer_args, _cuda.ptr(epilogue_norm),
         _cuda.ptr(add), _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(),
         m, w.n, w.k, int(out_dtype == torch.bfloat16))
     return out
@@ -828,6 +869,11 @@ def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None,
         if layer is not None:
             w1, w2 = take_layer(w1, layer), take_layer(w2, layer)
         return gated_ffn_plain(x, w1, w2, out_dtype, prologue_norm)
+    return _gated_cuda(x, w1, w2, out_dtype, prologue_norm, layer)
+
+
+def _gated_cuda(x, w1, w2, out_dtype, prologue_norm, layer):
+    """gated_ffn's kernel path: checks, allocates and launches."""
     codec, b1, inv1, zp1 = _b_operand(w1, "gated_ffn")
     codec2, b2, inv2, zp2 = _b_operand(w2, "gated_ffn")
     if w1.shape != w2.shape or codec != codec2:
@@ -838,12 +884,10 @@ def gated_ffn(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None,
     x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm)
     m = x.shape[0]
     out = torch.empty(m, w1.n, dtype=torch.bfloat16, device=x.device)
-    b_args = (b1, inv1, zp1, float(w1.scale), b2, inv2, zp2, float(w2.scale))
-    if layer is None:
-        kernel = GATED[codec]
-    else:
-        kernel = GATED_STACKED[codec]
-        b_args += (_layer_ptr(w1, layer, x.device),)
-    kernel.launch(x.data_ptr(), _cuda.ptr(norm), *b_args,
-                  _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n, w1.k)
+    kernel, layer_args = _gemm_kernel(m, w1, layer, x.device, GATED,
+                                      GATED_STACKED, GATED_SM90)
+    kernel.launch(x.data_ptr(), _cuda.ptr(norm), b1, inv1, zp1,
+                  float(w1.scale), b2, inv2, zp2, float(w2.scale),
+                  *layer_args, _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n,
+                  w1.k)
     return out

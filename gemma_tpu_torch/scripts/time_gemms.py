@@ -1,5 +1,5 @@
-"""Time the unstacked decode GEMM kernels (K1, K2, K3, K6) of a checkout of
-the port on the card, so that two checkouts can be compared in one run:
+"""Time the unstacked GEMM kernels (K1, K2, K3, K6) of a checkout of the
+port on the card, so that two checkouts can be compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_gemms.py [--root DIR]
 
@@ -7,7 +7,10 @@ the port on the card, so that two checkouts can be compared in one run:
 this file is in); its kernels build under DIR/build/.  Cases: Gemma2-2B
 widths at batch 4 for i8 and i4 weights (K1 qkv with its prologue, att_w
 and linear with the post-norm + residual pass, K2 with its prologue, K3
-and K6 with k_top 64 over the 256000-row head).  Each is timed as
+and K6 with k_top 64 over the 256000-row head), and at the 2048 rows of a
+prefill round (4 x 512) for i8, bf16 and i4 weights (K1 qkv, att_w and
+linear, K2; bf16 A, no passes, as the prefill branch calls them).  Each
+is timed as
 chip_smoke.py times kernels (`ops/_cuda.time_ms`: CUDA-graph replays
 between CUDA events).  Prints one JSON line.
 """
@@ -66,6 +69,19 @@ def kernel_cases(torch, mm, synth_quant):
             x, h, final_cap=30.0, prologue_norm=norm)
         out[f"K6 {kind} k64"] = lambda h=head: mm.matmul_topk(
             x, h, 64, final_cap=30.0, prologue_norm=norm)
+    m = 4 * 512
+    for kind in ("i8", "bf16", "i4"):
+        for name, n, k in (("qkv", n_qkv, d), ("att_w", d, 2048),
+                           ("linear", d, ff)):
+            w = synth_quant(gen, n, k, dev, kind)
+            a = randn(m, k).to(torch.bfloat16)
+            out[f"K1 {kind} prefill {name}"] = lambda a=a, w=w: mm.matmul(
+                a, w)
+        g1 = synth_quant(gen, ff, d, dev, kind)
+        g2 = synth_quant(gen, ff, d, dev, kind)
+        a = randn(m, d).to(torch.bfloat16)
+        out[f"K2 {kind} prefill"] = lambda a=a, g1=g1, g2=g2: mm.gated_ffn(
+            a, g1, g2)
     return out
 
 

@@ -16,7 +16,11 @@ Phases (any failure exits non-zero before the result line):
      sfp, bf16, f32, i4 and nuq4 weights (kind nuq runs the sfp kernels),
      the fused top-k head for the same kinds (k_top 2, 64, 128; M = 4 and
      20; an allowed mask; fewer live columns than k_top; saturated ties)
-     with its merge pass alone; the packed kinds once more at the decode
+     with its merge pass alone; the decode tile of K1 and K2
+     (csrc/matmul_decode.cu) for every kind, plain and stacked, at M = 1,
+     4, 8, 13 and 16 (`check_decode_rows`: each call repeated bit for bit,
+     row 0 alone equal to row 0 in the batch) and one-hot reads
+     (`check_one_hot_rows`); the packed kinds once more at the decode
      shapes of Gemma2-27B (i4, nuq4) and Gemma2-9B (nuq4), with a weight
      whose codes encode their column and nuq4 tables of equal, repeated
      and -0.0 entries; the draw kernel; decode attention and prefill
@@ -285,9 +289,11 @@ for _kind in WEIGHT_KINDS:
              "i4": "4-bit group-affine", "nuq4": "4-bit table-coded"
              }.get(_kind, _kind)
     REPLACES[f"matmul_{_kind}"] = (
-        f"gemma_tpu/ops/matmul.py:577 (_mm_kernel) with {_CODEC_OF[_kind]}")
+        f"gemma_tpu/ops/matmul.py:577 (_mm_kernel, call :908) at M <= 16 "
+        f"rows with {_CODEC_OF[_kind]}")
     REPLACES[f"gated_{_kind}"] = (
-        f"gemma_tpu/ops/matmul.py:629 (_gated_kernel) with {_CODEC_OF[_kind]}")
+        f"gemma_tpu/ops/matmul.py:629 (_gated_kernel, call :998) at M <= 16 "
+        f"rows with {_CODEC_OF[_kind]}")
     REPLACES[f"top1_{_kind}"] = (
         f"gemma_tpu/ops/matmul.py:1228 (_top1_kernel) with {_CODEC_OF[_kind]}")
     REPLACES[f"topk_{_kind}"] = (
@@ -472,6 +478,64 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
         entry.update({k: v for k, v in c.items() if k != "tol"})
 
 
+# The decode tile's row counts (matmul_decode.cu: one n-tile of A's rows to
+# 8, two above; 16 is the most its entries take).
+DECODE_ROWS_CHECKED = (1, 4, 8, 13, 16)
+
+
+def check_decode_rows(torch, gen, label, k, call, plain, rel):
+    """One decode GEMM at every M of DECODE_ROWS_CHECKED on bf16 A, held
+    against its plain version (`rel` of max|out|: 1e-3 f32 out, 1e-2 the
+    gated bf16 out); each call repeated gives the same bits (no atomics in
+    the sums), and row 0 alone the same bits as row 0 in the batch (the
+    split of K does not depend on M)."""
+    a16 = torch.randn(16, k, generator=gen, device="cuda").mul_(3.0).to(
+        torch.bfloat16)
+    worst = 0.0
+    for m in DECODE_ROWS_CHECKED:
+        a = a16[:m].contiguous()
+        got, want = call(a), plain(a)
+        err = float((got.float() - want.float()).abs().max())
+        tol = rel * float(want.float().abs().max())
+        worst = max(worst, err / max(tol, 1e-30))
+        if err > tol:
+            fail(f"{label} M={m}: max_abs_err {err:.4g} over tol {tol:.4g}")
+        if not torch.equal(got, call(a)):
+            fail(f"{label} M={m}: a repeat gave other bits")
+        if m > 1 and not torch.equal(got[:1], call(a[:1].contiguous())):
+            fail(f"{label} M={m}: row 0 differs from row 0 alone")
+    print(f"[2] {label}: M in {DECODE_ROWS_CHECKED} within tol (worst "
+          f"err/tol {worst:.3g}), repeats and row 0 alone bit-identical",
+          flush=True)
+
+
+def check_one_hot_rows(torch, label, w, ms=DECODE_ROWS_CHECKED):
+    """One-hot rows of A (row i reads column 7 i + 3 i^2 mod K): each
+    output is one dequantized weight, which pins the fragment mapping of
+    weights to A columns (1e-6 of max|w|: the group affines land on the
+    output in f32)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    k = w.k
+    want_all = w.dequantize()
+    if w.kind == "f32":  # the tile multiplies f32 weights rounded to bf16
+        want_all = w.arrays["w"].to(torch.bfloat16).float() * w.scale
+    for m in ms:
+        cols = torch.tensor([(7 * i + 3 * i * i) % k for i in range(m)],
+                            device="cuda")
+        a = torch.zeros(m, k, device="cuda")
+        a[torch.arange(m), cols] = 1.0
+        got = mm.matmul(a.to(torch.bfloat16), w)
+        want = want_all[:, cols].T
+        err = float((got - want).abs().max())
+        tol = 1e-6 * float(want_all.abs().max())
+        if err > tol:
+            fail(f"{label} one-hot A, M={m}: max_abs_err {err:.3g} over tol "
+                 f"{tol:.3g}: a weight met the wrong A column")
+    print(f"[2] {label} one-hot A, M in {tuple(ms)}: each output is one "
+          f"dequantized weight", flush=True)
+
+
 def phase_kernels(torch):
     """Each kernel vs its plain version at the serving path's shapes."""
     import dataclasses
@@ -559,6 +623,14 @@ def phase_kernels(torch):
            want, rel_tol(want, 1e-2), f, p,
            b * d * 4 + 2 * g1.nbytes() + b * ff * 2, 4 * b * ff * d,
            primary=True)
+    # The decode tile at every row count, repeats, row 0 alone, one-hot.
+    check_decode_rows(torch, gen, "matmul_i8 decode qkv", d,
+                      lambda a: mm.matmul(a, w_qkv),
+                      lambda a: mm.matmul_plain(a, w_qkv), 1e-3)
+    check_decode_rows(torch, gen, "gated_i8 decode", d,
+                      lambda a: mm.gated_ffn(a, g1, g2),
+                      lambda a: mm.gated_ffn_plain(a, g1, g2), 1e-2)
+    check_one_hot_rows(torch, "matmul_i8", w_qkv)
 
     phase_top1(torch, res, x, w_head, fnorm, cfg)
     phase_topk(torch, res, "i8", w_head, fnorm, cfg)
@@ -1236,6 +1308,14 @@ def phase_codecs(torch, res, cfg):
                rel_tol(want, 1e-3), f, p,
                b * ff * 2 + weight_bytes(w_lin) + b * d * 4, 2 * b * d * ff,
                library=lib)
+        check_decode_rows(torch, gen, f"matmul_{kind} decode qkv", d,
+                          lambda a: mm.matmul(a, w_qkv),
+                          lambda a: mm.matmul_plain(a, w_qkv), 1e-3)
+        # K split over a cluster of blocks (decode_split: 9216 > 4608).
+        check_decode_rows(torch, gen, f"matmul_{kind} decode linear", ff,
+                          lambda a: mm.matmul(a, w_lin),
+                          lambda a: mm.matmul_plain(a, w_lin), 1e-3)
+        check_one_hot_rows(torch, f"matmul_{kind}", w_qkv)
         del w_lin
         del w_qkv
         g1, g2 = quant(ff, d), quant(ff, d)
@@ -1253,6 +1333,9 @@ def phase_codecs(torch, res, cfg):
                f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
                b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
                primary=True, library=lib)
+        check_decode_rows(torch, gen, f"gated_{kind} decode", d,
+                          lambda a: mm.gated_ffn(a, g1, g2),
+                          lambda a: mm.gated_ffn_plain(a, g1, g2), 1e-2)
         del g1, g2
         # The heads, at the embedding's size.
         w_head = quant(cfg.vocab_size, d)
@@ -1338,6 +1421,9 @@ def phase_k7b(torch, res):
                b * d * 4 + d * 4 + weight_bytes(w) + b * n_qkv * 4,
                2 * b * n_qkv * d,
                library=int4pack(torch, x_bf, w) if kind == "i4" else None)
+        check_decode_rows(torch, gen, f"matmul_{kind} {width} decode qkv", d,
+                          lambda a, w=w: mm.matmul(a, w),
+                          lambda a, w=w: mm.matmul_plain(a, w), 1e-3)
         for name, k_in in (("att_w", k_att), ("linear", ff)):
             w = synth_quant(gen, d, k_in, dev, kind)
             a = randn(b, k_in, s=3.0).to(torch.bfloat16)
@@ -1351,6 +1437,11 @@ def phase_k7b(torch, res):
                    b * k_in * 2 + weight_bytes(w) + 2 * b * d * 4,
                    2 * b * d * k_in,
                    library=int4pack(torch, a, w) if kind == "i4" else None)
+            if name == "linear":  # K split over a cluster of 4 or 8 blocks
+                check_decode_rows(
+                    torch, gen, f"matmul_{kind} {width} decode linear", k_in,
+                    lambda a, w=w: mm.matmul(a, w),
+                    lambda a, w=w: mm.matmul_plain(a, w), 1e-3)
         g1 = synth_quant(gen, ff, d, dev, kind)
         g2 = synth_quant(gen, ff, d, dev, kind)
         f = lambda: mm.gated_ffn(x, g1, g2, prologue_norm=norm)  # noqa: E731
@@ -1361,6 +1452,9 @@ def phase_k7b(torch, res):
                rel_tol(want, 1e-2), f, p,
                b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
                library=int4pack(torch, x_bf, g1, g2) if kind == "i4" else None)
+        check_decode_rows(torch, gen, f"gated_{kind} {width} decode", d,
+                          lambda a: mm.gated_ffn(a, g1, g2),
+                          lambda a: mm.gated_ffn_plain(a, g1, g2), 1e-2)
         del g1, g2, w
         w_head = synth_quant(gen, n_vocab, d, dev, kind, rms=EMBEDDING_RMS)
         kw = dict(final_cap=cfg.final_cap, prologue_norm=norm)
@@ -1416,9 +1510,10 @@ def phase_k7b(torch, res):
         base = synth_quant(gen, n, k, dev, kind)
         w = dataclasses.replace(base, arrays={**base.arrays, "codes": packed})
         want_all = w.dequantize()
-        # the decode tile (8 warps split K); the prefill tile (M > 16), its
-        # second block of rows holding 2 at M = 130
-        for m in (16, 20, 130):
+        # the decode tile (one n-tile of A's rows to 8, two above); the
+        # prefill tile (M > 16), its second block of rows holding 2 at M =
+        # 130
+        for m in (*DECODE_ROWS_CHECKED, 20, 130):
             a = torch.zeros(m, k, device=dev)
             a[torch.arange(m), sel[:m]] = 1.0
             got = mm.matmul(a.to(torch.bfloat16), w)
@@ -1592,6 +1687,20 @@ def phase_k12(torch, res):
             res[name]["cases"][-1]["unstacked_ms"] = u_ms
             print(f"[2] {name:24s} {label} layer {t}: unstacked kernel on "
                   f"the layer alone {u_ms:.4f} ms", flush=True)
+            if "att_w" not in label:  # the stacked tile at every row count
+                k_in = a_lib.shape[1]
+                if w2 is None:
+                    check_decode_rows(
+                        torch, gen, f"{name} {label.split(' M=')[0]} layer "
+                        f"{t}", k_in,
+                        lambda a, w=w, t=t: mm.matmul(a, w, layer=t),
+                        lambda a, wl=wl: mm.matmul_plain(a, wl), rel)
+                else:
+                    check_decode_rows(
+                        torch, gen, f"{name} {label.split(' M=')[0]} layer "
+                        f"{t}", k_in,
+                        lambda a, t=t: mm.gated_ffn(a, w, w2, layer=t),
+                        lambda a: mm.gated_ffn_plain(a, wl, w2l), rel)
         del cases, w, g1, g2
         torch.cuda.empty_cache()
 

@@ -1,19 +1,18 @@
-// Quantized-weight GEMMs for Hopper (sm_90a): K1, K2, K3 and K6 of the
-// port, each instantiated per weight codec (K7a's one-byte and dense
-// decoders, K7b's 4.5-bit ones).
+// The fused logits heads for Hopper (sm_90a): K3 and K6 of the port, each
+// instantiated per weight codec (K7a's one-byte and dense decoders, K7b's
+// 4.5-bit ones), and the C entries of the norm passes alone.
 //
-// Replaces gemma_tpu/ops/matmul.py:_mm_kernel (K1, with the _norm_a
-// prologue and the post-norm + residual epilogue), matmul.py:_gated_kernel
-// (K2), matmul.py:_top1_kernel (K3, the fused greedy head; see top1_body
-// below), matmul.py:_topk_kernel (K6, the fused top-k head; see topk_body)
-// and, inside all four, matmul.py:_acc_step's i8, sfp/nuq and bf16/f32
-// branches with _sfp_tile_to_bf16 (K7a) and its nuq4 and i4 branches
-// (K7b); and K12, K1 and K2 on one layer of a stacked [L, N, K] weight
-// (matmul.py:_b_inputs_stacked feeding _matmul_pallas / _gated_pallas;
-// see mm_stacked_body).  Computes
-//   C[M, N] = scale * A[M, K] . dequant(B)[N, K]^T
-// with A bf16, the B tile turned into bf16 in registers, products
-// accumulated in f32.  The codecs (template parameter CODEC):
+// Replaces gemma_tpu/ops/matmul.py:_top1_kernel (K3, the fused greedy head;
+// see top1_body below), matmul.py:_topk_kernel (K6, the fused top-k head;
+// see topk_body) and, inside both, matmul.py:_acc_step's i8, sfp/nuq and
+// bf16/f32 branches with _sfp_tile_to_bf16 (K7a) and its nuq4 and i4
+// branches (K7b).  K1 and K2 (and K12, their stacked form) are
+// matmul_decode.cu's at M <= 16 rows and matmul_sm90.cu's above.  The
+// heads compute
+//   logits[M, N] = scale * A[M, K] . dequant(B)[N, K]^T
+// without writing them, with A bf16, the B tile turned into bf16 in
+// registers, products accumulated in f32.  The codecs (template parameter
+// CODEC):
 //   i8    codes i8 [N, K] + inv/zp f32 [N, K/128], dequant = inv*(c - zp)
 //         per 128-wide K group g, applied to the OUTPUT as the TPU kernel
 //         does: C += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g), so
@@ -43,67 +42,36 @@
 //         128-lane gather windows have no counterpart: a table never
 //         leaves the lane's registers.  The tensor scale multiplies the
 //         output.
-// The gated variant keeps two accumulators over one A and emits bf16
-// gelu_tanh(C1) * C2 with matmul.py:664-665's constants.  One C entry per
-// GEMM runs up to three kernels on the stream:
-//   prenorm_kernel     A f32 -> bf16 RMSNorm(A) (f32 mean over the logical
-//                      K, (1 + w)), once per row instead of in every block;
-//   mm_<kind>_kernel   the GEMM (or gated GEMM);
-//   postnorm_add_kernel  out = add + postnorm(C) over whole rows: the post
-//                      norm needs all N = 2304 outputs of a row, which
-//                      blocks that split N cannot see.
-// Each entry reports through `launched` which of them it put on the stream
-// (kLaunched* bits), so the caller counts the launches that happened.  The
-// passes, the codecs' element decoders and the B operand are
-// gemm_common.cuh's, shared with matmul_sm90.cu.
+// One C entry per head runs prenorm_kernel (A f32 -> bf16 RMSNorm(A), once
+// per row instead of in every block) before its kernel, and K6 its merge
+// after; each entry reports through `launched` which of them it put on the
+// stream (kLaunched* bits), so the caller counts the launches that
+// happened.  The passes, the codecs' element decoders and the B operand
+// are gemm_common.cuh's.
 //
-// This file is the decode tile: K1 and K2 at M = B <= 16 rows (their
-// entries refuse more: M > 16 is matmul_sm90.cu's wgmma tile), and the
-// heads K3 and K6.  What bounds it on an H100 (3.35 TB/s): the weights'
-// bytes, N*K*esize (+ 8*N*K/128 scale bytes for i8; 0.5625 bytes a weight
-// for i4 and nuq4), e.g. qkv 4096x2304 i8 = 9.9 MB -> 2.9 us, the logits
-// head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16), 332 MB
-// (i4, nuq4) -> 182, 176, 352, 99 us; the heads (K3, K6) read the logits
-// GEMM's weights and write no logits.
-// Design: mma.sync m16n8k16 (bf16 in, f32 accumulate) with no
-// shared-memory staging.  Each warp owns a 16 x 8 output tile
-// and walks K in chunks of 2 x 64 bytes per B row (256 elements at two a
-// byte, else 128, 64 or 32 at 1, 2 or 4 bytes each): a lane loads 2 x 16 B
-// per B row per chunk, so the registers in flight are the same for every
-// codec, and converts in registers (byte permutes and adds for i8,
-// common.cuh).  The K of a chunk are permuted identically on A and B (a
-// sum over k does not care) so each lane's bytes are contiguous.  For the
-// packed kinds a chunk is one 256-block: i4 walks its low nibbles (group
-// 2c) and then its high nibbles (group 2c + 1), four consecutive bytes a
-// step, so a lane's A columns of a step are c*256 + 128*nb + 64*h + 16*t +
-// 4*w + {0..3}; nuq4 takes the four nibbles of two consecutive bytes a
-// step, A columns c*256 + 64*h + 16*t + 4*w + 2*hf + {0, 1, 128, 129}.
-// Eight warps split the chunks of one 16x8 tile (reduced through shared
-// memory) and the next chunk's bytes are prefetched into registers.
-// Measured on the card, the decode GEMMs are latency-bound (waves of short
-// blocks), not bandwidth-bound; left for later: cp.async/TMA pipelines
-// with persistent blocks, and fusing the passes.
+// What bounds the heads on an H100 (3.35 TB/s): the weights' bytes, e.g.
+// the logits head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16),
+// 332 MB (i4, nuq4) -> 182, 176, 352, 99 us; they write no logits.
+// Design (mm_tile / mm_tile_packed): mma.sync m16n8k16 (bf16 in, f32
+// accumulate) with no shared-memory staging.  A block walks 8-column tiles
+// of N; each tile is one 16 x 8 output tile whose K eight warps split, in
+// chunks of 2 x 64 bytes per B row (256 elements at two a byte, else 128,
+// 64 or 32 at 1, 2 or 4 bytes each): a lane loads 2 x 16 B per B row per
+// chunk and converts in registers.  The K of a chunk are permuted
+// identically on A and B (a sum over k does not care) so each lane's bytes
+// are contiguous.  For the packed kinds a chunk is one 256-block: i4 walks
+// its low nibbles (group 2c) and then its high nibbles (group 2c + 1),
+// four consecutive bytes a step, so a lane's A columns of a step are
+// c*256 + 128*nb + 64*h + 16*t + 4*w + {0..3}; nuq4 takes the four nibbles
+// of two consecutive bytes a step, A columns c*256 + 64*h + 16*t + 4*w +
+// 2*hf + {0, 1, 128, 129}.  The warps' partial tiles meet in shared memory
+// and the next chunk's bytes are prefetched into registers.
 
 #include <climits>
 
 #include "gemm_common.cuh"
 
 using namespace gemma;
-
-// A codec's element size and what follows from it: a lane loads 16 bytes
-// (kEpl elements) from each half of a chunk, the 4 lanes of a B row cover
-// 64 bytes per half, so a chunk spans 8 * kEpl of K in kEpl / 2 steps of
-// mma.sync m16n8k16 (each lane brings 4 K per step).  The packed kinds
-// hold two elements a byte; i4's chunk is two 128-wide affine groups.
-template <int CODEC>
-struct Codec {
-  static constexpr bool kPacked = CODEC == kI4 || CODEC == kNuq4;
-  static constexpr int kEsize = CODEC == kBf16 ? 2 : CODEC == kF32 ? 4 : 1;
-  static constexpr int kEpl = kPacked ? 32 : 16 / kEsize;
-  static constexpr int kChunk = 8 * kEpl;  // 256, 128, 64, 32 elements
-  static constexpr int kSteps = kEpl / 2;  // 16, 8, 4, 2
-  static constexpr int kGroups = CODEC == kI4 ? 2 : 1;  // per chunk
-};
 
 struct MMArgs {
   const __nv_bfloat16* a;  // [M, K]
@@ -159,29 +127,6 @@ __device__ __forceinline__ void load_t(uint4 (&dst)[NB][NT], const MMArgs& p,
                 tables + (size_t)n * nuq4_tstride(p.K) + (size_t)c * 16))
           : make_uint4(0, 0, 0, 0);
     }
-  }
-}
-
-__device__ __forceinline__ uint32_t word_of(const uint4& q, int i) {
-  return i == 0 ? q.x : i == 1 ? q.y : i == 2 ? q.z : q.w;
-}
-
-// The B fragment (k, k+1 | k+2, k+3 as two bf16x2 words) of step `w` of
-// the half-chunk a lane holds in `q`.
-template <int CODEC>
-__device__ __forceinline__ void b_frag(const uint4& q, int w, uint32_t* bf) {
-  if constexpr (CODEC == kI8) {
-    i8x4_to_bf16x2(word_of(q, w), bf);
-  } else if constexpr (CODEC == kSfp) {
-    const uint32_t x = word_of(q, w);
-    bf[0] = sfp2_to_bf16x2(__byte_perm(x, 0, 0x4140u));
-    bf[1] = sfp2_to_bf16x2(__byte_perm(x, 0, 0x4342u));
-  } else if constexpr (CODEC == kBf16) {
-    bf[0] = word_of(q, 2 * w);
-    bf[1] = word_of(q, 2 * w + 1);
-  } else {
-    bf[0] = pack_bf16x2(__uint_as_float(q.x), __uint_as_float(q.y));
-    bf[1] = pack_bf16x2(__uint_as_float(q.z), __uint_as_float(q.w));
   }
 }
 
@@ -554,106 +499,13 @@ __device__ __forceinline__ void mm_tile_packed(
   }
 }
 
-// K1 / K2: one block's output tile, scaled (and gated), to global memory.
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED,
-          bool GN = false>
-__device__ __forceinline__ void mm_body(const MMArgs& p) {
-  constexpr int NB = GATED ? 2 : 1;
-  constexpr int TILES = WARPS / KSPLIT;
-  constexpr int BM = 16 * MT;
-  constexpr int BN = TILES * 8 * NT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, t = lane & 3;
-  const int ks = warp % KSPLIT, tile = warp / KSPLIT;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN + tile * 8 * NT;
-  const int M = p.M, N = p.N;
-
-  float acc[NB][MT][NT][4];
-  if constexpr (Codec<CODEC>::kPacked)
-    mm_tile_packed<CODEC, MT, NT, KSPLIT, WARPS, GATED, GN>(
-        p, m0, blockIdx.x * BN, acc);
-  else
-    mm_tile<CODEC, MT, NT, KSPLIT, WARPS, GATED, GN>(p, m0, blockIdx.x * BN,
-                                                     acc);
-  if (ks != 0) return;
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + 16 * i + gid + 8 * h;
-        const int col = n0 + 8 * j + 2 * t;
-        if (row >= M || col >= N) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float c1 = acc[0][i][j][2 * h + e] * p.scale[0];
-          if constexpr (GATED) {
-            const float c2 = acc[NB - 1][i][j][2 * h + e] * p.scale[1];
-            const float arg = c1 * (0.797884560804236f + 0.03567740813636141f * c1 * c1);
-            c1 = (c1 * (0.5f + 0.5f * tanhf(arg))) * c2;
-          }
-          v[e] = c1;
-        }
-        const size_t off = (size_t)row * N + col;
-        if (p.out_bf16) {
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) + off) =
-              pack_bf16x2(v[0], v[1]);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) =
-              make_float2(v[0], v[1]);
-        }
-      }
-    }
-  }
-}
-
-// K12: K1 / K2 on layer *layer of stacked weights (replaces
-// matmul.py:_b_inputs_stacked, the stacked branches of _matmul_pallas
-// :847-900 and _gated_pallas :944-990).  The TPU kernel takes the layer
-// as a scalar-prefetch value and its block index maps DMA that layer's
-// blocks out of the [L, N, K] array; here every block reads the device
-// int once and offsets its B pointers (codes, group scales and zero points
-// or mins, nuq4 tables) by one layer, then runs the K1 / K2 body with the
-// group arrays in the stacked [G, N] layout.  No layer is copied, and the
-// tile loop is mm_tile's: the same bounds as K1 / K2 (bytes at decode).
-struct MMStackedArgs {
-  MMArgs mm;         // layer 0's B pointers
-  const int* layer;  // device int32: the layer to read
-};
-
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
-__device__ __forceinline__ void mm_stacked_body(const MMStackedArgs& q) {
-  using C = Codec<CODEC>;
-  const size_t l = (size_t)__ldg(q.layer);
-  MMArgs p = q.mm;
-  const size_t n = (size_t)p.N;
-  const size_t codes = C::kPacked ? n * (p.K / 2) : n * p.K * C::kEsize;
-  const size_t groups = (size_t)(p.K / 128) * n;  // i8, i4: [G, N] floats
-#pragma unroll
-  for (int b = 0; b < 2; ++b) {
-    p.codes[b] = static_cast<const char*>(p.codes[b]) + l * codes;
-    if constexpr (CODEC == kNuq4) {
-      p.inv[b] = reinterpret_cast<const float*>(
-          reinterpret_cast<const char*>(p.inv[b]) + l * n * nuq4_tstride(p.K));
-    } else if constexpr (CODEC == kI8 || CODEC == kI4) {
-      p.inv[b] += l * groups;
-      p.zp[b] += l * groups;
-    }
-  }
-  mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED, true>(p);
-}
-
 // ---------------------------------------------------------------------------
 // K3: the fused greedy head (replaces matmul.py:_top1_kernel).
 //
 // (token, prob) per row of softcap(scale * A . B^T) over all N columns
 // without writing the [M, N] logits.  Masked columns (allowed mask 0) and
 // columns past N are -inf: they leave the argmax and the sum.  Each block
-// walks `tpb` consecutive 8-column tiles (mm_tile, the decode GEMM's
+// walks `tpb` consecutive 8-column tiles (mm_tile, a
 // 16x8 tile with 8 warps splitting K) and keeps, per row, the online
 // state (max m, sum s of exp(x - m), lowest index at m); the block's
 // states go to `part`, and the last block to finish (an atomic ticket)
@@ -703,7 +555,7 @@ __device__ __forceinline__ Top1State top1_shfl(Top1State x, int mask) {
   return y;
 }
 
-constexpr int kHeadWarps = 8;  // the decode GEMM's 8-way K split, one tile
+constexpr int kHeadWarps = 8;  // warps splitting the K of one 16x8 tile
 // The heads run 528 blocks as one wave of 4 per SM, which needs 64
 // registers a thread or fewer.  The packed codecs' top-k kernels are held
 // to that by their launch bounds (i4's took 74 and ran two waves); the
@@ -1000,15 +852,6 @@ __global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
 // The kernels by name, one set per codec, so the launch counters and the
 // profiler tell the kinds apart.
 #define GEMMA_CODEC_KERNELS(KIND, CODEC, TOPK_BOUNDS)                        \
-  template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>               \
-  __global__ void __launch_bounds__(WARPS * 32) mm_##KIND##_kernel(MMArgs p) { \
-    mm_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(p);                         \
-  }                                                                          \
-  template <int MT, int NT, int KSPLIT, int WARPS, bool GATED>               \
-  __global__ void __launch_bounds__(WARPS * 32)                              \
-      mm_stacked_##KIND##_kernel(MMStackedArgs q) {                          \
-    mm_stacked_body<CODEC, MT, NT, KSPLIT, WARPS, GATED>(q);                 \
-  }                                                                          \
   __global__ void __launch_bounds__(kHeadWarps * 32)                         \
       top1_##KIND##_kernel(Top1Args q) {                                     \
     top1_body<CODEC>(q);                                                     \
@@ -1025,41 +868,6 @@ GEMMA_CODEC_KERNELS(f32, kF32, (kHeadWarps * 32))
 GEMMA_CODEC_KERNELS(i4, kI4, (kHeadWarps * 32, kHeadBlocksPerSM))
 GEMMA_CODEC_KERNELS(nuq4, kNuq4, (kHeadWarps * 32, kHeadBlocksPerSM))
 
-// K1 / K2, or with a layer pointer K12 over stacked weights.
-template <int CODEC, int MT, int NT, int KSPLIT, int WARPS, bool GATED>
-static void launch_mm(const MMArgs& p, const int* layer, cudaStream_t st) {
-  constexpr int BN = (WARPS / KSPLIT) * 8 * NT;
-  const dim3 grid((p.N + BN - 1) / BN, (p.M + 16 * MT - 1) / (16 * MT));
-  if (layer != nullptr) {
-    const MMStackedArgs q = {p, layer};
-    if constexpr (CODEC == kI8)
-      mm_stacked_i8_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    else if constexpr (CODEC == kSfp)
-      mm_stacked_sfp_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    else if constexpr (CODEC == kBf16)
-      mm_stacked_bf16_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    else if constexpr (CODEC == kF32)
-      mm_stacked_f32_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    else if constexpr (CODEC == kI4)
-      mm_stacked_i4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    else
-      mm_stacked_nuq4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(q);
-    return;
-  }
-  if constexpr (CODEC == kI8)
-    mm_i8_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else if constexpr (CODEC == kSfp)
-    mm_sfp_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else if constexpr (CODEC == kBf16)
-    mm_bf16_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else if constexpr (CODEC == kF32)
-    mm_f32_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else if constexpr (CODEC == kI4)
-    mm_i4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-  else
-    mm_nuq4_kernel<MT, NT, KSPLIT, WARPS, GATED><<<grid, WARPS * 32, 0, st>>>(p);
-}
-
 // False when K or (nuq4) the tables' row stride is not what the kernels
 // walk: whole chunks, and table rows of nuq4_tstride(K) bytes.
 template <int CODEC>
@@ -1071,55 +879,6 @@ static bool set_b(MMArgs& p, int b, const BOperand& w, int K) {
   if (K % Codec<CODEC>::kChunk) return false;
   if constexpr (CODEC == kNuq4) return w.tstride == nuq4_tstride(K);
   return true;
-}
-
-// K1 and K2 here take the decode rows only: M > kDecodeRows is the
-// prefill tile's (matmul_sm90.cu), and these entries refuse it.
-constexpr int kDecodeRows = 16;
-
-// out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
-// y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
-// layer: null (K1), or the device layer index of stacked weights (K12).
-template <int CODEC>
-static int matmul_entry(const void* a, const float* norm, const BOperand& w,
-                        const int* layer, const float* post_w, const float* add,
-                        __nv_bfloat16* a_scratch, float* y, void* out, int M,
-                        int N, int K, int out_bf16, int* launched,
-                        cudaStream_t st) {
-  const bool post = post_w != nullptr || add != nullptr;
-  *launched = 0;
-  MMArgs p = {};
-  if (M > kDecodeRows || !set_b<CODEC>(p, 0, w, K) ||
-      !set_b<CODEC>(p, 1, w, K))
-    return (int)cudaErrorInvalidValue;
-  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  p.out = post ? static_cast<void*>(y) : out;
-  p.M = M; p.N = N; p.K = K;
-  p.out_bf16 = post ? 0 : out_bf16;
-  launch_mm<CODEC, 1, 1, 8, 8, false>(p, layer, st);
-  *launched |= kLaunchedSelf;
-  if (post) {
-    postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
-    *launched |= kLaunchedPostnorm;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int CODEC>
-static int gated_entry(const void* a, const float* norm, const BOperand& w1,
-                       const BOperand& w2, const int* layer,
-                       __nv_bfloat16* a_scratch, void* out, int M, int N,
-                       int K, int* launched, cudaStream_t st) {
-  *launched = 0;
-  MMArgs p = {};
-  if (M > kDecodeRows || !set_b<CODEC>(p, 0, w1, K) ||
-      !set_b<CODEC>(p, 1, w2, K))
-    return (int)cudaErrorInvalidValue;
-  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  p.out = out; p.M = M; p.N = N; p.K = K; p.out_bf16 = 1;
-  launch_mm<CODEC, 1, 1, 8, 8, true>(p, layer, st);
-  *launched |= kLaunchedSelf;
-  return (int)cudaGetLastError();
 }
 
 // The 8-column tiles of N split evenly over at most `blocks` blocks (per
@@ -1208,30 +967,6 @@ static int topk_entry(const void* a, const float* norm, const BOperand& w,
 // The C entries, one per GEMM and codec (kind "nuq" calls the sfp ones).
 // inv and zp are read for i8 (and, as scales and mins, for i4) only.
 
-extern "C" int gemma_matmul_i8(const void* a, const float* norm,
-                                   const void* codes, const float* inv,
-                                   const float* zp, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_i8(const void* a, const float* norm,
-                                  const void* codes1, const float* inv1,
-                                  const float* zp1, float scale1,
-                                  const void* codes2, const float* inv2,
-                                  const float* zp2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
-}
-
 extern "C" int gemma_top1_i8(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
@@ -1256,30 +991,6 @@ extern "C" int gemma_topk_i8(const void* a, const float* norm,
   return topk_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
-}
-
-extern "C" int gemma_matmul_sfp(const void* a, const float* norm,
-                                   const void* codes, const float* inv,
-                                   const float* zp, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_sfp(const void* a, const float* norm,
-                                  const void* codes1, const float* inv1,
-                                  const float* zp1, float scale1,
-                                  const void* codes2, const float* inv2,
-                                  const float* zp2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_sfp(const void* a, const float* norm,
@@ -1308,30 +1019,6 @@ extern "C" int gemma_topk_sfp(const void* a, const float* norm,
                          blocks, launched, st);
 }
 
-extern "C" int gemma_matmul_bf16(const void* a, const float* norm,
-                                   const void* codes, const float* inv,
-                                   const float* zp, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_bf16(const void* a, const float* norm,
-                                  const void* codes1, const float* inv1,
-                                  const float* zp1, float scale1,
-                                  const void* codes2, const float* inv2,
-                                  const float* zp2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
-}
-
 extern "C" int gemma_top1_bf16(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
@@ -1356,30 +1043,6 @@ extern "C" int gemma_topk_bf16(const void* a, const float* norm,
   return topk_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
-}
-
-extern "C" int gemma_matmul_f32(const void* a, const float* norm,
-                                   const void* codes, const float* inv,
-                                   const float* zp, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_f32(const void* a, const float* norm,
-                                  const void* codes1, const float* inv1,
-                                  const float* zp1, float scale1,
-                                  const void* codes2, const float* inv2,
-                                  const float* zp2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_top1_f32(const void* a, const float* norm,
@@ -1409,30 +1072,6 @@ extern "C" int gemma_topk_f32(const void* a, const float* norm,
 }
 
 // i4: `inv` holds the group scales and `zp` the group mins.
-extern "C" int gemma_matmul_i4(const void* a, const float* norm,
-                                   const void* codes, const float* inv,
-                                   const float* zp, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_i4(const void* a, const float* norm,
-                                  const void* codes1, const float* inv1,
-                                  const float* zp1, float scale1,
-                                  const void* codes2, const float* inv2,
-                                  const float* zp2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
-}
-
 extern "C" int gemma_top1_i4(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
@@ -1460,27 +1099,6 @@ extern "C" int gemma_topk_i4(const void* a, const float* norm,
 }
 
 // nuq4: tables [N, tstride] of SFP bytes, 16 per 256-block of K.
-extern "C" int gemma_matmul_nuq4(const void* a, const float* norm,
-                                   const void* codes, const void* tables, int tstride, float scale,
-                                   const float* post_w, const float* add,
-                                   __nv_bfloat16* a_scratch, float* y,
-                                   void* out, int M, int N, int K,
-                                   int out_bf16, int* launched,
-                                   cudaStream_t st) {
-  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), nullptr, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_nuq4(const void* a, const float* norm,
-                                  const void* codes1, const void* tables1, int tstride1, float scale1,
-                                  const void* codes2, const void* tables2, int tstride2, float scale2,
-                                  __nv_bfloat16* a_scratch, void* out, int M,
-                                  int N, int K, int* launched,
-                                  cudaStream_t st) {
-  return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
-                          nuq4_b(codes2, tables2, tstride2, scale2), nullptr, a_scratch, out, M, N, K, launched, st);
-}
-
 extern "C" int gemma_top1_nuq4(const void* a, const float* norm,
                                  const void* codes, const void* tables, int tstride, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
@@ -1503,166 +1121,6 @@ extern "C" int gemma_topk_nuq4(const void* a, const float* norm,
   return topk_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), cap, mask, k_top,
                          a_scratch, part_v, part_i, vals, idxs, M, N, K,
                          blocks, launched, st);
-}
-
-// K12's C entries: K1 / K2 on layer *layer (a device int32) of stacked
-// weights, their codes [L, N, K] ([L, N, K/2] packed), i8 / i4 group
-// arrays [L, K/128, N], nuq4 tables [L, N, tstride]; the pointers are
-// those of layer 0.
-extern "C" int gemma_matmul_stacked_i8(const void* a, const float* norm,
-                                       const void* codes, const float* inv, const float* zp, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_i8(const void* a, const float* norm,
-                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
-                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
-}
-
-extern "C" int gemma_matmul_stacked_sfp(const void* a, const float* norm,
-                                       const void* codes, const float* inv, const float* zp, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_sfp(const void* a, const float* norm,
-                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
-                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
-}
-
-extern "C" int gemma_matmul_stacked_bf16(const void* a, const float* norm,
-                                       const void* codes, const float* inv, const float* zp, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_bf16(const void* a, const float* norm,
-                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
-                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
-}
-
-extern "C" int gemma_matmul_stacked_f32(const void* a, const float* norm,
-                                       const void* codes, const float* inv, const float* zp, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_f32(const void* a, const float* norm,
-                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
-                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
-}
-
-extern "C" int gemma_matmul_stacked_i4(const void* a, const float* norm,
-                                       const void* codes, const float* inv, const float* zp, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_i4(const void* a, const float* norm,
-                                      const void* codes1, const float* inv1, const float* zp1, float scale1,
-                                      const void* codes2, const float* inv2, const float* zp2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                          affine_b(codes2, inv2, zp2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
-}
-
-extern "C" int gemma_matmul_stacked_nuq4(const void* a, const float* norm,
-                                       const void* codes, const void* tables, int tstride, float scale,
-                                       const int* layer, const float* post_w,
-                                       const float* add,
-                                       __nv_bfloat16* a_scratch, float* y,
-                                       void* out, int M, int N, int K,
-                                       int out_bf16, int* launched,
-                                       cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), layer, post_w, add,
-                           a_scratch, y, out, M, N, K, out_bf16, launched, st);
-}
-
-extern "C" int gemma_gated_stacked_nuq4(const void* a, const float* norm,
-                                      const void* codes1, const void* tables1, int tstride1, float scale1,
-                                      const void* codes2, const void* tables2, int tstride2, float scale2,
-                                      const int* layer,
-                                      __nv_bfloat16* a_scratch, void* out,
-                                      int M, int N, int K, int* launched,
-                                      cudaStream_t st) {
-  if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
-                          nuq4_b(codes2, tables2, tstride2, scale2), layer, a_scratch, out,
-                          M, N, K, launched, st);
 }
 
 // The passes alone, for checking each against its plain version.

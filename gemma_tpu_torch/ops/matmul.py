@@ -24,10 +24,11 @@ Every GEMM has a kernel path and a plain path.  For CUDA tensors the
 wrappers launch the hand-written kernels of csrc/ (K1 with its norm
 prologue and post-norm passes, K2, K3 the fused greedy head
 `matmul_top1`, K6 the fused top-k head `matmul_topk`, each built once per
-codec) or raise: K1 and K2 take the decode tile of matmul.cu at M <=
-DECODE_ROWS rows and the wgmma tile of matmul_sm90.cu above it (prefill),
-whose entries also take stacked weights; for CPU tensors they take the
-plain versions below,
+codec) or raise: K1 and K2 take the decode tile of matmul_decode.cu at M
+<= DECODE_ROWS rows (K split over warps and blocks where the panels
+alone would not fill the card: `decode_split`) and the wgmma tile of
+matmul_sm90.cu above it (prefill); for CPU tensors they take the plain
+versions below,
 which compute the same function: the B tile becomes bf16 (A's dtype) and
 feeds the product, and the group affines are applied to the output:
     i8:  out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g)
@@ -48,6 +49,7 @@ plain versions run on it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -71,10 +73,28 @@ K_MULTIPLE = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32, "i4": 256,
 MAX_TOPK = 128  # K6's list per row; above it the head is composed
 
 SOURCE = "matmul.cu"
+DECODE_SOURCE = "matmul_decode.cu"
 SM90_SOURCE = "matmul_sm90.cu"
-# K1 and K2 at M <= DECODE_ROWS run matmul.cu's decode tile (whose entries
-# refuse more rows), above it matmul_sm90.cu's prefill tile.
+# K1 and K2 at M <= DECODE_ROWS run matmul_decode.cu's decode tile (whose
+# entries refuse more rows), above it matmul_sm90.cu's prefill tile.
 DECODE_ROWS = 16
+# The decode tile: a warp multiplies DECODE_WARP_COLS[gated] output
+# columns (16 weight rows; K2 8 of each gate) by all M rows, walking K in
+# chunks of 128 bytes a weight row (CHUNK[codec] elements); a block of 8
+# warps puts `kw` warps on each of 8 / kw row groups, splitting K, and
+# `splits` blocks of one thread-block cluster split the K of a panel
+# further.  decode_split chooses both from the shapes alone, never from
+# M, so that a row's sums are taken in the same order at every batch: a
+# block stages its K slice of A in shared memory, at most DECODE_SLICE K
+# (72 KB at 8 rows), and one wave is DECODE_WAVE blocks: three of 256
+# threads on each of an H100's 132 SMs (the kernels' launch bounds at M <=
+# 8).
+DECODE_WARP_COLS = {False: 16, True: 8}
+DECODE_WAVE = 3 * 132
+DECODE_MAX_SPLITS = 8
+DECODE_SLICE = 4608
+CHUNK = {"i8": 128, "sfp": 128, "bf16": 64, "f32": 32, "i4": 256,
+         "nuq4": 256}
 PRENORM = _cuda.Kernel(
     "matmul_prenorm", SOURCE, "gemma_prenorm_bf16",
     [_cuda.P] * 3 + [_cuda.I] * 2)
@@ -97,24 +117,30 @@ def _b_args(codec: str) -> list:
 # One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass]
 # and reports which of them it launched; each is counted on its own Kernel.
 # One set of entries per codec, so the counts tell the kinds apart.
+# The decode entries take, after the B operands (and K12's layer pointer),
+# the split of K: warps a row group, blocks a cluster.
+_SPLIT = [_cuda.I, _cuda.I]
 MATMUL = {c: _cuda.Kernel(
-    f"matmul_{c}", SOURCE, f"gemma_matmul_{c}",
-    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] * 5 + [_cuda.I] * 4,
+    f"matmul_{c}", DECODE_SOURCE, f"gemma_matmul_{c}",
+    [_cuda.P] * 2 + _b_args(c) + _SPLIT + [_cuda.P] * 5 + [_cuda.I] * 4,
     passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
 GATED = {c: _cuda.Kernel(
-    f"gated_{c}", SOURCE, f"gemma_gated_{c}",
-    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 2 + [_cuda.I] * 3,
+    f"gated_{c}", DECODE_SOURCE, f"gemma_gated_{c}",
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + _SPLIT + [_cuda.P] * 2
+    + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 # K12: K1 and K2 on layer `layer` of a stacked weight.  The same C entry
 # layout with one more pointer after the B operands: the device int32
 # layer index.
 MATMUL_STACKED = {c: _cuda.Kernel(
-    f"matmul_stacked_{c}", SOURCE, f"gemma_matmul_stacked_{c}",
-    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] * 6 + [_cuda.I] * 4,
+    f"matmul_stacked_{c}", DECODE_SOURCE, f"gemma_matmul_stacked_{c}",
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] + _SPLIT + [_cuda.P] * 5
+    + [_cuda.I] * 4,
     passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
 GATED_STACKED = {c: _cuda.Kernel(
-    f"gated_stacked_{c}", SOURCE, f"gemma_gated_stacked_{c}",
-    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] * 3 + [_cuda.I] * 3,
+    f"gated_stacked_{c}", DECODE_SOURCE, f"gemma_gated_stacked_{c}",
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] + _SPLIT
+    + [_cuda.P] * 2 + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
 # K1 and K2 at M > DECODE_ROWS (prefill), plain or stacked: the stacked
 # entries' layout with the layer pointer (None when plain) followed by the
@@ -372,21 +398,55 @@ def _layer_ptr(w: QuantTensor, layer: int, device) -> int:
     return ids.data_ptr() + 4 * layer
 
 
+@functools.lru_cache(maxsize=None)
+def decode_split(n: int, k: int, codec: str,
+                 gated: bool) -> tuple[int, int]:
+    """(kw, splits) of the decode tile for a GEMM by [n, k] weights:
+    splits, the blocks that share a panel's K (a cluster), is the least
+    power of two that keeps a block's slice of K within DECODE_SLICE (at
+    most DECODE_MAX_SPLITS, at most the chunks of K); kw, the warps that
+    share a row group's K in a block, is the largest of 1, 2, 4, 8 that
+    keeps panels x splits within a wave (DECODE_WAVE), narrowing the panel
+    where N alone would not fill the card."""
+    chunks = k // CHUNK[codec]
+    per_block = max(1, DECODE_SLICE // CHUNK[codec])
+    splits = 1
+    while (splits < DECODE_MAX_SPLITS and 2 * splits <= chunks
+           and splits * per_block < chunks):
+        splits *= 2
+    kw = 1
+    while kw < 8:
+        cols = DECODE_WARP_COLS[gated] * (8 // (2 * kw))
+        if -(-n // cols) * splits > DECODE_WAVE:
+            break
+        kw *= 2
+    return kw, splits
+
+
+def split_chunks(chunks: int, splits: int) -> list[tuple[int, int]]:
+    """The chunk range [c0, c1) of each of `splits` parts of `chunks`, as
+    the kernel splits K over a cluster's blocks and a block's slice over
+    its warps."""
+    return [(s * chunks // splits, (s + 1) * chunks // splits)
+            for s in range(splits)]
+
+
 def _gemm_kernel(m: int, w: QuantTensor, layer, device, decode: dict,
-                 stacked: dict, sm90: dict):
+                 stacked: dict, sm90: dict, gated: bool):
     """The K1 / K2 entry for M = m rows of A, and the arguments it takes
     after the B operands: the prefill tile's (layer pointer or None, the
-    number of layers) above DECODE_ROWS, else the decode tile's (plain,
-    or stacked with its layer pointer)."""
+    number of layers) above DECODE_ROWS, else the decode tile's (K12's
+    layer pointer, then the split of K: kw, splits)."""
     codec = _CODEC[w.kind]
     if m > DECODE_ROWS:
         if layer is None:
             return sm90[codec], (None, 1)
         return sm90[codec], (_layer_ptr(w, layer, device),
                              w.data().shape[0])
+    split = decode_split(w.n, w.k, codec, gated)
     if layer is None:
-        return decode[codec], ()
-    return stacked[codec], (_layer_ptr(w, layer, device),)
+        return decode[codec], split
+    return stacked[codec], (_layer_ptr(w, layer, device),) + split
 
 
 def _on(a: np.ndarray, device) -> torch.Tensor:
@@ -750,8 +810,8 @@ def _matmul_cuda(a, w, out_dtype, add, prologue_norm, epilogue_norm, layer):
     if post:
         y = out if out_dtype == torch.float32 else torch.empty(
             m, w.n, dtype=torch.float32, device=a.device)
-    kernel, layer_args = _gemm_kernel(m, w, layer, a.device, MATMUL,
-                                      MATMUL_STACKED, MATMUL_SM90)
+    kernel, layer_args = _gemm_kernel(
+        m, w, layer, a.device, MATMUL, MATMUL_STACKED, MATMUL_SM90, False)
     kernel.launch(
         a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), *layer_args, _cuda.ptr(epilogue_norm),
@@ -884,8 +944,8 @@ def _gated_cuda(x, w1, w2, out_dtype, prologue_norm, layer):
     x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm)
     m = x.shape[0]
     out = torch.empty(m, w1.n, dtype=torch.bfloat16, device=x.device)
-    kernel, layer_args = _gemm_kernel(m, w1, layer, x.device, GATED,
-                                      GATED_STACKED, GATED_SM90)
+    kernel, layer_args = _gemm_kernel(
+        m, w1, layer, x.device, GATED, GATED_STACKED, GATED_SM90, True)
     kernel.launch(x.data_ptr(), _cuda.ptr(norm), b1, inv1, zp1,
                   float(w1.scale), b2, inv2, zp2, float(w2.scale),
                   *layer_args, _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n,

@@ -4,15 +4,23 @@ port on the card, so that two checkouts can be compared in one run:
     python3 gemma_tpu_torch/scripts/time_gemms.py [--root DIR]
 
 --root: the checkout whose `gemma_tpu_torch` is imported (default: the one
-this file is in); its kernels build under DIR/build/.  Cases: Gemma2-2B
-widths at batch 4 for i8 and i4 weights (K1 qkv with its prologue, att_w
-and linear with the post-norm + residual pass, K2 with its prologue, K3
-and K6 with k_top 64 over the 256000-row head), and at the 2048 rows of a
-prefill round (4 x 512) for i8, bf16 and i4 weights (K1 qkv, att_w and
-linear, K2; bf16 A, no passes, as the prefill branch calls them).  Each
-is timed as
-chip_smoke.py times kernels (`ops/_cuda.time_ms`: CUDA-graph replays
-between CUDA events).  Prints one JSON line.
+this file is in); its kernels build under DIR/build/.  Cases, each at
+batch 4 (M = 4) unless named prefill:
+  - Gemma2-2B widths for every weight codec (i8, sfp, bf16, f32, i4,
+    nuq4): K1 qkv with its prologue, att_w and linear with the post-norm +
+    residual pass, K2 with its prologue; i8 and i4 also K3 and K6 (k_top
+    64) over the 256000-row head;
+  - the same four at Gemma2-9B and Gemma2-27B widths for i4 and nuq4;
+  - each decode GEMM alone (bf16 A, no passes) for i4 (2B, 9B, 27B),
+    nuq4 (9B, 27B), bf16 and f32 (2B), beside one PyTorch call of the
+    same function where there is one ("lib": torch._weight_int4pack_mm on
+    the i4 codes repacked, F.linear for bf16 and f32; K2 as gelu(y1) * y2
+    over two such calls), which does not depend on --root;
+  - the 2048 rows of a prefill round (4 x 512) for i8, bf16 and i4
+    weights (K1 qkv, att_w and linear, K2; bf16 A, no passes, as the
+    prefill branch calls them).
+Each is timed as chip_smoke.py times kernels (`ops/_cuda.time_ms`:
+CUDA-graph replays between CUDA events).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -37,6 +45,92 @@ def own_timer():
     return module.time_ms
 
 
+# (model, d, ff, qkv rows, att_w K) of the widths timed at decode.
+WIDTHS = {"2B": (2304, 9216, 4096, 2048), "9B": (3584, 14336, 8192, 4096),
+          "27B": (4608, 36864, 8192, 4096)}
+
+
+def int4pack_call(torch, a, w, w2=None):
+    """torch._weight_int4pack_mm on A and w's i4 codes repacked (its int4
+    dequantizes (q - 8) * scale + zero: zero = min + 8 * scale); with w2,
+    gelu(A.W^T) * (A.W2^T) in three calls.  No tensor scale."""
+    import torch.nn.functional as F
+
+    def repack(w):
+        n, half = w.arrays["codes"].shape
+        p = w.arrays["codes"].to(torch.int32).reshape(n, half // 128, 128)
+        codes = torch.stack([p & 15, p >> 4], dim=-2).reshape(n, 2 * half)
+        packed = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+        sc, mn = w.arrays["scales"], w.arrays["mins"]
+        sz = torch.stack([sc.T, (mn + 8 * sc).T], dim=-1).to(
+            torch.bfloat16).contiguous()
+        return torch._convert_weight_to_int4pack(packed, 8), sz
+
+    wp, sz = repack(w)
+    if w2 is None:
+        return lambda: torch._weight_int4pack_mm(a, wp, 128, sz)
+    wp2, sz2 = repack(w2)
+    return lambda: F.gelu(torch._weight_int4pack_mm(a, wp, 128, sz),
+                          approximate="tanh") * torch._weight_int4pack_mm(
+                              a, wp2, 128, sz2)
+
+
+def dense_call(torch, a, w, w2=None):
+    """F.linear on A and the dense weights (K2: gelu(y1) * y2)."""
+    import torch.nn.functional as F
+
+    a = a.to(w.arrays["w"].dtype)
+    if w2 is None:
+        return lambda: F.linear(a, w.arrays["w"])
+    return lambda: F.gelu(F.linear(a, w.arrays["w"]), approximate="tanh") \
+        * F.linear(a, w2.arrays["w"])
+
+
+def decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind):
+    """The decode GEMMs of one model's widths and one kind: with their
+    passes, and (alone=True kinds) without them beside the library."""
+    d, ff, n_qkv, k_att = WIDTHS[model]
+    b = 4
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=gen, device=dev).mul_(s)
+
+    x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
+    post, add = randn(d, s=0.05), randn(b, d, s=10.0)
+    a_att = randn(b, k_att, s=3.0).to(torch.bfloat16)
+    a_lin = randn(b, ff, s=3.0).to(torch.bfloat16)
+    x_bf = mm.prenorm_plain(x, norm)
+    alone = (kind in ("i4", "nuq4") or model == "2B") and kind in (
+        "i4", "nuq4", "bf16", "f32")
+    lib = {"i4": int4pack_call, "bf16": dense_call,
+           "f32": dense_call}.get(kind)
+    tag = f"{kind} {model}" if model != "2B" else kind
+    for name, n, k, a_alone, passes in (
+            ("qkv", n_qkv, d, x_bf, dict(a=x, prologue_norm=norm)),
+            ("att_w", d, k_att, a_att,
+             dict(a=a_att, epilogue_norm=post, add=add)),
+            ("linear", d, ff, a_lin,
+             dict(a=a_lin, epilogue_norm=post, add=add))):
+        w = synth_quant(gen, n, k, dev, kind)
+        sfx = "+pre" if name == "qkv" else "+post"
+        out[f"K1 {tag} {name}{sfx}"] = lambda w=w, kw=passes: mm.matmul(
+            kw["a"], w, **{k2: v for k2, v in kw.items() if k2 != "a"})
+        if alone:
+            out[f"K1 {tag} {name} alone"] = lambda a=a_alone, w=w: mm.matmul(
+                a, w)
+            if lib is not None:
+                out[f"K1 {tag} {name} lib"] = lib(torch, a_alone, w)
+    g1 = synth_quant(gen, ff, d, dev, kind)
+    g2 = synth_quant(gen, ff, d, dev, kind)
+    out[f"K2 {tag} +pre"] = lambda g1=g1, g2=g2: mm.gated_ffn(
+        x, g1, g2, prologue_norm=norm)
+    if alone:
+        out[f"K2 {tag} alone"] = lambda g1=g1, g2=g2: mm.gated_ffn(
+            x_bf, g1, g2)
+        if lib is not None:
+            out[f"K2 {tag} lib"] = lib(torch, x_bf, g1, g2)
+
+
 def kernel_cases(torch, mm, synth_quant):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(77)
@@ -46,24 +140,13 @@ def kernel_cases(torch, mm, synth_quant):
         return torch.randn(*shape, generator=gen, device=dev).mul_(s)
 
     x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
-    post, add = randn(d, s=0.05), randn(b, d, s=10.0)
-    a_att = randn(b, 2048, s=3.0).to(torch.bfloat16)
-    a_lin = randn(b, ff, s=3.0).to(torch.bfloat16)
     out = {}
+    for kind in ("i8", "sfp", "bf16", "f32", "i4", "nuq4"):
+        decode_cases(torch, mm, synth_quant, gen, dev, out, "2B", kind)
+    for model in ("9B", "27B"):
+        for kind in ("i4", "nuq4"):
+            decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind)
     for kind in ("i8", "i4"):
-        w = synth_quant(gen, n_qkv, d, dev, kind)
-        out[f"K1 {kind} qkv+pre"] = lambda w=w: mm.matmul(
-            x, w, prologue_norm=norm)
-        w = synth_quant(gen, d, 2048, dev, kind)
-        out[f"K1 {kind} att_w+post"] = lambda w=w: mm.matmul(
-            a_att, w, epilogue_norm=post, add=add)
-        w = synth_quant(gen, d, ff, dev, kind)
-        out[f"K1 {kind} linear+post"] = lambda w=w: mm.matmul(
-            a_lin, w, epilogue_norm=post, add=add)
-        g1 = synth_quant(gen, ff, d, dev, kind)
-        g2 = synth_quant(gen, ff, d, dev, kind)
-        out[f"K2 {kind} +pre"] = lambda g1=g1, g2=g2: mm.gated_ffn(
-            x, g1, g2, prologue_norm=norm)
         head = synth_quant(gen, vocab, d, dev, kind, rms=0.05)
         out[f"K3 {kind}"] = lambda h=head: mm.matmul_top1(
             x, h, final_cap=30.0, prologue_norm=norm)

@@ -5,8 +5,8 @@ they are held against the JAX package's `matmul` / `gated_ffn` (Pallas
 kernels in interpret mode) at prefill row counts for every weight kind,
 which pins the i8 and i4 group affines on the f32 output at M > 16.  The
 routing to the CUDA entries is checked with faked kernels, as
-tests/test_torch_kernels.py fakes them: M <= 16 rows reach matmul.cu's
-decode entries, more rows matmul_sm90.cu's prefill entries, plain or
+tests/test_torch_kernels.py fakes them: M <= 16 rows reach
+matmul_decode.cu's decode entries, more rows matmul_sm90.cu's prefill entries, plain or
 stacked, and an M > 16 call that reached a decode entry would raise."""
 
 import jax.numpy as jnp
@@ -168,13 +168,15 @@ def test_prefill_rows_on_a_decode_entry_raise(faked, monkeypatch, op,
 
 
 def test_decode_entries_refuse_prefill_rows():
-    """matmul.cu's K1 / K2 entries refuse M > 16 (the rows the wrapper
-    sends to matmul_sm90.cu), and both sides name the same bound."""
-    src = (_cuda.CSRC / "matmul.cu").read_text()
+    """matmul_decode.cu's K1 / K2 entries refuse M > 16 (the rows the
+    wrapper sends to matmul_sm90.cu) before they launch anything, and both
+    sides name the same bound."""
+    src = (_cuda.CSRC / "matmul_decode.cu").read_text()
     assert f"constexpr int kDecodeRows = {tmm.DECODE_ROWS};" in src
+    check = src[src.index("static int decode_check("):]
+    assert "p.M > kDecodeRows" in check[:check.index("\n}\n")]
     for entry in ("static int matmul_entry(", "static int gated_entry("):
         body = src[src.index(entry):]
         body = body[:body.index("\n}\n")]
-        assert "M > kDecodeRows" in body
-        assert "launch_mm<CODEC, 1, 1, 8, 8," in body
-        assert "launch_mm<CODEC, 2," not in body
+        assert body.index("decode_check<CODEC, ") < body.index("operand_a(")
+        assert "if (smem < 0) return (int)cudaErrorInvalidValue;" in body

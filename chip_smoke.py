@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero before the result line):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, and the
-     build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed;
+     build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed,
+     with each attention kernel's registers and spills (-Xptxas -v; a
+     spill in K5 or in the Gemma2 (G = 2) instantiations of K4 / K8 / K10
+     fails);
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
@@ -23,9 +26,12 @@ Phases (any failure exits non-zero before the result line):
      (`check_one_hot_rows`); the packed kinds once more at the decode
      shapes of Gemma2-27B (i4, nuq4) and Gemma2-9B (nuq4), with a weight
      whose codes encode their column and nuq4 tables of equal, repeated
-     and -0.0 entries; the draw kernel; decode attention and prefill
-     attention over i8, bf16 and f32 KV pools at Gemma2-2B's head shape
-     and over a bf16 pool at Gemma2-27B's (32/16 heads of 128); and the
+     and -0.0 entries; the draw kernel; decode attention (K4) and
+     prefill attention (K5) over i8, bf16 and f32 KV pools at Gemma2-2B's
+     head shape and at Gemma2-27B's (32/16 heads of 128), K5 at positions
+     0 and 512, on a chunk whose live range wraps the local ring, at a
+     long position (3584) and with per-slot prefixes, each K4 / K5 / K8 /
+     K10 case repeated for the same bits (`phase_attention`); and the
      split-weight decode kernels at both head shapes: write + attend
      (in-kernel RoPE, and pre-encoded), the row write alone, attention
      alone, and the S-blocked write + attend; the stacked GEMMs (K12:
@@ -162,9 +168,11 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.monotonic()
-    _cuda.build_all(verbose=True)
+    logs: dict = {}
+    _cuda.build_all(verbose=True, logs=logs)
     print(f"[1] built {len(list(_cuda.CSRC.glob('*.cu')))} sources in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
+    ptxas_report(logs, ("flash_attention.cu", "decode_attention.cu"))
 
     results = phase_kernels(torch)
     phase_two_layers(torch)
@@ -361,6 +369,50 @@ for _v, _what in (("d1", "codes read as int8"),
         f"{_v.upper()}")
     LIBRARY_NOTE[f"nuq_diag_{_v}"] = (
         f"no single PyTorch call multiplies bf16 A by {_what}")
+
+
+def _held(name: str) -> bool:
+    """K5, and the G = 2 instantiations (every Gemma2 head shape) of K4's
+    body with K8 and K10: the kernels the serving paths run that this
+    script holds to no spill."""
+    return name.startswith("flash_attention_") or (
+        name.startswith(("decode_attention_", "decode_write_attend_",
+                         "decode_attend_")) and name.endswith(",2>"))
+
+
+def ptxas_report(logs: dict, sources, held=_held) -> None:
+    """Registers and spills of every kernel of `sources`, from nvcc's
+    -Xptxas -v output; a spill in a kernel `held` accepts fails."""
+    import re
+
+    for src in sources:
+        entry, seen = None, []
+        for line in logs.get(src, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                k = re.search(r"\d+(\w+_kernel)I(.*)EEv", name)
+                if k:
+                    targs = re.findall(r"Li(\d+)E?", k.group(2))
+                    name = f"{k.group(1)}<{','.join(targs)}>"
+                entry = [name, None, None]
+                seen.append(entry)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry is not None:
+                entry[2] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                entry[1] = int(m.group(1))
+        if not seen:  # built by an earlier run of this checkout
+            print(f"[1] ptxas {src}: not built in this run", flush=True)
+            continue
+        print(f"[1] ptxas {src}: " + "; ".join(
+            f"{n} {r} regs {sp} B spilled" for n, r, sp in seen), flush=True)
+        spilled = [n for n, _, sp in seen if sp and held(n)]
+        if spilled:
+            fail(f"{src}: kernels spill registers: {spilled}")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -646,12 +698,13 @@ def phase_kernels(torch):
     phase_split_attention(torch, res, cfg, ("i8", "bf16", "f32"))
     # Gemma2-27B's head shape (32 query heads over 16 KV heads of 128, the
     # query scale 1/sqrt(model_dim / heads)): the D=128 instantiations, on
-    # a 2-layer cut of its bf16 cache.
+    # a 2-layer cut of its caches (K4 and K5 of every pool kind; the split
+    # kernels over bf16).
     big = config_gemma2_27b()
     big2 = dataclasses.replace(
         big, num_layers=2, layer_configs=big.layer_configs[:2],
         attention_window_sizes=big.attention_window_sizes[:2])
-    phase_attention(torch, res, big2, ("bf16",), primary=False)
+    phase_attention(torch, res, big2, ("i8", "bf16", "f32"), primary=False)
     phase_split_attention(torch, res, big2, ("bf16",), primary=False)
     return res
 
@@ -748,6 +801,8 @@ def phase_attention(torch, res, cfg, kinds, primary=True):
             p = lambda: da.decode_attention_write_packed_plain(  # noqa: E731
                 cp, layer, qkv, pos, window, heads, cfg.att_cap, valid, rope)
             got, want = f(), p()
+            if not torch.equal(got, f()):  # rewrites the same row
+                fail(f"{name} {shape} {pool_name}: a repeat gave other bits")
             check_written_rows(torch, name, f"{shape} {pool_name}", kind, ck,
                                cp, layer)
             live = sum(min(int(q) + 1, window, ck.pool(layer)[2])
@@ -761,35 +816,50 @@ def phase_attention(torch, res, cfg, kinds, primary=True):
                    4 * live * (heads // kvh) * kvh * hd, primary=primary and layer == 1)
 
     # --- K5: the two 512-token prefill rounds (positions 0..511, then
-    # 512..1023) on both pools of each kind.  Tolerance: the exact softmax
-    # of both, probabilities rounded to bf16 alike (i8, bf16 pools: 1e-2 of
-    # max|out| covers a flipped bf16 probability) or not at all (f32:
-    # summation order only, 1e-4). ---
+    # 512..1023) on both pools of each kind; then where those never go: a
+    # chunk whose live range wraps the 4608-row local ring (positions
+    # 4352..4863), a long position on the global pool (3584..4095), and
+    # per-slot prefixes (prefix_end 300, 0, 700, 100 at position 0).  Each
+    # case is run twice for the same bits.  Tolerance: the exact softmax of
+    # both; the kernel rounds the unnormalised probabilities to bf16 where
+    # the plain version rounds the normalised ones (i8, bf16 pools: 1e-2
+    # of max|out| covers a flipped bf16 probability) or neither does (f32:
+    # split-TF32 products and summation order, 1e-4). ---
     t = 512
     q = randn(b, t, heads, hd, s=0.1)
+    pe_slots = torch.tensor([300, 0, 700, 100], device=dev,
+                            dtype=torch.int32)
+    cases = [(0, 1, "global", 0), (0, 0, "local", 0), (512, 1, "global", 0),
+             (512, 0, "local", 0), (4352, 0, "local, the live range "
+                                    "wrapping the ring", 0),
+             (3584, 1, "global, long position", 0),
+             (0, 1, "global, prefix_end 300/0/700/100", pe_slots)]
     for kind, cache in caches.items():
         name = f"flash_attention_{kind}"
         item = cache.kv.element_size()
-        for start in (0, 512):
+        for start, layer, pool_name, pe in cases:
             positions = (torch.arange(t, device=dev) + start)[None].repeat(b, 1)
-            for layer, pool_name in ((1, "global"), (0, "local")):
-                window = cfg.attention_window_sizes[layer]
-                f = lambda: fa.flash_prefill_attention(  # noqa: E731
-                    cache, layer, q, positions, window, cfg.att_cap)
-                p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
-                    cache, layer, q, positions, window, cfg.att_cap)
-                want = p()
-                ring = cache.pool(layer)[2]
-                pairs = int(attention_mask(positions, ring, window).sum()) \
-                    * heads
-                row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
-                nbytes = (2 * q.numel() * 4
-                          + b * kvh * min(start + t, ring) * row_bytes)
-                record(res, torch, name,
-                       f"B=4 T=512 {shape} at pos {start} {pool_name} pool", f(),
-                       want, rel_tol(want, 1e-4 if kind == "f32" else 1e-2),
-                       f, p, nbytes, 4 * pairs * hd, iters=5,
-                       primary=primary and (start, layer) == (512, 1))
+            window = cfg.attention_window_sizes[layer]
+            f = lambda: fa.flash_prefill_attention(  # noqa: E731
+                cache, layer, q, positions, window, cfg.att_cap, pe)
+            p = lambda: fa.flash_prefill_attention_plain(  # noqa: E731
+                cache, layer, q, positions, window, cfg.att_cap, pe)
+            want = p()
+            got = f()
+            if not torch.equal(got, f()):
+                fail(f"{name} at pos {start} {pool_name}: a repeat gave "
+                     "other bits")
+            ring = cache.pool(layer)[2]
+            mask = attention_mask(positions, ring, window, pe)
+            pairs = int(mask.sum()) * heads
+            live_rows = int(mask.any(dim=1).sum())  # ring rows read, all b
+            row_bytes = 2 * hd * item + (8 if kind == "i8" else 0)
+            nbytes = 2 * q.numel() * 4 + live_rows * kvh * row_bytes
+            record(res, torch, name,
+                   f"B=4 T=512 {shape} at pos {start} {pool_name} pool",
+                   got, want, rel_tol(want, 1e-4 if kind == "f32" else 1e-2),
+                   f, p, nbytes, 4 * pairs * hd, iters=5,
+                   primary=primary and start == 512 and layer == 1)
 
 
 def _set_env(name, value):
@@ -886,6 +956,8 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
                 cp, layer, qq, pos, k_raw, v_raw, window, cfg.att_cap, vmask,
                 rp)
             got, want = f(), p()
+            if not torch.equal(got, f()):  # rewrites the same row
+                fail(f"{name} {shape} {pool_name}: a repeat gave other bits")
             label = f"{shape} {pool_name} {mode}"
             check_written_rows(torch, name, label, kind, ck, cp, layer)
             sel = slice(None) if vmask is None else valid[:, 0]
@@ -953,6 +1025,8 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
             p = lambda: da.decode_attention_plain(  # noqa: E731
                 cache, layer, q_enc, pos, window, cfg.att_cap)
             got, want = f(), p()
+            if not torch.equal(got, f()):
+                fail(f"{name} {shape} {pool_name}: a repeat gave other bits")
             live = live_rows(cache, layer, window)
             record(res, torch, name, f"B=4 {shape} {pool_name} live {live} "
                    "rows", got, want, rel_tol(want, 1e-2), f, p,

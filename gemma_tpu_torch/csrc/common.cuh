@@ -83,6 +83,38 @@ __device__ __forceinline__ float cdt_round(float x) {
   else return bf16_round(x);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// cp.async of 16 or 4 bytes global -> shared; src_bytes 0 zero-fills the
+// destination without reading the source.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most `n` of this thread's groups are pending; n is clamped
+// to 0..7 (waiting for more groups than needed is safe).
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n < 0 ? 0 : n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
 // D += A(16x16 bf16, row) * B(16x8 bf16, col), f32 accumulate.
 __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
                                                const uint32_t* b) {

@@ -28,8 +28,8 @@
 //      garbage row `ring` for an invalid slot.  K10 has no new row;
 //   2. attention of the G query heads over the ring with the new row
 //      substituted: scores q . k (times scale_k for i8), soft cap, window
-//      mask, an exact softmax (pass 1 finds each row's max and
-//      denominator, pass 2 recomputes the scores), probabilities (times
+//      mask, an exact softmax over the cluster (each kept score read once
+//      more, from shared memory, for exp(s - M) / L), probabilities (times
 //      scale_v for i8) rounded to the compute type before the V product.
 //      The compute type is f32 for an f32 pool and bf16 otherwise
 //      (decode_attention.py:487-488): q, the new row and the probabilities
@@ -37,16 +37,19 @@
 //      heads kv-major.
 // Rows the mask rules out (outside the window, or never written yet) are
 // skipped: the walk covers absolute positions
-// max(pos-window+1, pos-ring+1, 0)..pos.  No panel is staged whole, so
-// these kernels serve every ring length.
+// max(pos-window+1, pos-ring+1, 0)..pos.
 //
-// Design: one thread-block cluster of CL = 8 blocks per (b, h), 16 warps
-// each; warp w of rank r takes every 128th live position from r*16 + w.
-// The clusters combine pass 1's (max, denominator) and pass 2's partial
-// outputs through distributed shared memory, so the exact softmax stays
-// one launch.  Every block encodes the new row; rank 0 alone writes it,
-// and every block substitutes it in-compute where s == row, so no block
-// reads a row another block is writing.
+// Design (decode_attention_body below has the steps): one thread-block
+// cluster per (b, h), of 8 blocks (4 above 4 KV heads), each taking a
+// contiguous run of the live positions.  A block puts its K, V and scale
+// loads in flight (cp.async) before it encodes the new row, reads K once
+// (scores kept in shared memory between the cluster's (max, denominator)
+// exchange and the V pass), 8 lanes a K row and D split across lanes for
+// V.  Every block encodes the new row; rank 0 alone writes it, and the
+// block whose run holds it substitutes it in shared memory (its pool row
+// is never read), so no block reads a row another block is writing.
+// Partial sums are added in a fixed order (lanes, warps, ranks): the same
+// inputs give the same bits.
 //
 // K11: one block per (b, h, S block of `bs` rows); blocks past the live
 // frontier min(pos, ring-1) / bs return at once, so the reads follow the
@@ -65,14 +68,18 @@
 // What bounds them on an H100: bytes.  Per call the attention kernels
 // must read the live K and V rows, 2*D*sizeof(T) bytes per live row per
 // (b, h) (+ 8 for i8's scales), plus q, the new rows and the output; at
-// B=4, 4 KV heads, D=256 and 700 live rows that is 5.8 MB (i8), 11.5 MB
-// (bf16) or 23 MB (f32) -> 1.7, 3.4 or 6.9 us at 3.35 TB/s.  These designs
-// read K twice and are latency-bound at decode sizes; a single
-// online-softmax pass is left for later.  Built with -fmad=false so RoPE
-// and the norms round like the plain version's separate multiplies and
-// adds.
+// B=4, 4 KV heads, D=256 and 2054 live rows over the slots that is 4.3 MB
+// (i8), 8.4 MB (bf16) or 16.8 MB (f32) -> 1.3, 2.5 or 5.0 us at 3.35 TB/s.
+// At decode sizes the K4 body is bound by latency instead: the global
+// loads, the new row's encode, and three cluster barriers.  Built with
+// -fmad=false so RoPE and the norms round like the plain version's
+// separate multiplies and adds (the attention's own products use explicit
+// fused multiply-adds).
 
 #include <cooperative_groups.h>
+
+#include <mutex>
+#include <set>
 
 #include "common.cuh"
 
@@ -147,6 +154,28 @@ __device__ void norm_row(float* x, const float* w, float* red) {
   __syncthreads();
 }
 
+// sin and cos of a RoPE angle without a call: the angle less its nearest
+// multiple of pi/2 in double precision (exact to ~2^-35 for |theta| <
+// 2^17, positions far past any ring), then single-precision minimax
+// polynomials on [-pi/4, pi/4] (about 1 ulp, as sinf / cosf) and the
+// quadrant.  sincosf would compile in its huge-argument reduction, a real
+// call whose saved registers show as spills.
+__device__ __forceinline__ void rope_sincos(float theta, float* sn, float* cs) {
+  const double t = (double)theta;
+  const double k = rint(t * 0.63661977236758134308);  // 2 / pi
+  const float r = (float)fma(-k, 1.57079632679489661923, t);
+  const float z = r * r;
+  float sp = __fmaf_rn(z, -1.9515295891e-4f, 8.3321608736e-3f);
+  sp = __fmaf_rn(z, sp, -1.6666654611e-1f);
+  const float sr = __fmaf_rn(r * z, sp, r);
+  float cp = __fmaf_rn(z, 2.443315711809948e-5f, -1.388731625493765e-3f);
+  cp = __fmaf_rn(z, cp, 4.166664568298827e-2f);
+  const float cr = __fmaf_rn(z * z, cp, __fmaf_rn(-0.5f, z, 1.0f));
+  const int q = (int)((long long)k & 3);
+  *sn = q == 0 ? sr : q == 1 ? cr : q == 2 ? -sr : -cr;
+  *cs = q == 0 ? cr : q == 1 ? -sr : q == 2 ? -cr : sr;
+}
+
 // RoPE (mode 0) or half-RoPE (mode 1) of `nrows` rows x[r*D..] in place.
 template <int D>
 __device__ void rope_rows(float* x, int nrows, int pos, const float* inv_ts,
@@ -158,7 +187,8 @@ __device__ void rope_rows(float* x, int nrows, int pos, const float* inv_ts,
       float* r = x + (idx / half) * D;
       const int i = idx % half;
       const float theta = posf * inv_ts[i];
-      const float s = sinf(theta), c = cosf(theta);
+      float s, c;
+      rope_sincos(theta, &s, &c);
       const float x0 = r[i] * mul, x1 = r[i + half] * mul;
       r[i] = x0 * c - x1 * s;
       r[i + half] = x0 * s + x1 * c;
@@ -169,7 +199,8 @@ __device__ void rope_rows(float* x, int nrows, int pos, const float* inv_ts,
       float* r = x + (idx / qh) * D;
       const int i = idx % qh;
       const float theta = posf * inv_ts[i];
-      const float s = sinf(theta), c = cosf(theta);
+      float s, c;
+      rope_sincos(theta, &s, &c);
       const float x0 = r[i], x1 = r[i + qh];
       r[i] = x0 * c - x1 * s;
       r[i + qh] = x0 * s + x1 * c;
@@ -181,14 +212,7 @@ __device__ void rope_rows(float* x, int nrows, int pos, const float* inv_ts,
   __syncthreads();
 }
 
-// Warps per block: 16, or 8 at G = 4 so the [NW][G][D] partial sums fit
-// 32 KB of shared memory.
-template <int G>
-__host__ __device__ constexpr int dec_warps() { return G >= 4 ? 8 : 16; }
 
-// Blocks per (b, h): one thread-block cluster, which splits the live rows
-// and combines through distributed shared memory.
-constexpr int CL = 8;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -357,163 +381,384 @@ __device__ __forceinline__ int key_abs(int pos, int pm, int s, int ring) {
   return pos - (d < 0 ? d + ring : d);
 }
 
+// K4's body, shared by K8 and K10.  One thread-block cluster of CL blocks
+// (dec_cluster) per (b, h) splits the live positions p_lo..pos into CL
+// contiguous runs (rank r: p_lo + r*n/CL up to p_lo + (r+1)*n/CL, n live
+// positions; ops/decode_attention.py:decode_row_split), so the newest
+// position, the new row, falls to the last rank.  A block:
+//  1. puts its rows' loads in flight before it encodes the new row: K and
+//     V in chunks of DC = 32 rows, the first NS chunks of each (2 to 4,
+//     up to ~100 KB) and every row's i8 scales at once, later chunks
+//     through the same slots as earlier ones are used (cp.async groups).
+//     The new row's ring row is zero-filled and patched from the encoded
+//     row in shared memory (the in-compute substitution);
+//  2. scores its rows, 8 lanes a row (4 rows a warp at a time), q in
+//     registers: scale_k, soft cap; keeps them in shared memory, with its
+//     max m_r and l_r = sum exp(s - m_r) (K is read once);
+//  3. exchanges (m_r, l_r) across the cluster: M = max m_r, L = sum over
+//     ranks in order of l_r exp(m_r - M); turns each kept score into the
+//     probability exp(s - M) * (1 / L) (times scale_v), rounded to the
+//     compute type;
+//  4. multiplies V by the probabilities, lanes splitting D; lanes, warps
+//     and then ranks add their partial sums in order.
+constexpr int DC = 32;          // rows a chunk
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_MAXR = 2048;  // rows a block: rings up to cluster * 2048
+
+// Blocks a cluster (one per (b, h)): 8 up to 4 KV heads (Gemma2-2B), else
+// 4 (9B's 8, 27B's 16), so that B = 4 runs in one wave: 32 clusters of 8
+// did not all find room at once (9B: 0.0301 ms against 0.0230 with 4).
+// From the head count alone, never the batch: a slot's sums are taken in
+// the same order at every batch size.  ops/decode_attention.py:
+// decode_cluster.
+__host__ __device__ constexpr int dec_cluster(int kvh) { return kvh <= 4 ? 8 : 4; }
+
+template <typename T, int D, int G>
+struct DecSmem {
+  static constexpr int RB = D * (int)sizeof(T);     // bytes a row
+  static constexpr int NP = RB / 16;                // 16-byte pieces a row
+  static constexpr int EPP = 16 / (int)sizeof(T);   // elements a piece
+  static constexpr int CB = DC * RB;                // bytes a chunk
+  // Per kept row: G scores (i8: and the K and V scales).
+  static constexpr int per_row = G * 4 + (std::is_same<T, int8_t>::value ? 8 : 0);
+  // Chunk slots of K and of V: 2 to 4 each, as many as keep the block
+  // within ~100 KB beside the scores of 1024 rows (two blocks an SM, so
+  // clusters always find room); f32 rows at D = 256 take 2 slots and one
+  // block an SM.
+  static constexpr int fit = (100 * 1024 - 1024 * per_row) / (2 * CB);
+  static constexpr int NS = fit < 2 ? 2 : fit > 4 ? 4 : fit;
+  static constexpr int ring = NS * CB;
+  static constexpr int acc = DEC_WARPS * G * D * 4;
+  static constexpr int kring_or_acc = ring > acc ? ring : acc;
+  // Dynamic shared memory for `maxr` kept rows (ceil(ring / cluster)).
+  static constexpr int bytes(int maxr) { return kring_or_acc + ring + maxr * per_row; }
+};
+
+// A 16-byte piece of a pool row -> its 16 / sizeof(T) elements as exact
+// floats (i8 codes by byte permutes, bf16 by shifts).
+template <typename T>
+__device__ __forceinline__ void piece_f32(const uint4& w, float* f) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    i8x4_to_f32(w.x, f);
+    i8x4_to_f32(w.y, f + 4);
+    i8x4_to_f32(w.z, f + 8);
+    i8x4_to_f32(w.w, f + 12);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(x[i] << 16);
+      f[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+    }
+  } else {
+    f[0] = __uint_as_float(w.x);
+    f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z);
+    f[3] = __uint_as_float(w.w);
+  }
+}
+
+// Whether the entry brings a new row (K10 has none).
+__device__ __forceinline__ bool brings_row(const DecArgs&) { return true; }
+__device__ __forceinline__ bool brings_row(const SplitArgs& p) { return p.knew != nullptr; }
+
 template <typename T, int D, int G, typename Args>
 __device__ __forceinline__ void decode_attention_body(const Args& p) {
   namespace cg = cooperative_groups;
+  using S = DecSmem<T, D, G>;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  constexpr int NW = DEC_WARPS, NP = S::NP, EPP = S::EPP, NS = S::NS;
+  constexpr int PPL = NP / 8;                     // scoring: pieces a lane
+  constexpr int LPRB = NP < 32 ? NP : 32;         // values: lanes a row
+  constexpr int RPIB = 32 / LPRB, PPLB = NP / LPRB;
   cg::cluster_group cluster = cg::this_cluster();
-  constexpr int NW = dec_warps<G>();
-  constexpr int DPL = D / 32;  // elements per lane
-  const int rank = (int)cluster.block_rank();
+  const int rank = (int)cluster.block_rank(), CL = (int)cluster.dim_blocks().x;
   const int bh = blockIdx.x / CL;
+  const int maxr = (p.ring + CL - 1) / CL;
   const int b = bh / p.kvh, h = bh % p.kvh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ __align__(16) unsigned char dsm[];
+  unsigned char* sK = dsm;                              // [NS][DC][RB]
+  float* acc_s = reinterpret_cast<float*>(dsm);         // [NW][G][D], after scoring
+  unsigned char* sV = dsm + S::kring_or_acc;            // [NS][DC][RB]
+  float* sc = reinterpret_cast<float*>(sV + S::ring);   // [maxr][G]
+  float* sSk = sc + maxr * G;                           // [maxr] (i8)
+  float* sSv = sSk + maxr;
   __shared__ float sk[D], sv[D], sq[G * D];
-  __shared__ float red[32];
-  __shared__ float wm[NW][G], wl[NW][G];
-  __shared__ float acc_s[NW][G][D];
-  __shared__ float cm[G], cl[G];  // this block's pass-1 max and denominator
+  __shared__ float red[NW * G];
+  __shared__ float cm[G], cl[G];  // this block's max and denominator
   __shared__ float part[G * D];   // this block's share of the output
 
-  // Every block of the cluster encodes the new row (cheap: D values);
-  // rank 0 writes it, and every block substitutes it where s == row
-  // instead of reading the panel, so no block waits for another's write.
-  const NewRow nr = encode_rows<T, D, G, NW>(p, b, h, rank == 0, sk, sv, sq,
-                                             red);
-  const int row = nr.row;
-  const float new_sk = nr.sk, new_sv = nr.sv;  // the new row's scales (i8)
+  // This block's run of live positions.
   const int pos = p.pos[b];
-  const size_t plane = (size_t)p.s_alloc * D;  // one (b, l, kv, h) panel
-  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
-  T* kpan = static_cast<T*>(p.pool) + kbase * plane;
-  T* vpan = static_cast<T*>(p.pool) + vbase * plane;
-
-  float qr[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) qr[g][i] = sq[g * D + lane * DPL + i];
-
-  const int p_hi = pos;
   const int p_lo = max(max(pos - p.window + 1, pos - p.ring + 1), 0);
-  const int first = p_lo + rank * NW + warp;  // this warp's rows: every
-  constexpr int STEP = CL * NW;               // STEP-th live position
-  const float cap = p.att_cap;
+  const int n = pos - p_lo + 1;
+  const int first = p_lo + (rank * n) / CL;
+  const int nr = p_lo + ((rank + 1) * n) / CL - first;
+  const int nch = (nr + DC - 1) / DC;
+  const int s_first = first % p.ring;  // ring row of the run's first position
+  // The new row (pos % ring, or the garbage row for an invalid slot) and
+  // its index in this block's run, if there.
+  const int row = brings_row(p) ? ((p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring) : -1;
+  const int newi = (row == pos % p.ring && pos >= first && pos < first + nr) ? pos - first : -1;
+
+  const size_t plane = (size_t)p.s_alloc * D;
+  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
+  const unsigned char* kpan = reinterpret_cast<const unsigned char*>(static_cast<const T*>(p.pool) + kbase * plane);
+  const unsigned char* vpan = reinterpret_cast<const unsigned char*>(static_cast<const T*>(p.pool) + vbase * plane);
   const float* ksc = kQuant ? p.scales + kbase * p.s_alloc : nullptr;
   const float* vsc = kQuant ? p.scales + vbase * p.s_alloc : nullptr;
-
-  auto load_row = [&](const T* pan, const float* fresh, int s, float* c) {
-    if (s == row) {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) c[i] = fresh[lane * DPL + i];
-      return;
-    }
-    const T* src = pan + (size_t)s * D + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
-  };
-  auto score = [&](int s, float* out_sc) {
-    float c[DPL];
-    load_row(kpan, sk, s, c);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) d += qr[g][i] * c[i];
-      float v = warp_sum(d);
-      if constexpr (kQuant) v *= s == row ? new_sk : ksc[s];
-      if (cap != 0.f) v = cap * tanhf(v / cap);
-      out_sc[g] = v;
-    }
+  auto ring_row = [&](int i) {  // i < nr <= ring
+    const int s = s_first + i;
+    return s >= p.ring ? s - p.ring : s;
   };
 
-  // Pass 1: per-row max and softmax denominator over this block's rows,
-  // then over the cluster.
-  float m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) { m[g] = -INFINITY; l[g] = 0.f; }
-#pragma unroll 4
-  for (int pp = first; pp <= p_hi; pp += STEP) {
-    float sc[G];
-    score(pp % p.ring, sc);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float mn = fmaxf(m[g], sc[g]);
-      l[g] = l[g] * expf(m[g] - mn) + expf(sc[g] - mn);
-      m[g] = mn;
+  // Chunk c of K or V into slot c % NS: DC rows of NP pieces; rows past
+  // the run and the new row zero-filled.  Groups are committed in order;
+  // `group` counts them, kgrp / vgrp say which holds chunk c.
+  auto load_chunk = [&](const unsigned char* pan, unsigned char* ring, int c) {
+    unsigned char* slot = ring + (c % NS) * S::CB;
+    for (int e = tid; e < DC * NP; e += NW * 32) {
+      const int r = e / NP, k = e % NP, i = c * DC + r;
+      const bool ok = i < nr && i != newi;
+      cp_async16(slot + r * S::RB + 16 * k, pan + (size_t)(ok ? ring_row(i) : 0) * S::RB + 16 * k,
+                 ok ? 16 : 0);
+    }
+  };
+  int group = 0;
+  const int pre = nch < NS ? nch : NS;  // chunks whose K and V go out first
+  auto kgrp = [&](int c) { return c < NS ? c : pre + (c - NS); };
+  auto vgrp = [&](int c, int kgroups) { return c < NS ? c : kgroups + (c - NS); };
+  if constexpr (kQuant) {
+    for (int i = tid; i < nr; i += NW * 32) {
+      const bool ok = i != newi;
+      const int s = ok ? ring_row(i) : 0;
+      cp_async4(sSk + i, ksc + s, ok ? 4 : 0);
+      cp_async4(sSv + i, vsc + s, ok ? 4 : 0);
     }
   }
-  if (lane == 0)
-#pragma unroll
-    for (int g = 0; g < G; ++g) { wm[warp][g] = m[g]; wl[warp][g] = l[g]; }
-  __syncthreads();
-  if (tid < G) {
-    float mm = -INFINITY, ll = 0.f;
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w][tid]);
-    for (int w = 0; w < NW; ++w)
-      if (wl[w][tid] > 0.f) ll += wl[w][tid] * expf(wm[w][tid] - mm);
-    cm[tid] = mm;
-    cl[tid] = ll;
+  for (int c = 0; c < pre; ++c) {
+    load_chunk(kpan, sK, c);
+    load_chunk(vpan, sV, c);
+    cp_async_commit();
+    ++group;
   }
-  cluster.sync();
+
+  // Every block of the cluster encodes the new row (cheap: D values);
+  // rank 0 writes it to the pool.
+  const NewRow nr_ = encode_rows<T, D, G, NW>(p, b, h, rank == 0, sk, sv, sq, red);
+  // One reciprocal each, multiplied in the loops: a division there compiles
+  // a call to its slow path, and registers saved around such calls spill.
+  const float cap = p.att_cap, inv_cap = cap != 0.f ? 1.f / cap : 0.f;
+
+  // --- scores: 8 lanes a row, lane j holds pieces j, j+8, ... of q ---
+  const int j8 = lane & 7, rg = lane >> 3;
+  float qf[G][PPL * EPP];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int k = 0; k < PPL; ++k)
+#pragma unroll
+      for (int e = 0; e < EPP; ++e) qf[g][k * EPP + e] = sq[g * D + (k * 8 + j8) * EPP + e];
+  float m[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) m[g] = -INFINITY;
+  for (int c = 0; c < nch; ++c) {
+    if (c >= 1 && c + NS - 1 < nch) {  // K of a chunk past the first NS
+      load_chunk(kpan, sK, c + NS - 1);
+      cp_async_commit();
+      ++group;
+    }
+    cp_async_wait(group - kgrp(c) - 1);
+    __syncthreads();
+    unsigned char* slot = sK + (c % NS) * S::CB;
+    if constexpr (kQuant) {
+      if (c == 0 && newi >= 0 && tid == 0) {
+        sSk[newi] = nr_.sk;
+        sSv[newi] = nr_.sv;
+      }
+    }
+    if (newi >= c * DC && newi < (c + 1) * DC) {
+      for (int d = tid; d < D; d += NW * 32)
+        reinterpret_cast<T*>(slot + (newi - c * DC) * S::RB)[d] = from_f32<T>(sk[d]);
+      __syncthreads();
+    }
+    // Every lane takes part in its row group's shuffles; rows past the run
+    // (zero-filled) are dropped after them.
+    const int r = warp * 4 + rg, i = c * DC + r;
+    float acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = 0.f;
+#pragma unroll
+    for (int k = 0; k < PPL; ++k) {
+      float f[EPP];
+      piece_f32<T>(*reinterpret_cast<const uint4*>(slot + r * S::RB + 16 * (k * 8 + j8)), f);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < EPP; ++e) acc[g] = __fmaf_rn(qf[g][k * EPP + e], f[e], acc[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float v = acc[g];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      if (i < nr) {
+        if constexpr (kQuant) v *= sSk[i];
+        if (cap != 0.f) v = cap * tanhf(v * inv_cap);
+        if (j8 == 0) sc[i * G + g] = v;
+        m[g] = fmaxf(m[g], v);
+      }
+    }
+    if (c + NS < nch) __syncthreads();  // slot c % NS is refilled next
+  }
+  const int kgroups = group;
+
+  // The block's max, then its denominator sum exp(s - max) over the kept
+  // scores: one barrier each (G values a reduction).
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float mm = -INFINITY, ll = 0.f;
-    for (int r = 0; r < CL; ++r) mm = fmaxf(mm, cluster.map_shared_rank(cm, r)[g]);
-    for (int r = 0; r < CL; ++r) {
-      const float lr = cluster.map_shared_rank(cl, r)[g];
-      if (lr > 0.f) ll += lr * expf(cluster.map_shared_rank(cm, r)[g] - mm);
-    }
-    m[g] = mm;
-    l[g] = ll;
+    const float wmx = warp_max(m[g]);
+    if (lane == 0) red[warp * G + g] = wmx;
   }
-
-  // Pass 2: normalized probabilities (* scale_v for i8), rounded to the
-  // compute type, times V.
-  float acc[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-#pragma unroll 4
-  for (int pp = first; pp <= p_hi; pp += STEP) {
-    const int s = pp % p.ring;
-    float sc[G];
-    score(s, sc);
-    float c[DPL];
-    load_row(vpan, sv, s, c);
-    const float sv_s = kQuant ? (s == row ? new_sv : vsc[s]) : 1.f;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float pr = expf(sc[g] - m[g]) / l[g];
-      if constexpr (kQuant) pr *= sv_s;
-      pr = cdt_round<T>(pr);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] += pr * c[i];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc_s[warp][g][lane * DPL + i] = acc[g][i];
   __syncthreads();
-  if (tid < D) {
+  float mb[G], e[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    mb[g] = red[g];
+    for (int w = 1; w < NW; ++w) mb[g] = fmaxf(mb[g], red[w * G + g]);
+    e[g] = 0.f;
+  }
+  for (int i = tid; i < nr; i += NW * 32)
+#pragma unroll
+    for (int g = 0; g < G; ++g) e[g] += expf(sc[i * G + g] - mb[g]);
+  __syncthreads();  // red read by all before it is reused
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float ws = warp_sum(e[g]);
+    if (lane == 0) red[warp * G + g] = ws;
+  }
+  __syncthreads();
+  if (tid == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float o = 0.f;
-      for (int w = 0; w < NW; ++w) o += acc_s[w][g][tid];
-      part[g * D + tid] = o;
+      float tot = 0.f;
+      for (int w = 0; w < NW; ++w) tot += red[w * G + g];
+      cm[g] = mb[g];
+      cl[g] = nr > 0 ? tot : 0.f;
     }
   }
   cluster.sync();
-  if (rank == 0 && tid < D) {
+  float M[G], L[G], invL[G];
+  // The ranks' values are read unrolled (clusters of at most 8), so the
+  // distributed-shared-memory loads are all in flight at once.
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float rm[8], rl[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      rm[r] = r < CL ? cluster.map_shared_rank(cm, r)[g] : -INFINITY;
+      rl[r] = r < CL ? cluster.map_shared_rank(cl, r)[g] : 0.f;
+    }
+    float mm = -INFINITY, ll = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) mm = fmaxf(mm, rm[r]);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (rl[r] > 0.f) ll += rl[r] * expf(rm[r] - mm);
+    M[g] = mm;
+    L[g] = ll;
+    invL[g] = 1.f / ll;
+  }
+  // Probabilities (times scale_v), rounded to the compute type, in place.
+  for (int i = tid; i < nr; i += NW * 32) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float o = 0.f;
-      for (int r = 0; r < CL; ++r) o += cluster.map_shared_rank(part, r)[g * D + tid];
-      if (!(l[g] > 0.f)) o = 0.f;
-      store_out(p, (size_t)b * p.heads * D + (size_t)(h * G + g) * D + tid, o);
+      float pr = expf(sc[i * G + g] - M[g]) * invL[g];
+      if constexpr (kQuant) pr *= sSv[i];
+      sc[i * G + g] = cdt_round<T>(pr);
     }
+  }
+
+  // --- values: LPRB lanes a row, RPIB rows a warp at a time ---
+  const int jb = lane % LPRB, rb = lane / LPRB;
+  float acc[G][PPLB * EPP];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int x = 0; x < PPLB * EPP; ++x) acc[g][x] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (c >= 1 && c + NS - 1 < nch) {  // V of a chunk past the first NS
+      load_chunk(vpan, sV, c + NS - 1);
+      cp_async_commit();
+      ++group;
+    }
+    cp_async_wait(group - vgrp(c, kgroups) - 1);
+    __syncthreads();
+    unsigned char* slot = sV + (c % NS) * S::CB;
+    if (newi >= c * DC && newi < (c + 1) * DC) {
+      for (int d = tid; d < D; d += NW * 32)
+        reinterpret_cast<T*>(slot + (newi - c * DC) * S::RB)[d] = from_f32<T>(sv[d]);
+      __syncthreads();
+    }
+    for (int r = rb + RPIB * warp; r < DC; r += RPIB * NW) {
+      const int i = c * DC + r;
+      if (i >= nr) break;
+      float pr[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) pr[g] = sc[i * G + g];
+#pragma unroll
+      for (int k = 0; k < PPLB; ++k) {
+        float f[EPP];
+        piece_f32<T>(*reinterpret_cast<const uint4*>(slot + r * S::RB + 16 * (k * LPRB + jb)), f);
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int x = 0; x < EPP; ++x)
+            acc[g][k * EPP + x] = __fmaf_rn(pr[g], f[x], acc[g][k * EPP + x]);
+      }
+    }
+    if (c + NS < nch) __syncthreads();  // slot c % NS is refilled next
+  }
+  // Row groups of a warp, then warps in order, then ranks in order.
+#pragma unroll
+  for (int off = LPRB; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int x = 0; x < PPLB * EPP; ++x)
+        acc[g][x] += __shfl_xor_sync(0xffffffffu, acc[g][x], off);
+  __syncthreads();  // every warp done with the K ring that acc_s reuses
+  if (rb == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int k = 0; k < PPLB; ++k)
+#pragma unroll
+        for (int x = 0; x < EPP; ++x)
+          acc_s[(warp * G + g) * D + (k * LPRB + jb) * EPP + x] = acc[g][k * EPP + x];
+  }
+  __syncthreads();
+  for (int x = tid; x < G * D; x += NW * 32) {
+    float o = 0.f;
+    for (int w = 0; w < NW; ++w) o += acc_s[w * G * D + x];
+    part[x] = o;
+  }
+  cluster.sync();
+  if (rank == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      for (int d = tid; d < D; d += NW * 32) {
+        float ro[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) ro[r] = r < CL ? cluster.map_shared_rank(part, r)[g * D + d] : 0.f;
+        float o = 0.f;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) o += ro[r];
+        if (!(L[g] > 0.f)) o = 0.f;
+        store_out(p, (size_t)b * p.heads * D + (size_t)(h * G + g) * D + d, o);
+      }
   }
   cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
 }
@@ -522,8 +767,7 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
 // apart.
 #define GEMMA_DEC_KERNEL(NAME, T, ARGS)                                     \
   template <int D, int G>                                                   \
-  __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(dec_warps<G>() * 32) \
-      NAME(ARGS p) {                                                        \
+  __global__ void __launch_bounds__(DEC_WARPS * 32) NAME(ARGS p) {          \
     decode_attention_body<T, D, G>(p);                                      \
   }
 GEMMA_DEC_KERNEL(decode_attention_i8_kernel, int8_t, DecArgs)
@@ -537,27 +781,57 @@ GEMMA_DEC_KERNEL(decode_attend_bf16_kernel, __nv_bfloat16, SplitArgs)
 GEMMA_DEC_KERNEL(decode_attend_f32_kernel, float, SplitArgs)
 #undef GEMMA_DEC_KERNEL
 
+// Launched as clusters of dec_cluster(kvh) blocks (runtime cluster
+// dimensions); the shared-memory ceiling is raised once per kernel, to the
+// most any ring takes, not on every decode launch.
+template <typename Args>
+static cudaError_t launch_one(void (*kernel)(Args), const Args& p, int bytes,
+                              int max_bytes, int cl, int batch, cudaStream_t st) {
+  static std::mutex mu;
+  static std::set<void*> ready;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready.count(reinterpret_cast<void*>(kernel))) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+      if (e != cudaSuccess) return e;
+      ready.insert(reinterpret_cast<void*>(kernel));
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * p.kvh * cl);
+  cfg.blockDim = dim3(DEC_WARPS * 32);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+
+  return cudaLaunchKernelEx(&cfg, kernel, p);
+}
+
 // K4 (DecArgs); K8 (op 1) or K10 (op 2) (SplitArgs).
 template <typename T, int D, int G, typename Args>
-static void launch_dec(const Args& p, int op, int batch, cudaStream_t st) {
-  const dim3 grid(batch * p.kvh * CL), block(dec_warps<G>() * 32);
+static cudaError_t launch_dec(const Args& p, int op, int batch, cudaStream_t st) {
+  using S = DecSmem<T, D, G>;
+  const int cl = dec_cluster(p.kvh);
+  const int bytes = S::bytes((p.ring + cl - 1) / cl), max_bytes = S::bytes(DEC_MAXR);
+  void (*kernel)(Args);
   if constexpr (std::is_same<Args, DecArgs>::value) {
-    if constexpr (std::is_same<T, int8_t>::value)
-      decode_attention_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
-    else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      decode_attention_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
-    else
-      decode_attention_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+    if constexpr (std::is_same<T, int8_t>::value) kernel = decode_attention_i8_kernel<D, G>;
+    else if constexpr (std::is_same<T, __nv_bfloat16>::value) kernel = decode_attention_bf16_kernel<D, G>;
+    else kernel = decode_attention_f32_kernel<D, G>;
   } else if constexpr (std::is_same<T, int8_t>::value) {
-    if (op == 1) decode_write_attend_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
-    else decode_attend_i8_kernel<D, G><<<grid, block, 0, st>>>(p);
+    kernel = op == 1 ? decode_write_attend_i8_kernel<D, G> : decode_attend_i8_kernel<D, G>;
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (op == 1) decode_write_attend_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
-    else decode_attend_bf16_kernel<D, G><<<grid, block, 0, st>>>(p);
+    kernel = op == 1 ? decode_write_attend_bf16_kernel<D, G> : decode_attend_bf16_kernel<D, G>;
   } else {
-    if (op == 1) decode_write_attend_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
-    else decode_attend_f32_kernel<D, G><<<grid, block, 0, st>>>(p);
+    kernel = op == 1 ? decode_write_attend_f32_kernel<D, G> : decode_attend_f32_kernel<D, G>;
   }
+  return launch_one(kernel, p, bytes, max_bytes, cl, batch, st);
 }
 
 template <typename T, typename Args>
@@ -565,14 +839,18 @@ static int dispatch_dec(const Args& p, int op, int batch, int d,
                         int* launched, cudaStream_t st) {
   *launched = 0;
   const int g = p.heads / p.kvh;
-  if (p.heads % p.kvh != 0) return (int)cudaErrorInvalidValue;
-  if (d == 256 && g == 2) launch_dec<T, 256, 2>(p, op, batch, st);
-  else if (d == 256 && g == 1) launch_dec<T, 256, 1>(p, op, batch, st);
-  else if (d == 256 && g == 4) launch_dec<T, 256, 4>(p, op, batch, st);
-  else if (d == 128 && g == 2) launch_dec<T, 128, 2>(p, op, batch, st);
-  else if (d == 128 && g == 1) launch_dec<T, 128, 1>(p, op, batch, st);
-  else if (d == 128 && g == 4) launch_dec<T, 128, 4>(p, op, batch, st);
+  if (p.heads % p.kvh != 0 || p.ring <= 0 || p.window <= 0 ||
+      (p.ring + dec_cluster(p.kvh) - 1) / dec_cluster(p.kvh) > DEC_MAXR)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (d == 256 && g == 2) e = launch_dec<T, 256, 2>(p, op, batch, st);
+  else if (d == 256 && g == 1) e = launch_dec<T, 256, 1>(p, op, batch, st);
+  else if (d == 256 && g == 4) e = launch_dec<T, 256, 4>(p, op, batch, st);
+  else if (d == 128 && g == 2) e = launch_dec<T, 128, 2>(p, op, batch, st);
+  else if (d == 128 && g == 1) e = launch_dec<T, 128, 1>(p, op, batch, st);
+  else if (d == 128 && g == 4) e = launch_dec<T, 128, 4>(p, op, batch, st);
   else return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   *launched = 1;
   return (int)cudaGetLastError();
 }

@@ -130,10 +130,6 @@ struct Sm90Args {
   int out_bf16;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // --- the swizzled tile and its wgmma descriptor ---------------------------
 // A [rows, 64] bf16 tile is K-major, one 128-byte row per tile row, in
 // 1024-byte atoms of 8 rows, with the 128-byte swizzle: 16-byte chunk c of

@@ -69,10 +69,13 @@ def _target(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(verbose: bool = False) -> dict[str, Path]:
+def build_all(verbose: bool = False,
+              logs: dict | None = None) -> dict[str, Path]:
     """Compile every source not yet built, all in parallel.
 
-    Returns {source: library path}.  Raises with nvcc's output on failure."""
+    Returns {source: library path}; `logs` collects nvcc's output per
+    source built (with `verbose`, ptxas's registers and spills).  Raises
+    with nvcc's output on failure."""
     sources = sorted(p.name for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {s: _target(s) for s in sources}
@@ -95,6 +98,8 @@ def build_all(verbose: bool = False) -> dict[str, Path]:
             continue
         if verbose and log:
             print(f"[nvcc {src}]\n{log}")
+        if logs is not None:
+            logs[src] = log
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

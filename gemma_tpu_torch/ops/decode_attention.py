@@ -87,6 +87,32 @@ KV_WRITE = _per_kind("kv_write", [_P] * 6 + [_I] * 7)
 # s_alloc, d, ring, window, q_bs; att_cap.
 DECODE_ATTEND = _per_kind("decode_attend", [_P] * 5 + [_I] * 10 + [_F])
 
+# The most live rows one block of K4 / K8 / K10 keeps scores for: rings up
+# to 2048 times the cluster (the entries refuse longer ones).
+DECODE_MAX_ROWS = 2048
+
+
+def decode_cluster(kv_heads: int) -> int:
+    """Blocks of the thread-block cluster per (batch, KV head): 8 up to 4
+    KV heads (Gemma2-2B), else 4 (9B's 8, 27B's 16), so batch 4 runs in
+    one wave.  From the head count alone, never the batch, so a slot's
+    sums are taken in one order at every batch size."""
+    return 8 if kv_heads <= 4 else 4
+
+
+def decode_row_split(pos: int, ring: int, window: int,
+                     cluster: int) -> list[range]:
+    """The live positions each block of a K4 / K8 / K10 cluster takes:
+    max(pos - window + 1, pos - ring + 1, 0) .. pos cut into `cluster`
+    contiguous runs, rank r from p_lo + r*n // cluster (n live positions).
+    The kernel computes the same split; the newest position, whose ring
+    row the step writes, falls to the last rank with rows."""
+    p_lo = max(pos - window + 1, pos - ring + 1, 0)
+    n = pos - p_lo + 1
+    return [range(p_lo + r * n // cluster, p_lo + (r + 1) * n // cluster)
+            for r in range(cluster)]
+
+
 # K11's per-(batch, KV head) arrival counters, zero between launches (the
 # last block of each pair re-zeroes its own).
 _sblocked_tickets: dict[torch.device, torch.Tensor] = {}

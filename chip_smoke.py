@@ -6,24 +6,34 @@
 Phases (any failure exits non-zero before the result line):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, and the
      build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed,
-     with each attention kernel's registers and spills (-Xptxas -v; a
-     spill in K5 or in the Gemma2 (G = 2) instantiations of K4 / K8 / K10
-     fails);
+     with the registers and spills of each attention kernel, the decode
+     tile and the heads (-Xptxas -v; a spill in K5, in the Gemma2 (G = 2)
+     instantiations of K4 / K8 / K10, in the decode tile of K1 / K2 / K12
+     or in K3 fails);
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
      plain version, its bound (bytes over 3.35 TB/s or operations over
      989 TFLOP/s bf16, the H100 SXM data-sheet peaks) and, for the dense
-     GEMMs, torch.nn.functional.linear on the same inputs: the GEMMs and
-     their norm passes, the gated GEMM and the fused greedy head for i8,
-     sfp, bf16, f32, i4 and nuq4 weights (kind nuq runs the sfp kernels),
+     GEMMs, torch.nn.functional.linear on the same inputs: the GEMMs
+     with their norms folded in (and the norm passes alone, which the
+     prefill tile and the top-k head still chain), the gated GEMM and the
+     fused greedy head for i8, sfp, bf16, f32, i4 and nuq4 weights (kind
+     nuq runs the sfp kernels),
      the fused top-k head for the same kinds (k_top 2, 64, 128; M = 4 and
      20; an allowed mask; fewer live columns than k_top; saturated ties)
      with its merge pass alone; the decode tile of K1 and K2
      (csrc/matmul_decode.cu) for every kind, plain and stacked, at M = 1,
      4, 8, 13 and 16 (`check_decode_rows`: each call repeated bit for bit,
      row 0 alone equal to row 0 in the batch) and one-hot reads
-     (`check_one_hot_rows`); the packed kinds once more at the decode
+     (`check_one_hot_rows`), and with its norms folded in, plain and
+     stacked, at the same row counts, repeats and graph replays bit for
+     bit (`check_fused_rows`), and its prologue read back through an
+     identity weight bit for bit against the kernels' order of the sum of
+     squares (`check_prologue_bits`); the greedy head at M = 4 and 20
+     for every kind, repeated and replayed in a graph bit for bit, its
+     prob held to the plain version within a limit that a bf16-A control
+     must fail (`check_top1_prob`); the packed kinds once more at the decode
      shapes of Gemma2-27B (i4, nuq4) and Gemma2-9B (nuq4), with a weight
      whose codes encode their column and nuq4 tables of equal, repeated
      and -0.0 entries; the draw kernel; decode attention (K4) and
@@ -110,8 +120,8 @@ Phases (any failure exits non-zero before the result line):
           decode speed, device busy and idle share beside path A's;
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-O; the diagnostic's, on no path, 0), then nvidia-smi's line,
-     then the result line.
+     4A-O; the diagnostic's and the post-norm pass's, on no path, 0),
+     then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
 without either it exits non-zero and prints no result.
@@ -172,7 +182,8 @@ def main() -> int:
     _cuda.build_all(verbose=True, logs=logs)
     print(f"[1] built {len(list(_cuda.CSRC.glob('*.cu')))} sources in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
-    ptxas_report(logs, ("flash_attention.cu", "decode_attention.cu"))
+    ptxas_report(logs, ("flash_attention.cu", "decode_attention.cu",
+                        "matmul_decode.cu", "matmul.cu"))
 
     results = phase_kernels(torch)
     phase_two_layers(torch)
@@ -198,6 +209,7 @@ def main() -> int:
             "library_ms": r.get("library_ms"),
             "library_note": LIBRARY_NOTE[k.name],
             "case": r["case"],
+            "changed": CHANGED.get(k.name),
         })
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
@@ -359,8 +371,29 @@ for _kind in WEIGHT_KINDS:
         "torch.nn.functional.linear on the same A and weights (scale 1)"
         if _kind in ("bf16", "f32") else LIBRARY_NOTE[f"matmul_{_kind}"])
     LIBRARY_NOTE[f"gated_sm90_{_kind}"] = LIBRARY_NOTE[f"gated_{_kind}"]
-# K13: a standalone diagnostic, on no serving path.
-STANDALONE = {f"nuq_diag_{_v}" for _v in ("d1", "d2", "d3")}
+# The kernels this slice of the port changed, and how.
+CHANGED = {"matmul_prenorm": "no longer on a decode step: folded into the "
+                             "decode tile and K3 (the prefill tile and K6 "
+                             "keep it)",
+           "matmul_postnorm_add": "no longer on a decode step: folded into "
+                                  "the decode tile (the prefill tile keeps "
+                                  "it)"}
+for _kind in WEIGHT_KINDS:
+    for _st in ("", "stacked_"):
+        CHANGED[f"matmul_{_st}{_kind}"] = (
+            "decode tile: the prologue norm and the post-norm + residual "
+            "folded into its one launch")
+        CHANGED[f"gated_{_st}{_kind}"] = (
+            "decode tile: the prologue norm folded into its one launch")
+    CHANGED[f"top1_{_kind}"] = (
+        "redesigned on the decode tile's warp: persistent blocks over "
+        "16-row vocabulary groups, the final norm folded in")
+# On no serving path: K13, a standalone diagnostic; and the post-norm pass,
+# which only the prefill tile's entries chain (the prefill branch norms in
+# torch ops; decode folds the post-norm into the decode tile).  Each is
+# held against its plain version all the same.
+STANDALONE = {f"nuq_diag_{_v}" for _v in ("d1", "d2", "d3")} | {
+    "matmul_postnorm_add"}
 for _v, _what in (("d1", "codes read as int8"),
                   ("d2", "codes zero-extended through int32"),
                   ("d3", "table entries gathered per 128-chunk")):
@@ -372,10 +405,11 @@ for _v, _what in (("d1", "codes read as int8"),
 
 
 def _held(name: str) -> bool:
-    """K5, and the G = 2 instantiations (every Gemma2 head shape) of K4's
-    body with K8 and K10: the kernels the serving paths run that this
-    script holds to no spill."""
-    return name.startswith("flash_attention_") or (
+    """K5, the G = 2 instantiations (every Gemma2 head shape) of K4's body
+    with K8 and K10, the decode tile of K1 / K2 / K12 and the greedy head
+    K3: the kernels the serving paths run that this script holds to no
+    spill."""
+    return name.startswith(("flash_attention_", "mm_", "top1_")) or (
         name.startswith(("decode_attention_", "decode_write_attend_",
                          "decode_attend_")) and name.endswith(",2>"))
 
@@ -393,7 +427,7 @@ def ptxas_report(logs: dict, sources, held=_held) -> None:
                 name = m.group(1)
                 k = re.search(r"\d+(\w+_kernel)I(.*)EEv", name)
                 if k:
-                    targs = re.findall(r"Li(\d+)E?", k.group(2))
+                    targs = re.findall(r"L[ib](\d+)E?", k.group(2))
                     name = f"{k.group(1)}<{','.join(targs)}>"
                 entry = [name, None, None]
                 seen.append(entry)
@@ -534,6 +568,20 @@ def record(results, torch, name, case, got, want, tol, kern, plain, nbytes,
 # 8, two above; 16 is the most its entries take).
 DECODE_ROWS_CHECKED = (1, 4, 8, 13, 16)
 
+# K3's prob against its plain version, relative per row.  The plain
+# version's prologue is rms_norm; the kernel's takes a row's sum of
+# squares in its own fixed order (ops/matmul.py:prenorm_fixed_order).
+# Where the two f32 multipliers differ in the last place, an element of
+# the bf16 A can round one ulp apart, and each such flip moves prob by up
+# to ~2e-4 at the head's shapes.  The limit was set from readings
+# (PERF.md, K3): 17x the largest error of the sound runs (2.99e-5), 3.4x
+# below the smallest error of a control that every run checks must fail
+# it (the plain head on A rounded to bf16 before its norm: 1.72e-3).
+TOP1_PROB_TOL = 5e-4
+# The same prob against the plain head on the kernels' own prologue A:
+# only the order of the exp sum differs.
+TOP1_PROB_TOL_SAME_A = 1e-4
+
 
 def check_decode_rows(torch, gen, label, k, call, plain, rel):
     """One decode GEMM at every M of DECODE_ROWS_CHECKED on bf16 A, held
@@ -559,6 +607,86 @@ def check_decode_rows(torch, gen, label, k, call, plain, rel):
     print(f"[2] {label}: M in {DECODE_ROWS_CHECKED} within tol (worst "
           f"err/tol {worst:.3g}), repeats and row 0 alone bit-identical",
           flush=True)
+
+
+def check_fused_rows(torch, gen, label, k, n, call, plain, rel, pro):
+    """A decode GEMM with a norm folded in (K1 / K2 / K12: call(a, add)),
+    at every M of DECODE_ROWS_CHECKED, held against its plain version
+    (`rel` of max|out|, as check_decode_rows); A f32 under the prologue
+    (pro), else bf16, and a residual [M, n] for the epilogue.  Each call
+    repeated gives the same bits, row 0 alone the same bits as row 0 in the
+    batch (the norms' sums are taken in one order at every M), and a CUDA
+    graph of the call replayed twice the call's bits (the epilogue's
+    ticket is zero again after every launch)."""
+    a16 = torch.randn(16, k, generator=gen, device="cuda")
+    a16 = a16.mul_(30.0) if pro else a16.mul_(3.0).to(torch.bfloat16)
+    add16 = torch.randn(16, n, generator=gen, device="cuda").mul_(10.0)
+    worst = 0.0
+    for m in DECODE_ROWS_CHECKED:
+        a, add = a16[:m].contiguous(), add16[:m].contiguous()
+        got, want = call(a, add), plain(a, add)
+        err = float((got.float() - want.float()).abs().max())
+        tol = rel * float(want.float().abs().max())
+        worst = max(worst, err / max(tol, 1e-30))
+        if err > tol or not bool(torch.isfinite(got.float()).all()):
+            fail(f"{label} M={m}: max_abs_err {err:.4g} over tol {tol:.4g}")
+        if not torch.equal(got, call(a, add)):
+            fail(f"{label} M={m}: a repeat gave other bits")
+        if m > 1 and not torch.equal(
+                got[:1], call(a[:1].contiguous(), add[:1].contiguous())):
+            fail(f"{label} M={m}: row 0 differs from row 0 alone")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call(a, add)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call(a, add)
+        for replay in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(out, got):
+                fail(f"{label} M={m}: graph replay {replay} gave other bits")
+        del graph
+    print(f"[2] {label}: folded norms, M in {DECODE_ROWS_CHECKED} within tol "
+          f"(worst err/tol {worst:.3g}), repeats, row 0 alone and two graph "
+          "replays bit-identical", flush=True)
+
+
+def check_prologue_bits(torch, gen):
+    """The prologue folded into the decode tile, read back bit for bit: a
+    bf16 identity weight (N = K) makes K1's f32 output the staged bf16 A
+    itself (each output one exact product, the rest zeros), which must
+    equal ops/matmul.py:prenorm_fixed_order (the kernels' order of the sum
+    of squares) at every M of DECODE_ROWS_CHECKED, at K 2304 (a block sums
+    its rows alone) and 9216 (K split over a cluster, whose blocks share
+    their segments' sums), plain and stacked (K12).  K3 stages its A with
+    the same functions (gemm_common.cuh: norm_segments, norm_row_mul,
+    norm_stage)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    for k in (2304, 9216):
+        eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+        w = mm.QuantTensor("bf16", (k, k), 1.0, {"w": eye})
+        stacked = mm.stack_quant_tensors([w, w])
+        norm = torch.randn(k, generator=gen, device="cuda").mul_(0.05)
+        a16 = torch.randn(16, k, generator=gen, device="cuda").mul_(30.0)
+        for m in DECODE_ROWS_CHECKED:
+            a = a16[:m].contiguous()
+            want = mm.prenorm_fixed_order(a, norm).float()
+            for label, got in (
+                    ("plain", mm.matmul(a, w, prologue_norm=norm)),
+                    ("stacked", mm.matmul(a, stacked, prologue_norm=norm,
+                                          layer=1))):
+                if not torch.equal(got, want):
+                    fail(f"the decode tile's prologue ({label}, K={k}, M={m})"
+                         f": {int((got != want).sum())} of {got.numel()} "
+                         "elements of A differ from prenorm_fixed_order")
+        del eye, w, stacked
+    print(f"[2] the decode tile's prologue, read back through an identity "
+          f"weight (K 2304 and 9216, M in {DECODE_ROWS_CHECKED}, plain and "
+          "stacked): bit-identical to prenorm_fixed_order", flush=True)
 
 
 def check_one_hot_rows(torch, label, w, ms=DECODE_ROWS_CHECKED):
@@ -588,6 +716,54 @@ def check_one_hot_rows(torch, label, w, ms=DECODE_ROWS_CHECKED):
           f"dequantized weight", flush=True)
 
 
+def fused_rows(torch, gen, kind, w_qkv, g1, g2, d, ff, layer=None):
+    """check_fused_rows for one kind at Gemma2-2B widths (w_qkv [*, d], the
+    gated pair [ff, d]; layer: on that layer of stacked weights): K1 qkv
+    with the prologue, linear (K = ff, split over a cluster) with the
+    post-norm and the residual, the same linear with the prologue too (a
+    cluster's blocks share their segments' sums of squares), and K2 with
+    the prologue.  Tolerances as check_decode_rows'."""
+    from gemma_tpu_torch.ops import matmul as mm
+    from gemma_tpu_torch.utils.synth import synth_quant
+
+    def plain_w(w):
+        return w if layer is None else mm.take_layer(w, layer)
+
+    lay = {} if layer is None else {"layer": layer}
+    dev = torch.device("cuda")
+    norm = torch.randn(d, generator=gen, device=dev).mul_(0.05)
+    norm_ff = torch.randn(ff, generator=gen, device=dev).mul_(0.05)
+    post = torch.randn(d, generator=gen, device=dev).mul_(0.05)
+    w_lin = synth_quant(gen, d, ff, dev, kind)
+    if layer is not None:
+        w_lin = mm.stack_quant_tensors([w_lin] * (layer + 1))
+    tag = f"{'matmul_stacked' if layer is not None else 'matmul'}_{kind}"
+    gtag = f"{'gated_stacked' if layer is not None else 'gated'}_{kind}"
+    check_fused_rows(
+        torch, gen, f"{tag} qkv +prologue", d, w_qkv.n,
+        lambda a, add: mm.matmul(a, w_qkv, prologue_norm=norm, **lay),
+        lambda a, add: mm.matmul_plain(a, plain_w(w_qkv), prologue_norm=norm),
+        1e-3, True)
+    check_fused_rows(
+        torch, gen, f"{tag} linear +epilogue", ff, d,
+        lambda a, add: mm.matmul(a, w_lin, epilogue_norm=post, add=add, **lay),
+        lambda a, add: mm.matmul_plain(a, plain_w(w_lin), epilogue_norm=post,
+                                       add=add), 1e-3, False)
+    check_fused_rows(
+        torch, gen, f"{tag} linear +prologue +epilogue", ff, d,
+        lambda a, add: mm.matmul(a, w_lin, prologue_norm=norm_ff,
+                                 epilogue_norm=post, add=add, **lay),
+        lambda a, add: mm.matmul_plain(a, plain_w(w_lin),
+                                       prologue_norm=norm_ff,
+                                       epilogue_norm=post, add=add),
+        1e-3, True)
+    check_fused_rows(
+        torch, gen, f"{gtag} +prologue", d, g1.n,
+        lambda a, add: mm.gated_ffn(a, g1, g2, prologue_norm=norm, **lay),
+        lambda a, add: mm.gated_ffn_plain(a, plain_w(g1), plain_w(g2),
+                                          prologue_norm=norm), 1e-2, True)
+
+
 def phase_kernels(torch):
     """Each kernel vs its plain version at the serving path's shapes."""
     import dataclasses
@@ -610,7 +786,8 @@ def phase_kernels(torch):
     def rel_tol(want, rel):
         return rel * float(want.float().abs().max())
 
-    # --- K1 and its prologue and epilogue passes ---
+    # --- K1 with its prologue and epilogue folded in, and the passes alone
+    # (the prefill tile's and K6's) ---
     # Tolerance: kernel and plain form the same exact bf16 x i8 products;
     # f32 sums in another order and rare one-ulp flips of the bf16-rounded
     # prologue A give ~1e-5 relative; 1e-3 of max|out| bounds it.
@@ -628,7 +805,7 @@ def phase_kernels(torch):
     p = lambda: mm.matmul_plain(x, w_qkv, prologue_norm=norm)  # noqa: E731
     want = p()
     record(res, torch, "matmul_i8",
-           "decode qkv M=4 K=2304 N=4096 (+prenorm pass)",
+           "decode qkv M=4 K=2304 N=4096 (prologue folded)",
            f(), want, rel_tol(want, 1e-3), f, p,
            b * d * 4 + d * 4 + w_qkv.nbytes() + b * 4096 * 4,
            2 * b * 4096 * d, primary=True)
@@ -641,7 +818,7 @@ def phase_kernels(torch):
         p = lambda: mm.matmul_plain(a, w, epilogue_norm=post, add=add)  # noqa
         want = p()
         record(res, torch, "matmul_i8",
-               f"decode {name} M=4 K={k_in} N={d} (+postnorm pass)", f(),
+               f"decode {name} M=4 K={k_in} N={d} (epilogue folded)", f(),
                want, rel_tol(want, 1e-3), f, p,
                b * k_in * 2 + w.nbytes() + b * d * 4, 2 * b * d * k_in)
         y = mm.matmul(a, w)
@@ -657,7 +834,7 @@ def phase_kernels(torch):
     p = lambda: mm.matmul_plain(x, w_head, prologue_norm=fnorm)  # noqa: E731
     want = p()
     record(res, torch, "matmul_i8",
-           "decode head M=4 K=2304 N=256000 (+prenorm pass)",
+           "decode head M=4 K=2304 N=256000 (prologue folded)",
            f(), want, rel_tol(want, 1e-3), f, p,
            b * d * 4 + w_head.nbytes() + b * cfg.vocab_size * 4,
            2 * b * cfg.vocab_size * d, iters=5)
@@ -670,7 +847,8 @@ def phase_kernels(torch):
     f = lambda: mm.gated_ffn(xs, g1, g2, prologue_norm=fn2)  # noqa: E731
     p = lambda: mm.gated_ffn_plain(xs, g1, g2, prologue_norm=fn2)  # noqa: E731
     want = p()
-    record(res, torch, "gated_i8", "decode M=4 K=2304 N=9216 (+prenorm pass)",
+    record(res, torch, "gated_i8",
+           "decode M=4 K=2304 N=9216 (prologue folded)",
            f(),
            want, rel_tol(want, 1e-2), f, p,
            b * d * 4 + 2 * g1.nbytes() + b * ff * 2, 4 * b * ff * d,
@@ -683,6 +861,8 @@ def phase_kernels(torch):
                       lambda a: mm.gated_ffn(a, g1, g2),
                       lambda a: mm.gated_ffn_plain(a, g1, g2), 1e-2)
     check_one_hot_rows(torch, "matmul_i8", w_qkv)
+    fused_rows(torch, gen, "i8", w_qkv, g1, g2, d, ff)
+    check_prologue_bits(torch, gen)
 
     phase_top1(torch, res, x, w_head, fnorm, cfg)
     phase_topk(torch, res, "i8", w_head, fnorm, cfg)
@@ -1078,16 +1258,61 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
     torch.cuda.empty_cache()
 
 
+def check_top1_prob(torch, label, prob, x, w_head, fnorm, cfg, control=True,
+                    **kw):
+    """K3's prob [M] (kw: allowed_mask, need_prob) held three ways,
+    relative per row: to the plain version (rms_norm's prologue) within
+    TOP1_PROB_TOL; to the plain head on the kernels' own prologue A
+    (prenorm_fixed_order: the same bf16 A, only the exp sum's order
+    differs) within TOP1_PROB_TOL_SAME_A; and, with `control`, to the plain
+    head on A rounded to bf16 before its norm, which must differ by more
+    than TOP1_PROB_TOL (else the limit would pass such a fault)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    def err(a, **norm):
+        want = mm.matmul_top1_plain(a, w_head, final_cap=cfg.final_cap,
+                                    **norm, **kw)[1]
+        return float(((prob - want).abs() / want).max())
+
+    e = err(x, prologue_norm=fnorm)
+    same = err(mm.prenorm_fixed_order(x, fnorm))
+    ctrl = err(x.to(torch.bfloat16).float(), prologue_norm=fnorm) \
+        if control else None
+    print(f"[2] {label}: prob max relative err {e:.4g} (tol "
+          f"{TOP1_PROB_TOL:g}), {same:.4g} against the kernels' prologue "
+          f"order (tol {TOP1_PROB_TOL_SAME_A:g})"
+          + ("" if ctrl is None else
+             f", bf16-A control {ctrl:.4g} (must exceed {TOP1_PROB_TOL:g})"),
+          flush=True)
+    if e > TOP1_PROB_TOL:
+        fail(f"{label}: prob disagrees with the plain version: {e:.4g}")
+    if same > TOP1_PROB_TOL_SAME_A:
+        fail(f"{label}: prob disagrees with the plain head on the kernels' "
+             f"prologue A: {same:.4g}")
+    if ctrl is not None and ctrl <= TOP1_PROB_TOL:
+        fail(f"{label}: the bf16-A control passes the prob limit "
+             f"({ctrl:.4g}): the limit cannot tell a fault apart")
+
+
+def clear_margin(torch, logits):
+    """Rows whose top1-top2 logit margin exceeds 1e-4 of the largest finite
+    |top1| or |top2| (the kernel's logits move by ~1e-6 of it, as K1's do;
+    closer pairs are capped ties, which either may break)."""
+    top2 = logits.topk(2, dim=-1).values
+    live = torch.isfinite(top2)
+    scale = float(top2[live].abs().max()) if bool(live.any()) else 1.0
+    return (top2[:, 0] - top2[:, 1]) > 1e-4 * scale
+
+
 def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
     """K3 at the decode head's shape: M=4, N=256000, K=2304, with the
-    final-norm prologue; need_prob on and off, an allowed mask of about
-    1/8 of the vocab, and a mask that bans every column; M=20; and, for
-    i8, the sweep of the block count.
+    final norm folded in; need_prob on and off, an allowed mask of about
+    1/8 of the vocab, and a mask that bans every column; then
+    top1_rows_and_replays; and, for i8, the sweep of the block count.
 
     Tolerance: tokens equal wherever the plain version's top1-top2 margin
-    exceeds 1e-4 of max|logit| (the kernel's logits move by ~1e-6 of it,
-    as K1's do; closer pairs are capped ties, which either may break);
-    probs within 1e-4 relative (the same exp sum in another order)."""
+    exceeds 1e-4 of max|logit| (clear_margin); probs as check_top1_prob
+    says."""
     from gemma_tpu_torch.ops import matmul as mm
     from gemma_tpu_torch.ops._cuda import time_ms
 
@@ -1110,10 +1335,7 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
             logits = cfg.final_cap * torch.tanh(logits / cfg.final_cap)
         if allowed is not None:
             logits = logits.masked_fill(~allowed, float("-inf"))
-        top2 = logits.topk(2, dim=-1).values
-        scale = float(logits[torch.isfinite(logits)].abs().max()) \
-            if bool(torch.isfinite(logits).any()) else 1.0
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * scale
+        clear = clear_margin(torch, logits)
         if allowed is banned:
             clear = torch.ones_like(clear)
             if not (bool((tok == 0).all()) and bool((want_tok == 0).all())):
@@ -1125,47 +1347,86 @@ def phase_top1(torch, res, x, w_head, fnorm, cfg, kind="i8"):
               f"margin, {bad} differ", flush=True)
         if bad or not bool(clear.any()):
             fail(f"top1_{kind} [{label}]: tokens differ from the plain version")
+        check_top1_prob(torch, f"top1_{kind} {label}", prob, x, w_head, fnorm,
+                        cfg, control=need_prob and allowed is not banned,
+                        allowed_mask=allowed, need_prob=need_prob)
         nbytes = (x.numel() * 4 + fnorm.numel() * 4 + weight_bytes(w_head)
                   + (n if allowed is not None else 0) + 2 * x.shape[0] * 4)
         record(res, torch, f"top1_{kind}",
-               f"M=4 K=2304 N=256000 (+prenorm pass), {label}", prob,
-               want_prob, 1e-4 * float(want_prob.abs().max()), f, p, nbytes,
-               2 * x.shape[0] * n * x.shape[1], iters=5,
+               f"M=4 K=2304 N=256000 (prologue folded), {label}", prob,
+               want_prob, TOP1_PROB_TOL * float(want_prob.abs().max()), f, p,
+               nbytes, 2 * x.shape[0] * n * x.shape[1], iters=5,
                primary=label == "prob")
-    # The block count is a tuning constant: more blocks lengthen the last
-    # block's serial merge of their states, fewer leave SMs idle.
-    # A batch above 16 rows takes a second row of blocks (grid.y = 2).
-    x20 = torch.randn(20, x.shape[1], generator=gen, device="cuda") * 30
-    tok, prob = mm.matmul_top1(x20, w_head, final_cap=cfg.final_cap,
-                               prologue_norm=fnorm)
-    want_tok, want_prob = mm.matmul_top1_plain(
-        x20, w_head, final_cap=cfg.final_cap, prologue_norm=fnorm)
-    logits = mm.matmul_plain(x20, w_head, prologue_norm=fnorm)
-    top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)).topk(2).values
-    clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
-    bad = int(((tok != want_tok) & clear).sum())
-    err = float(((prob - want_prob).abs() / want_prob).max())
-    print(f"[2] top1_{kind} M=20: {bad} of {int(clear.sum())} tokens with a "
-          f"clear margin differ, prob max relative err {err:.3g} (tol 1e-4)",
-          flush=True)
-    if bad or not bool(clear.any()) or err > 1e-4:
-        fail(f"top1_{kind} [M=20] disagrees with its plain version")
-
+    top1_rows_and_replays(torch, x, w_head, fnorm, cfg, kind)
     if kind != "i8":
         return
-
+    # The block count is a tuning constant: more blocks lengthen the last
+    # block's serial merge of their states, fewer leave SMs idle.
+    # TOP1_BLOCKS caps the blocks; the launch takes no more than fit on
+    # the card at once (two an SM).
     def head():
         return mm.matmul_top1(x, w_head, final_cap=cfg.final_cap,
                               prologue_norm=fnorm)
 
     chosen = mm.TOP1_BLOCKS
     sweep = []
-    for blocks in (264, 528, 1056, 2112, 4224):
+    for blocks in (66, 132, 198, 264):
         mm.TOP1_BLOCKS = blocks
         sweep.append(f"{blocks}: {time_ms(head, 5):.4f}")
     mm.TOP1_BLOCKS = chosen
-    print(f"[2] top1_{kind} prob, ms by TOP1_BLOCKS (the port uses {chosen}): "
-          f"{', '.join(sweep)}", flush=True)
+    print(f"[2] top1_{kind} prob, ms by TOP1_BLOCKS (the port uses {chosen}, "
+          f"which the card's residency caps): {', '.join(sweep)}", flush=True)
+
+
+def top1_rows_and_replays(torch, x, w_head, fnorm, cfg, kind):
+    """K3 at M = 20 (two n-tiles of 8 rows, then a second row of blocks,
+    grid.y = 2) against its plain version as phase_top1 holds M = 4; then
+    at M = 4 a repeat and a CUDA graph replayed twice, bit for bit (the
+    merges run in one order; the ticket is zero again after every
+    launch)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x20 = torch.randn(20, x.shape[1], generator=gen, device="cuda") * 30
+    tok, prob = mm.matmul_top1(x20, w_head, final_cap=cfg.final_cap,
+                               prologue_norm=fnorm)
+    want_tok, _ = mm.matmul_top1_plain(
+        x20, w_head, final_cap=cfg.final_cap, prologue_norm=fnorm)
+    logits = mm.matmul_plain(x20, w_head, prologue_norm=fnorm)
+    clear = clear_margin(
+        torch, cfg.final_cap * torch.tanh(logits / cfg.final_cap))
+    del logits
+    bad = int(((tok != want_tok) & clear).sum())
+    print(f"[2] top1_{kind} M=20: {bad} of {int(clear.sum())} tokens with a "
+          "clear margin differ", flush=True)
+    if bad or not bool(clear.any()):
+        fail(f"top1_{kind} [M=20]: tokens differ from the plain version")
+    check_top1_prob(torch, f"top1_{kind} M=20", prob, x20, w_head, fnorm, cfg)
+
+    def head():
+        tok, prob = mm.matmul_top1(x, w_head, final_cap=cfg.final_cap,
+                                   prologue_norm=fnorm)
+        return torch.stack([tok.float(), prob])
+
+    got = head()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        head()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = head()
+    same = torch.equal(head(), got)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, got)
+    del graph
+    print(f"[2] top1_{kind}: a repeat and two graph replays bit-identical "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"top1_{kind}: a repeat or a graph replay gave other bits")
 
 
 def check_topk(torch, label, got, want, tol):
@@ -1362,7 +1623,7 @@ def phase_codecs(torch, res, cfg):
         p = lambda: mm.matmul_plain(x, w_qkv, prologue_norm=norm)  # noqa
         want = p()
         record(res, torch, f"matmul_{kind}",
-               f"decode qkv M=4 K={d} N=4096 (+prenorm pass), scale "
+               f"decode qkv M=4 K={d} N=4096 (prologue folded), scale "
                f"{w_qkv.scale:.3g}", f(), want, rel_tol(want, 1e-3), f, p,
                b * d * 4 + d * 4 + weight_bytes(w_qkv) + b * 4096 * 4,
                2 * b * 4096 * d, primary=True, library=lib)
@@ -1378,7 +1639,7 @@ def phase_codecs(torch, res, cfg):
                                     add=add)
         want = p()
         record(res, torch, f"matmul_{kind}",
-               f"decode linear M=4 K={ff} N={d} (+postnorm pass)", f(), want,
+               f"decode linear M=4 K={ff} N={d} (epilogue folded)", f(), want,
                rel_tol(want, 1e-3), f, p,
                b * ff * 2 + weight_bytes(w_lin) + b * d * 4, 2 * b * d * ff,
                library=lib)
@@ -1391,7 +1652,6 @@ def phase_codecs(torch, res, cfg):
                           lambda a: mm.matmul_plain(a, w_lin), 1e-3)
         check_one_hot_rows(torch, f"matmul_{kind}", w_qkv)
         del w_lin
-        del w_qkv
         g1, g2 = quant(ff, d), quant(ff, d)
         lib = int4pack(torch, x_bf, g1, g2) if kind == "i4" else None
         if dense:
@@ -1403,14 +1663,15 @@ def phase_codecs(torch, res, cfg):
         p = lambda: mm.gated_ffn_plain(x, g1, g2, prologue_norm=norm)  # noqa
         want = p()
         record(res, torch, f"gated_{kind}",
-               f"decode M=4 K={d} N={ff} (+prenorm pass), scales "
+               f"decode M=4 K={d} N={ff} (prologue folded), scales "
                f"{g1.scale:.3g}", f(), want, rel_tol(want, 1e-2), f, p,
                b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
                primary=True, library=lib)
         check_decode_rows(torch, gen, f"gated_{kind} decode", d,
                           lambda a: mm.gated_ffn(a, g1, g2),
                           lambda a: mm.gated_ffn_plain(a, g1, g2), 1e-2)
-        del g1, g2
+        fused_rows(torch, gen, kind, w_qkv, g1, g2, d, ff)
+        del g1, g2, w_qkv
         # The heads, at the embedding's size.
         w_head = quant(cfg.vocab_size, d)
         fnorm = randn(d, s=0.05)
@@ -1429,21 +1690,24 @@ def phase_codecs(torch, res, cfg):
         p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
         (tok, prob), (want_tok, want_prob) = f(), p()
         logits = mm.matmul_plain(x, w_head, prologue_norm=fnorm)
-        top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)
-                ).topk(2).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
+        clear = clear_margin(
+            torch, cfg.final_cap * torch.tanh(logits / cfg.final_cap))
+        del logits
         bad = int(((tok != want_tok) & clear).sum())
         print(f"[2] top1_{kind}: tokens {tok.tolist()} (plain "
               f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
               f"margin, {bad} differ", flush=True)
         if bad or not bool(clear.any()):
             fail(f"top1_{kind}: tokens differ from the plain version")
+        check_top1_prob(torch, f"top1_{kind} prob", prob, x, w_head, fnorm,
+                        cfg)
         record(res, torch, f"top1_{kind}",
-               f"M=4 K={d} N={n} (+prenorm pass), prob, scale "
+               f"M=4 K={d} N={n} (prologue folded), prob, scale "
                f"{w_head.scale:.3g}", prob, want_prob,
-               1e-4 * float(want_prob.abs().max()), f, p,
+               TOP1_PROB_TOL * float(want_prob.abs().max()), f, p,
                x.numel() * 4 + d * 4 + w_head.nbytes() + 2 * b * 4,
                2 * b * n * d, iters=5, primary=True)
+        top1_rows_and_replays(torch, x, w_head, fnorm, cfg, kind)
         phase_topk(torch, res, kind, w_head, fnorm, cfg, full=kind != "f32")
         del w_head
         torch.cuda.empty_cache()
@@ -1490,7 +1754,7 @@ def phase_k7b(torch, res):
         p = lambda: mm.matmul_plain(x, w, prologue_norm=norm)  # noqa: E731
         want = p()
         record(res, torch, f"matmul_{kind}",
-               f"{width} decode qkv M=4 K={d} N={n_qkv} (+prenorm pass)", f(),
+               f"{width} decode qkv M=4 K={d} N={n_qkv} (prologue folded)", f(),
                want, rel_tol(want, 1e-3), f, p,
                b * d * 4 + d * 4 + weight_bytes(w) + b * n_qkv * 4,
                2 * b * n_qkv * d,
@@ -1506,8 +1770,8 @@ def phase_k7b(torch, res):
                                         add=add)
             want = p()
             record(res, torch, f"matmul_{kind}",
-                   f"{width} decode {name} M=4 K={k_in} N={d} (+postnorm "
-                   "pass)", f(), want, rel_tol(want, 1e-3), f, p,
+                   f"{width} decode {name} M=4 K={k_in} N={d} (epilogue "
+                   "folded)", f(), want, rel_tol(want, 1e-3), f, p,
                    b * k_in * 2 + weight_bytes(w) + 2 * b * d * 4,
                    2 * b * d * k_in,
                    library=int4pack(torch, a, w) if kind == "i4" else None)
@@ -1522,7 +1786,7 @@ def phase_k7b(torch, res):
         p = lambda: mm.gated_ffn_plain(x, g1, g2, prologue_norm=norm)  # noqa
         want = p()
         record(res, torch, f"gated_{kind}",
-               f"{width} decode M=4 K={d} N={ff} (+prenorm pass)", f(), want,
+               f"{width} decode M=4 K={d} N={ff} (prologue folded)", f(), want,
                rel_tol(want, 1e-2), f, p,
                b * d * 4 + 2 * weight_bytes(g1) + b * ff * 2, 4 * b * ff * d,
                library=int4pack(torch, x_bf, g1, g2) if kind == "i4" else None)
@@ -1536,10 +1800,9 @@ def phase_k7b(torch, res):
         p = lambda: mm.matmul_top1_plain(x, w_head, **kw)  # noqa: E731
         (tok, prob), (want_tok, want_prob) = f(), p()
         logits = mm.matmul_plain(x, w_head, prologue_norm=norm)
-        top2 = (cfg.final_cap * torch.tanh(logits / cfg.final_cap)
-                ).topk(2).values
+        clear = clear_margin(
+            torch, cfg.final_cap * torch.tanh(logits / cfg.final_cap))
         del logits
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-4 * float(top2.abs().max())
         bad = int(((tok != want_tok) & clear).sum())
         print(f"[2] top1_{kind} {width}: tokens {tok.tolist()} (plain "
               f"{want_tok.tolist()}), {int(clear.sum())} rows with a clear "
@@ -1547,10 +1810,12 @@ def phase_k7b(torch, res):
         if bad or not bool(clear.any()):
             fail(f"top1_{kind} [{width}]: tokens differ from the plain "
                  "version")
+        check_top1_prob(torch, f"top1_{kind} {width} prob", prob, x, w_head,
+                        norm, cfg)
         head_bytes = x.numel() * 4 + d * 4 + weight_bytes(w_head)
         record(res, torch, f"top1_{kind}",
-               f"{width} M=4 K={d} N={n_vocab} (+prenorm pass), prob", prob,
-               want_prob, 1e-4 * float(want_prob.abs().max()), f, p,
+               f"{width} M=4 K={d} N={n_vocab} (prologue folded), prob", prob,
+               want_prob, TOP1_PROB_TOL * float(want_prob.abs().max()), f, p,
                head_bytes + 2 * b * 4, 2 * b * n_vocab * d, iters=5)
         f = lambda: mm.matmul_topk(x, w_head, 64, **kw)  # noqa: E731
         p = lambda: mm.matmul_topk_plain(x, w_head, 64, **kw)  # noqa: E731
@@ -1632,9 +1897,10 @@ def phase_k12(torch, res):
     """K12, the stacked K1 and K2 (ops/matmul.py `matmul(..., layer=)`,
     `gated_ffn(..., layer=)`), for every kind (nuq runs the sfp kernels) at
     Gemma2-2B widths over T = 13 stacked layers, at layers t = 0, 6 and
-    12: the qkv GEMM with its prologue pass, att_w and linear with the
-    post-norm + residual pass, and the gated GEMM with its prologue; then
-    i4 at Gemma2-27B widths over T = 2, at t = 0 and 1.  Each is held
+    12: the qkv GEMM with its prologue norm, att_w and linear with the
+    post-norm + residual, and the gated GEMM with its prologue, all folded
+    into the kernel; then i4 at Gemma2-27B widths over T = 2, at t = 0 and
+    1; and `fused_rows` on the middle layer.  Each is held
     against its plain version (take_layer, then the unstacked plain
     version) at K1's and K2's tolerances (1e-3 and 1e-2 of max|out|); the
     middle layer is timed beside the unstacked kernel on that layer alone
@@ -1683,9 +1949,9 @@ def phase_k12(torch, res):
         x_bf = mm.prenorm(x, norm)
         lib_a = x_bf if kind == "bf16" else x_bf.float()
         cases = []
-        w = stacked(n_qkv, d, kind, t_layers)
+        w = w_qkv = stacked(n_qkv, d, kind, t_layers)
         cases.append((
-            "matmul", f"{width} {kind} qkv M=4 K={d} N={n_qkv} (+prenorm)",
+            "matmul", f"{width} {kind} qkv M=4 K={d} N={n_qkv} (prologue folded)",
             w, None, lambda t, w=w: mm.matmul(x, w, prologue_norm=norm,
                                               layer=t),
             lambda t, w=w: mm.matmul_plain(x, mm.take_layer(w, t),
@@ -1700,7 +1966,7 @@ def phase_k12(torch, res):
             lib_in = a_in if kind == "bf16" else a_in.float()
             cases.append((
                 "matmul", f"{width} {kind} {name} M=4 K={k_in} N={d} "
-                "(+postnorm)", w, None,
+                "(epilogue folded)", w, None,
                 lambda t, w=w, a=a_in: mm.matmul(a, w, epilogue_norm=post,
                                                  add=add, layer=t),
                 lambda t, w=w, a=a_in: mm.matmul_plain(
@@ -1713,7 +1979,8 @@ def phase_k12(torch, res):
         g1, g2 = stacked(ff, d, kind, t_layers), stacked(ff, d, kind,
                                                          t_layers)
         cases.append((
-            "gated", f"{width} {kind} M=4 K={d} N={ff} (+prenorm)", g1, g2,
+            "gated", f"{width} {kind} M=4 K={d} N={ff} (prologue folded)",
+            g1, g2,
             lambda t: mm.gated_ffn(x, g1, g2, prologue_norm=norm, layer=t),
             lambda t: mm.gated_ffn_plain(x, mm.take_layer(g1, t),
                                          mm.take_layer(g2, t),
@@ -1775,7 +2042,8 @@ def phase_k12(torch, res):
                         f"{t}", k_in,
                         lambda a, t=t: mm.gated_ffn(a, w, w2, layer=t),
                         lambda a: mm.gated_ffn_plain(a, wl, w2l), rel)
-        del cases, w, g1, g2
+        fused_rows(torch, gen, kind, w_qkv, g1, g2, d, ff, layer=ts[1])
+        del cases, w, w_qkv, g1, g2
         torch.cuda.empty_cache()
 
 
@@ -2406,7 +2674,8 @@ def _port_kernel(device_name: str) -> str | None:
             return f"gated_{kind}" if "true>" in device_name \
                 else f"matmul_{kind}"
         for op in ("top1", "topk"):
-            if f"{op}_{kind}_kernel(" in device_name:
+            if f"{op}_{kind}_kernel(" in device_name or \
+                    f"{op}_{kind}_kernel<" in device_name:
                 return f"{op}_{kind}"
     for fn, name in (("prenorm_kernel(", "matmul_prenorm"),
                      ("postnorm_add_kernel(", "matmul_postnorm_add"),
@@ -2705,13 +2974,12 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
                  dec=None, scan=False):
         """Launches per path: prefill rounds run 3 GEMMs, the gated GEMM
         (their prefill tile, M = B x chunk rows > 16) and prefill
-        attention per layer; a decode step 3 GEMMs, the gated
-        GEMM, 2 prologue and 2 epilogue passes (+ the head's prologue) and
-        decode attention per layer, then its head: "top1" the fused greedy
-        head, "topk" the fused top-k head with its merge pass and the
-        draw, "gemm" the head as one more GEMM (one-step chunks).  Split
-        q / kv weights add one GEMM per layer, and its prologue pass in a
-        decode step.  att_kind: the codec of att_w where it differs from
+        attention per layer; a decode step 3 GEMMs and the gated GEMM,
+        their norms folded in (one launch each), and decode attention per
+        layer, then its head: "top1" the fused greedy head (its norm folded
+        in), "topk" the fused top-k head with its prologue and merge passes
+        and the draw, "gemm" the head as one more GEMM (one-step chunks).
+        Split q / kv weights add one GEMM per layer.  att_kind: the codec of att_w where it differs from
         the rest's.  dec: the decode attention kernels' launches per step
         by name (default K4 of the KV kind on every layer).  scan: the
         decode step's GEMMs are the stacked ones (K12), prefill's and the
@@ -2725,8 +2993,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         per_layer = (2 if att_kind else 3) + split
         want = {f"matmul_sm90_{wkind}": rounds * per_layer * layers,
                 f"matmul_{wkind}": steps if head == "gemm" else 0,
-                "matmul_prenorm": steps * ((2 + split) * layers + 1),
-                "matmul_postnorm_add": steps * 2 * layers,
+                "matmul_prenorm": steps if head == "topk" else 0,
                 f"gated_sm90_{wkind}": rounds * layers,
                 f"flash_attention_{kv}": rounds * layers}
         want[f"{d_mm}{wkind}"] = want.get(f"{d_mm}{wkind}", 0) \

@@ -42,17 +42,18 @@
 //         128-lane gather windows have no counterpart: a table never
 //         leaves the lane's registers.  The tensor scale multiplies the
 //         output.
-// One C entry per head runs prenorm_kernel (A f32 -> bf16 RMSNorm(A), once
-// per row instead of in every block) before its kernel, and K6 its merge
-// after; each entry reports through `launched` which of them it put on the
-// stream (kLaunched* bits), so the caller counts the launches that
-// happened.  The passes, the codecs' element decoders and the B operand
-// are gemm_common.cuh's.
+// K3 is one launch: the decode tile's warp (gemm_common.cuh) with the
+// final norm folded in (see top1_body).  K6's entry runs prenorm_kernel
+// (A f32 -> bf16 RMSNorm(A), once per row instead of in every block)
+// before its kernel and its merge after; each entry reports through
+// `launched` which of them it put on the stream (kLaunched* bits), so the
+// caller counts the launches that happened.  The passes, the codecs'
+// element decoders and the B operand are gemm_common.cuh's.
 //
 // What bounds the heads on an H100 (3.35 TB/s): the weights' bytes, e.g.
 // the logits head 256000x2304 = 608 MB (i8), 590 MB (sfp), 1180 MB (bf16),
 // 332 MB (i4, nuq4) -> 182, 176, 352, 99 us; they write no logits.
-// Design (mm_tile / mm_tile_packed): mma.sync m16n8k16 (bf16 in, f32
+// K6's design (mm_tile / mm_tile_packed): mma.sync m16n8k16 (bf16 in, f32
 // accumulate) with no shared-memory staging.  A block walks 8-column tiles
 // of N; each tile is one 16 x 8 output tile whose K eight warps split, in
 // chunks of 2 x 64 bytes per B row (256 elements at two a byte, else 128,
@@ -504,22 +505,35 @@ __device__ __forceinline__ void mm_tile_packed(
 //
 // (token, prob) per row of softcap(scale * A . B^T) over all N columns
 // without writing the [M, N] logits.  Masked columns (allowed mask 0) and
-// columns past N are -inf: they leave the argmax and the sum.  Each block
-// walks `tpb` consecutive 8-column tiles (mm_tile, a
-// 16x8 tile with 8 warps splitting K) and keeps, per row, the online
-// state (max m, sum s of exp(x - m), lowest index at m); the block's
-// states go to `part`, and the last block to finish (an atomic ticket)
-// merges them: s = sum_i s_i * exp(m_i - M), ties to the lowest index.
-// prob = 1 / max(s, 1e-30) (the winner's own term is exp(0) = 1); a row
-// with no live column gives token 0 (matmul.py:1303-1331).
-// need_prob = 0 skips the cap and the exp: argmax of the raw logits,
-// prob 1.0 (matmul.py:1243-1253).
+// columns past N are -inf: they leave the argmax and the sum.  Online
+// state per row: max m, sum s of exp(x - m), lowest index at m; prob = 1 /
+// max(s, 1e-30) (the winner's own term is exp(0) = 1); a row with no live
+// column gives token 0 (matmul.py:1303-1331).  need_prob = 0 skips the cap
+// and the exp: argmax of the raw logits, prob 1.0 (matmul.py:1243-1253).
+//
+// Design: the decode tile's warp (gemm_common.cuh), not mm_tile.  A
+// block stages its (up to 16) rows of A once, for the whole K, the final
+// norm folded in as in the decode GEMMs; a warp takes 16 vocabulary rows
+// at a time (a row group) as mma.sync's 16-row operand, A^T the 8-wide one
+// (one n-tile to M = 8, two to 16), and walks the whole K of its groups as
+// one stream of chunks through a register ring of kHeadDepth chunks: no
+// barrier between groups, and the next group's first chunks load while
+// the last ones multiply.  Blocks are persistent (as many as fit on the
+// card at once) and their warps grid-stride over the N / 16 row groups
+// (ops/matmul.py:top1_plan).  After a group every lane applies the scale,
+// the cap, the mask and the online update to its own 2 x 2 outputs per
+// n-tile: vocabulary rows g and g + 8, A rows 2t and 2t + 1, one state per
+// A row, so a state never mixes two rows of A and a lane's columns arrive
+// in increasing order.  The 8 lanes of a row (equal t) merge by shuffles,
+// the warps in warp order through shared memory, and the blocks' states go
+// to `part`; the last block to take the ticket merges them, lane l the
+// blocks l, l + 32, ..., then the butterfly (ties to the lowest index).
+// What bounds it: the weights' bytes (608 MB i8 at Gemma2-2B: 0.18 ms).
 struct Top1Args {
-  MMArgs mm;
+  DecodeArgs mm;        // A (bf16, or f32 and the norm), B, M, N, K
   float cap;
   const uint8_t* mask;  // [N] 0/1, or null
   int need_prob;
-  int tpb;              // 8-column tiles per block
   float* part_m;        // [M, gridDim.x]
   float* part_s;
   int* part_i;
@@ -555,72 +569,184 @@ __device__ __forceinline__ Top1State top1_shfl(Top1State x, int mask) {
   return y;
 }
 
-constexpr int kHeadWarps = 8;  // warps splitting the K of one 16x8 tile
+// One logit v at column col into a state whose columns came in increasing
+// order (a tie keeps the earlier, lower index).
+__device__ __forceinline__ void top1_push(Top1State& s, float v, int col,
+                                          bool need_prob) {
+  if (v > s.m) {
+    if (need_prob) s.s = s.s * expf(s.m - v) + 1.f;
+    s.m = v;
+    s.i = col;
+  } else if (need_prob) {
+    s.s += expf(v - s.m);
+  }
+}
+
+constexpr int kHeadWarps = 8;  // K6: warps splitting the K of one 16x8 tile
 // The heads run 528 blocks as one wave of 4 per SM, which needs 64
 // registers a thread or fewer.  The packed codecs' top-k kernels are held
 // to that by their launch bounds (i4's took 74 and ran two waves); the
 // other instantiations fit unasked and keep their bounds as they were.
 constexpr int kHeadBlocksPerSM = 4;
+// K3: chunks in a lane's register ring, and blocks an SM by the launch
+// bounds: two (128 registers) keep every instantiation free of spills but
+// i4's at M > 8, which takes one; three (80 registers) spilled, and
+// measured slower (PERF.md).
+__host__ __device__ constexpr int top1_blocks_per_sm(int codec, int nt) {
+  return nt == 2 && codec == kI4 ? 1 : 2;
+}
+constexpr int kTop1Depth = 2;
+// Its dynamic shared memory at most: 16 rows of A at K 4608 with the
+// norm's segment sums take 157 KB.
+constexpr int kTop1SmemMax = 200 * 1024;
+
+// K3's dynamic shared memory, byte offsets: A's rows (all of K, padded),
+// then (final norm) their segment sums of squares, then the multipliers.
+struct HeadSmem {
+  int segs, mul, bytes;
+};
 
 template <int CODEC>
+__host__ __device__ __forceinline__ HeadSmem head_smem(int M, int K,
+                                                       bool pro) {
+  const int pad = CODEC == kNuq4 ? 2 : 4;
+  HeadSmem L;
+  L.segs = (M * (K + pad) * 2 + 15) / 16 * 16;
+  L.mul = L.segs + (pro ? M * (K / kNormSeg) * 4 : 0);
+  L.bytes = L.mul + 16 * 4;
+  return L;
+}
+
+template <int CODEC, int NT>
 __device__ __forceinline__ void top1_body(const Top1Args& q) {
-  const MMArgs& p = q.mm;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * 16;
+  using C = Codec<CODEC>;
+  constexpr int PAD = CODEC == kNuq4 ? 2 : 4;
+  constexpr int D = kTop1Depth;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const DecodeArgs& p = q.mm;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * 16, M = min(16, p.M - m0);
+  const int N = p.N, K = p.K, chunks = K / C::kChunk, SA = K + PAD;
   const bool need_prob = q.need_prob != 0;
   const bool capped = need_prob && q.cap != 0.f;
-  Top1State st[2];
+  // This warp's row groups: gw, gw + W, ... of the N / 16.
+  const int groups = (N + 15) / 16, W = gridDim.x * (kDecodeThreads / 32);
+  const int gw = blockIdx.x * (kDecodeThreads / 32) + warp;
+  const int total = gw < groups ? ((groups - 1 - gw) / W + 1) * chunks : 0;
+  const HeadSmem L = head_smem<CODEC>(min(16, p.M), K, p.norm != nullptr);
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* mul = reinterpret_cast<float*>(smem + L.mul);
+  auto rows_at = [&](int j) {
+    Rows r;
+    r.l = 0;
+    r.n0 = 16 * (gw + j / chunks * W) + g;
+    r.off = (size_t)(r.n0 < N ? r.n0 : 0) * row_bytes<CODEC>(p);
+    return r;
+  };
+  Slot ring[D];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) st[h] = {-INFINITY, 0.f, INT_MAX};
+  for (int j = 0; j < D - 1; ++j)
+    if (j < total)
+      load_slot<CODEC, false, false>(ring[j], rows_at(j), p, j % chunks, t);
 
-  for (int c = 0; c < q.tpb; ++c) {
-    const int nb = (blockIdx.x * q.tpb + c) * 8;
-    if (nb >= p.N) break;  // uniform over the block
-    float acc[1][1][1][4];
-    if constexpr (Codec<CODEC>::kPacked)
-      mm_tile_packed<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb,
-                                                                 acc);
-    else
-      mm_tile<CODEC, 1, 1, kHeadWarps, kHeadWarps, false>(p, m0, nb, acc);
-    if (warp != 0) continue;
+  // A's rows m0.. (all of K), normalized here under the final norm.
+  if (p.norm == nullptr) {
+    copy_stage<PAD>(p.a + (size_t)m0 * K, K, 0, K / 8, M, As, SA);
+  } else {
+    const float* a32 = p.a32 + (size_t)m0 * K;
+    float* segs = reinterpret_cast<float*>(smem + L.segs);
+    norm_segments(a32, K, 0, K, M, segs, K / kNormSeg);
+    __syncthreads();
+    for (int m = warp; m < M; m += kDecodeThreads / 32) {
+      const float r = norm_row_mul(K, lane, [&](int s) {
+        return segs + m * (K / kNormSeg) + s;
+      });
+      if (lane == 0) mul[m] = r;
+    }
+    __syncthreads();
+    norm_stage(a32, p.norm, K, 0, K / 8, M, mul, As, SA);
+  }
+  __syncthreads();
+
+  Top1State st[NT][2];
+  float acc[NT][4], part[NT][4], asum[NT][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+  for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {  // columns in increasing order
-        const int col = nb + 2 * t + e;
-        if (col >= p.N || (q.mask != nullptr && q.mask[col] == 0)) continue;
-        float v = acc[0][0][0][2 * h + e] * p.scale[0];
-        if (capped) v = q.cap * tanhf(v / q.cap);
-        Top1State& s = st[h];
-        if (v > s.m) {
-          if (need_prob) s.s = s.s * expf(s.m - v) + 1.f;
-          s.m = v;
-          s.i = col;
-        } else if (need_prob) {
-          s.s += expf(v - s.m);
+    for (int e = 0; e < 2; ++e) st[nt][e] = {-INFINITY, 0.f, INT_MAX};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = part[nt][e] = asum[nt][e] = 0.f;
+  }
+  for (int jb = 0; jb < total; jb += D) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      const int j = jb + u;
+      if (j < total) {
+        if (j + D - 1 < total)
+          load_slot<CODEC, false, false>(ring[(u + D - 1) % D],
+                                         rows_at(j + D - 1), p,
+                                         (j + D - 1) % chunks, t);
+        const int c = j % chunks;
+        consume_chunk<CODEC, NT>(ring[u], As, SA, c * C::kChunk, M, g, t,
+                                 lane, acc, part, asum);
+        if (c == chunks - 1) {
+          // The group's outputs: vocabulary rows n0 (acc 0, 1) and n0 + 8
+          // (acc 2, 3), A rows 8 nt + 2 t + e.
+          const int n0 = 16 * (gw + j / chunks * W) + g;
+          bool live[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int col = n0 + 8 * h;
+            live[h] = col < N && (q.mask == nullptr || q.mask[col] != 0);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (8 * nt + 2 * t + e < M) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  if (!live[h]) continue;
+                  float v = acc[nt][2 * h + e] * p.scale[0];
+                  if (capped) v = q.cap * tanhf(v / q.cap);
+                  top1_push(st[nt][e], v, n0 + 8 * h, need_prob);
+                }
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+          }
         }
       }
     }
   }
 
-  __shared__ bool is_last;
-  if (warp == 0) {
+  // The 8 lanes of a row (g = 0..7), then the warps in order.
+  __shared__ Top1State wst[kDecodeThreads / 32][16];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // The 4 lanes of a row (t = 0..3) saw interleaved columns.
-      st[h] = top1_merge(st[h], top1_shfl(st[h], 1), need_prob);
-      st[h] = top1_merge(st[h], top1_shfl(st[h], 2), need_prob);
-      const int row = m0 + gid + 8 * h;
-      if (t == 0 && row < p.M) {
-        const size_t at = (size_t)row * gridDim.x + blockIdx.x;
-        q.part_m[at] = st[h].m;
-        q.part_s[at] = st[h].s;
-        q.part_i[at] = st[h].i;
-      }
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      Top1State& s = st[nt][e];
+      s = top1_merge(s, top1_shfl(s, 4), need_prob);
+      s = top1_merge(s, top1_shfl(s, 8), need_prob);
+      s = top1_merge(s, top1_shfl(s, 16), need_prob);
+      const int m = 8 * nt + 2 * t + e;
+      if (g == 0 && m < M) wst[warp][m] = s;
     }
+  __syncthreads();
+  if (tid < M) {
+    Top1State r = wst[0][tid];
+    for (int w = 1; w < kDecodeThreads / 32; ++w)
+      r = top1_merge(r, wst[w][tid], need_prob);
+    const size_t at = (size_t)(m0 + tid) * gridDim.x + blockIdx.x;
+    q.part_m[at] = r.m;
+    q.part_s[at] = r.s;
+    q.part_i[at] = r.i;
     __threadfence();
   }
+  __shared__ bool is_last;
   __syncthreads();
   if (threadIdx.x == 0)
     is_last = atomicAdd(q.ticket, 1) == (int)(gridDim.x * gridDim.y) - 1;
@@ -629,7 +755,7 @@ __device__ __forceinline__ void top1_body(const Top1Args& q) {
   __threadfence();
 
   // The last block: one warp per row merges the row's gridDim.x states.
-  for (int row = warp; row < p.M; row += kHeadWarps) {
+  for (int row = warp; row < p.M; row += kDecodeThreads / 32) {
     Top1State r = {-INFINITY, 0.f, INT_MAX};
     for (int bx = lane; bx < (int)gridDim.x; bx += 32) {
       const size_t at = (size_t)row * gridDim.x + bx;
@@ -656,7 +782,7 @@ __device__ __forceinline__ void top1_body(const Top1Args& q) {
 // remaining entries are (-inf, index 0) (matmul.py:1483-1491).
 //
 // The TPU kernel's grid walks N in order with one running list per row.
-// Here N is split over the blocks as in K3: each block walks `tpb`
+// Here N is split over the blocks: each block walks `tpb`
 // consecutive 8-column tiles and keeps, per row, a sorted list of k_top
 // (value, index) pairs in shared memory (16 rows x 128 x 8 B).  After a
 // tile, warp 0 (which holds the 16x8 sums) tests its values against each
@@ -852,9 +978,11 @@ __global__ void __launch_bounds__(kMergeWarps * 32) topk_merge_kernel(
 // The kernels by name, one set per codec, so the launch counters and the
 // profiler tell the kinds apart.
 #define GEMMA_CODEC_KERNELS(KIND, CODEC, TOPK_BOUNDS)                        \
-  __global__ void __launch_bounds__(kHeadWarps * 32)                         \
+  template <int NT>                                                          \
+  __global__ void __launch_bounds__(kDecodeThreads,                          \
+                                    top1_blocks_per_sm(CODEC, NT))           \
       top1_##KIND##_kernel(Top1Args q) {                                     \
-    top1_body<CODEC>(q);                                                     \
+    top1_body<CODEC, NT>(q);                                                 \
   }                                                                          \
   __global__ void __launch_bounds__ TOPK_BOUNDS                              \
       topk_##KIND##_kernel(TopkArgs q) {                                     \
@@ -890,41 +1018,94 @@ static dim3 head_grid(int M, int N, int blocks, int* tpb) {
   return dim3((tiles + *tpb - 1) / *tpb, (M + 15) / 16);
 }
 
-// The greedy head: (tok, prob) of softcap(scale * A . B^T), A RMS-normalized
-// first when `norm` is given (then a is f32 and a_scratch bf16 [M, K]).
-// part_*: [M, blocks] scratch; ticket: one int, zero between calls.
+using Top1Kernel = void (*)(Top1Args);
+
+template <int CODEC, int NT>
+static Top1Kernel top1_kernel() {
+#define GEMMA_PICK(KIND, CODE) \
+  if constexpr (CODEC == CODE) return &top1_##KIND##_kernel<NT>;
+  GEMMA_PICK(i8, kI8)
+  GEMMA_PICK(sfp, kSfp)
+  GEMMA_PICK(bf16, kBf16)
+  GEMMA_PICK(f32, kF32)
+  GEMMA_PICK(i4, kI4)
+  GEMMA_PICK(nuq4, kNuq4)
+#undef GEMMA_PICK
+  return nullptr;
+}
+
+// One K3 launch: as many blocks as fit on the card at once (at most
+// `blocks`, the capacity of part_*, and one per 8 row groups), a row of
+// them per 16 rows of A.
+template <int CODEC, int NT>
+static cudaError_t launch_top1(Top1Args& q, int blocks, int smem,
+                               cudaStream_t st) {
+  const Top1Kernel k = top1_kernel<CODEC, NT>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, kTop1SmemMax);
+  if (attr != cudaSuccess) return attr;
+  static int fit_smem = -1, fit = 0;  // blocks an SM at the last smem
+  if (smem != fit_smem) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, k, kDecodeThreads, (size_t)smem);
+    if (e != cudaSuccess) return e;
+    fit_smem = smem;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const int groups = (q.mm.N + 15) / 16, per = kDecodeThreads / 32;
+  const dim3 grid(min(min(blocks, fit * sms), (groups + per - 1) / per),
+                  (q.mm.M + 15) / 16);
+  void* args[] = {&q};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(k), grid,
+                          dim3(kDecodeThreads), args, (size_t)smem, st);
+}
+
+// The greedy head: (tok, prob) of softcap(scale * A . B^T), A normalized
+// in the kernel when `norm` is given (then a is f32).  part_*: [M, blocks]
+// scratch, blocks the most the launch may use; ticket: one int, zero
+// between launches (the last block re-zeroes it; launches that share it
+// must not overlap).
 template <int CODEC>
 static int top1_entry(const void* a, const float* norm, const BOperand& w,
                       float cap, const uint8_t* mask, int need_prob,
-                      __nv_bfloat16* a_scratch, float* part_m, float* part_s,
-                      int* part_i, int* ticket, int* tok, float* prob, int M,
-                      int N, int K, int blocks, int* launched,
-                      cudaStream_t st) {
+                      float* part_m, float* part_s, int* part_i, int* ticket,
+                      int* tok, float* prob, int M, int N, int K, int blocks,
+                      int* launched, cudaStream_t st) {
+  using C = Codec<CODEC>;
   *launched = 0;
   Top1Args q = {};
-  if (blocks < 1 || !set_b<CODEC>(q.mm, 0, w, K) ||
-      !set_b<CODEC>(q.mm, 1, w, K))
+  DecodeArgs& p = q.mm;
+  p.codes[0] = w.codes;
+  p.aux[0] = w.inv;
+  p.zp[0] = w.zp;
+  p.scale[0] = w.scale;
+  p.tstride = w.tstride;
+  p.M = M; p.N = N; p.K = K;
+  p.norm = norm;
+  if (norm != nullptr)
+    p.a32 = static_cast<const float*>(a);
+  else
+    p.a = static_cast<const __nv_bfloat16*>(a);
+  if (blocks < 1 || M < 1 || N < 1 || K % C::kChunk ||
+      (CODEC == kNuq4 && w.tstride != nuq4_tstride(K)) ||
+      (reinterpret_cast<uintptr_t>(a) & 15) ||
+      (reinterpret_cast<uintptr_t>(norm) & 15))
     return (int)cudaErrorInvalidValue;
-  q.mm.a = operand_a(a, norm, a_scratch, M, K, launched, st);
-  q.mm.M = M; q.mm.N = N; q.mm.K = K;
   q.cap = cap; q.mask = mask; q.need_prob = need_prob;
   q.part_m = part_m; q.part_s = part_s; q.part_i = part_i;
   q.ticket = ticket; q.tok = tok; q.prob = prob;
-  const dim3 grid = head_grid(M, N, blocks, &q.tpb);
-  if constexpr (CODEC == kI8)
-    top1_i8_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else if constexpr (CODEC == kSfp)
-    top1_sfp_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else if constexpr (CODEC == kBf16)
-    top1_bf16_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else if constexpr (CODEC == kF32)
-    top1_f32_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else if constexpr (CODEC == kI4)
-    top1_i4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  else
-    top1_nuq4_kernel<<<grid, kHeadWarps * 32, 0, st>>>(q);
-  *launched |= kLaunchedSelf;
-  return (int)cudaGetLastError();
+  const int smem = head_smem<CODEC>(min(M, 16), K, norm != nullptr).bytes;
+  if (smem > kTop1SmemMax) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = M > 8 ? launch_top1<CODEC, 2>(q, blocks, smem, st)
+                              : launch_top1<CODEC, 1>(q, blocks, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  *launched = kLaunchedSelf;
+  return 0;
 }
 
 // The top-k head: vals / idxs [M, k_top] of softcap(scale * A . B^T).
@@ -971,12 +1152,12 @@ extern "C" int gemma_top1_i8(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 
@@ -997,12 +1178,12 @@ extern "C" int gemma_top1_sfp(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 
@@ -1023,12 +1204,12 @@ extern "C" int gemma_top1_bf16(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 
@@ -1049,12 +1230,12 @@ extern "C" int gemma_top1_f32(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 
@@ -1076,12 +1257,12 @@ extern "C" int gemma_top1_i4(const void* a, const float* norm,
                                  const void* codes, const float* inv,
                                  const float* zp, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 
@@ -1102,12 +1283,12 @@ extern "C" int gemma_topk_i4(const void* a, const float* norm,
 extern "C" int gemma_top1_nuq4(const void* a, const float* norm,
                                  const void* codes, const void* tables, int tstride, float scale, float cap,
                                  const uint8_t* mask, int need_prob,
-                                 __nv_bfloat16* a_scratch, float* part_m,
+                                 float* part_m,
                                  float* part_s, int* part_i, int* ticket,
                                  int* tok, float* prob, int M, int N, int K,
                                  int blocks, int* launched, cudaStream_t st) {
   return top1_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), cap, mask,
-                         need_prob, a_scratch, part_m, part_s, part_i, ticket,
+                         need_prob, part_m, part_s, part_i, ticket,
                          tok, prob, M, N, K, blocks, launched, st);
 }
 

@@ -15,11 +15,9 @@
 // raw and each 128-wide group closes on the OUTPUT as the TPU kernel does:
 //   i8: C += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g),
 //   i4: C += s_g * (A_g . C_g) + m_g * sum(A_g),
-// sum(A_g) the f32 sum of the group's bf16 A.  One C entry per GEMM chains
-// the norm passes of gemm_common.cuh around its kernel (prenorm_kernel
-// before, postnorm_add_kernel after: the post-norm needs whole rows of N,
-// which blocks that split N cannot see) and reports through `launched`
-// which kernels it put on the stream.
+// sum(A_g) the f32 sum of the group's bf16 A.  One C entry per GEMM is one
+// launch: the prologue norm (f32 A) and the post-norm + residual add run
+// inside the kernel (the folds below), as inside the TPU kernel.
 //
 // What bounds it on an H100: the weights' bytes at 3.35 TB/s, N*K*esize
 // plus the group arrays (i8 8 bytes a 128-group; i4 and nuq4 0.5625 bytes
@@ -52,8 +50,8 @@
 //    gives the same bits on every run.
 //  - A is staged once per block: its K slice of all M rows is copied into
 //    shared memory (rows padded so a warp's 8-byte reads of 8 rows are
-//    free of bank conflicts), instead of every block re-reading A from L2
-//    at every step.
+//    free of bank conflicts) by cp.async, every copy in flight at once,
+//    instead of every block re-reading A from L2 at every step.
 //  - i8 / i4's group sums of A come from the tensor cores: an operand of
 //    ones times the step's A^T (two m16n8k8 a step) accumulates them in
 //    the accumulator layout of the outputs, so no pass over A and no
@@ -71,6 +69,29 @@
 //    4 lanes gather them by shuffles into two byte planes (low and high
 //    bytes of the 16 entries, 4 registers each); four weights are then two
 //    table selects and two byte permutes (nuq4_plane_frag).
+//  - The prologue norm: a row's multiplier needs its sum of squares over
+//    the whole K, of which a block stages only its split's slice.  Each
+//    block reads its slice of the f32 rows, leaves the sums of squares of
+//    its 32-K segments in shared memory, and once every block of the
+//    cluster has (a cluster barrier) reads every segment sum (distributed
+//    shared memory) in one order; then it reads the rows again and writes
+//    bf16(m + m w) into the staging.  Every block of the grid reads the same rows;
+//    bringing them into shared memory by cp.async instead, sharing the
+//    staging across a cluster or the sums across a grid barrier measured
+//    no faster (PERF.md).  The order depends on K alone
+//    (gemm_common.cuh), so the bits of a row's A do not change with M, the
+//    split or the warps.
+//  - The post-norm needs whole rows of N, split over panels (and, in a
+//    cluster, over its blocks' shares of a panel): every block leaves its
+//    columns in shared memory and one partial sum of squares a row in
+//    `slots`.  Where every block fits on the card at once the launch is
+//    cooperative (the runtime then guarantees they are resident) and the
+//    blocks meet at a grid barrier; each adds the partials in block order
+//    and finishes its own columns (gemm_common.cuh:post_grid).  Else each
+//    block also leaves its columns in y, takes a ticket, and the last
+//    block adds the partials in the same order and finishes every row
+//    (post_tail); the ticket is zero again when the kernel ends.  No block
+//    waits for another outside a cooperative launch.
 // Columns past N and rows past M are never written.  N must be a multiple
 // of 8 (whole fragment rows; odd N is refused), K a multiple of the
 // codec's chunk.
@@ -83,7 +104,6 @@ namespace cg = cooperative_groups;
 using namespace gemma;
 
 constexpr int kDecodeRows = 16;    // the entries refuse more rows of A
-constexpr int kDecodeThreads = 256;  // 8 warps, each 16 weight rows
 constexpr int kDepth = 2;  // chunks in a lane's register ring
 // Blocks an SM by the launch bounds, the most at which ptxas keeps every
 // kernel free of spills: three (80 registers a thread) at M <= 8
@@ -105,227 +125,33 @@ constexpr int kDecodeSmemMax = 200 * 1024;
 // the portable cluster size.
 constexpr int kMaxSplits = 8;
 
-// The output columns of a warp's fragment rows: K1 16 weight rows, K2 8
-// of each gate; a block's panel is those of its 8 / kw row groups.
-template <bool GATED>
-__host__ __device__ constexpr int warp_cols() {
-  return GATED ? 8 : 16;
-}
-
-struct DecodeArgs {
-  const __nv_bfloat16* a;  // [M, K]
-  const void* codes[2];    // [N, K] of the codec's element ([N, K/2] packed)
-  // i8: inverse scales, i4: scales, f32 [N, K/128] ([G, N] stacked);
-  // nuq4: the tables, u8 [N, tstride]
-  const void* aux[2];
-  const float* zp[2];  // i8: zero points, i4: mins
-  float scale[2];
-  const int* layer;    // stacked: device int32, the layer to read
-  void* out;           // [M, N], f32 or bf16
-  int M, N, K, out_bf16;
-  int kw;      // warps of a block that split its K (1, 2, 4 or 8)
-  int splits;  // blocks of a cluster that split the K of a panel
-  int tstride;
+// A block's dynamic shared memory, byte offsets: A's slice of the longest
+// split (padded rows), then (split K) the block's partial products, then
+// (kw > 1) the warps' partial sums, then (prologue norm) the sums of
+// squares of its slice's segments and the rows' multipliers (also the
+// epilogue's), then (post-norm) its share of the panel's output columns.
+struct DecodeSmem {
+  int red, wred, segs, segs_ld, mul, yt, bytes;
 };
 
-// One ring slot: a lane's bytes of one chunk.
-struct Slot {
-  uint4 q[2][2];     // [fragment row g / g + 8][half of the chunk]
-  uint32_t tab[2];   // nuq4: word t of each row's 16 table bytes
-  float mul, off;    // i8 / i4: lane t's (scale, offset) pair
-};
-
-__device__ __forceinline__ uint4 ldg_nc(const void* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// The block's view of the weights, in few registers: fragment row 0's
-// weight row n0 (row 1's is n0 + 8 for K1, gate 2's n0 for K2), the byte
-// offset of its codes in the weight tensor, and the layer.
-struct Rows {
-  size_t off;
-  int n0, l;
-};
-
-template <int CODEC>
-__device__ __forceinline__ size_t row_bytes(const DecodeArgs& p) {
+template <int CODEC, bool GATED>
+__host__ __device__ __forceinline__ DecodeSmem decode_smem(int M, int K,
+                                                           int splits, int kw,
+                                                           bool pro,
+                                                           bool post) {
   using C = Codec<CODEC>;
-  return C::kPacked ? p.K / 2 : (size_t)p.K * C::kEsize;
-}
-
-template <bool GATED>
-__device__ __forceinline__ int row_n(const Rows& r, int h) {
-  return GATED ? r.n0 : r.n0 + 8 * h;
-}
-
-template <int CODEC, bool GATED, bool STACKED>
-__device__ __forceinline__ Rows rows_of(const DecodeArgs& p, int col0,
-                                        int rg, int g) {
-  Rows r;
-  r.l = STACKED ? __ldg(p.layer) : 0;
-  r.n0 = col0 + warp_cols<GATED>() * rg + g;
-  const size_t nn = r.n0 < p.N ? (size_t)r.n0 : 0;
-  r.off = ((size_t)r.l * p.N + nn) * row_bytes<CODEC>(p);
-  return r;
-}
-
-// Chunk c into a slot: the codes of both fragment rows (zeros past N),
-// nuq4's table word, i8 / i4's (scale, offset) pair.  N is a multiple of
-// 8, so rows n0 and n0 + 8 exist or not together with their 8-row group.
-template <int CODEC, bool GATED, bool STACKED>
-__device__ __forceinline__ void load_slot(Slot& s, const Rows& r,
-                                          const DecodeArgs& p, int c, int t) {
-  using C = Codec<CODEC>;
-  const size_t N = (size_t)p.N;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = row_n<GATED>(r, h);
-    const int gate = GATED ? h : 0;
-    const bool ok = n < p.N;
-    if (ok) {
-      const uint8_t* src = static_cast<const uint8_t*>(p.codes[gate]) + r.off +
-                           (GATED ? 0 : h * 8 * row_bytes<CODEC>(p)) +
-                           (size_t)c * 128 + 16 * t;
-      s.q[h][0] = ldg_nc(src);
-      s.q[h][1] = ldg_nc(src + 64);
-    } else {
-      s.q[h][0] = s.q[h][1] = make_uint4(0, 0, 0, 0);
-    }
-    if constexpr (CODEC == kNuq4)
-      s.tab[h] = ok ? __ldg(reinterpret_cast<const uint32_t*>(
-                          static_cast<const uint8_t*>(p.aux[gate]) +
-                          ((size_t)r.l * N + n) * p.tstride + c * 16 + 4 * t))
-                    : 0u;
-  }
-  if constexpr (CODEC == kI8 || CODEC == kI4) {
-    const int h = t & 1;
-    const int n = row_n<GATED>(r, h);
-    const int gi = c * C::kGroups + (C::kGroups == 2 ? t >> 1 : 0);
-    s.mul = s.off = 0.f;
-    if (n < p.N) {
-      const size_t G = p.K / 128;
-      const size_t at =
-          (size_t)r.l * G * N + (STACKED ? gi * N + n : n * G + gi);
-      const int gate = GATED ? h : 0;
-      const float m = __ldg(static_cast<const float*>(p.aux[gate]) + at);
-      const float z = __ldg(p.zp[gate] + at);
-      s.mul = m;
-      s.off = CODEC == kI8 ? -(m * z) : z;
-    }
-  }
-}
-
-// D += ones(16 x 8) . B(8 x 8): the sums over 8 K of each column of B (a
-// row of A) in every row of D (mma.sync m16n8k8, bf16 in, f32 out).
-__device__ __forceinline__ void ones_mma(float* d, uint32_t b) {
-  const uint32_t one = 0x3f803f80u;  // bf16 1.0, 1.0
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%4}, {%5}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(one), "r"(b));
-}
-
-// One chunk of the product: decode, multiply, close the affine groups.
-// As: the block's A slice (row stride SA elements, column 0 = chunk c0's
-// first K); kc: the chunk's first column in the slice.  i8 / i4 take the
-// group sums of A on the tensor cores beside the product: an operand of
-// ones times the step's A^T (two m16n8k8, one for each register of the
-// B fragment) gives, in the accumulator layout of the outputs (rows 2t,
-// 2t + 1 of A), the sums over the step's K.
-template <int CODEC, int NT>
-__device__ __forceinline__ void consume(const Slot& s, const __nv_bfloat16* As,
-                                       int SA, int kc, int M, int g, int t,
-                                       int lane, float (&acc)[NT][4],
-                                       float (&part)[NT][4],
-                                       float (&asum)[NT][4]) {
-  using C = Codec<CODEC>;
-  constexpr bool AFF = CODEC == kI8 || CODEC == kI4;
-  constexpr bool NUQ = CODEC == kNuq4;
-  uint4 plo[2], phi[2];
-  if constexpr (NUQ) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) nuq4_planes(s.tab[h], plo[h], phi[h]);
-  }
-  // The A rows of this lane's n-tiles (rows past M read as zeros).
-  const __nv_bfloat16* arow[NT];
-  bool aok[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    aok[nt] = 8 * nt + g < M;
-    arow[nt] = As + (size_t)(aok[nt] ? 8 * nt + g : 0) * SA + kc;
-  }
-  constexpr int NG = C::kGroups;
-  constexpr int SPG = C::kSteps / NG;  // steps per group
-#pragma unroll
-  for (int grp = 0; grp < NG; ++grp) {
-#pragma unroll
-    for (int st = 0; st < SPG; ++st) {
-      int h, w, k;  // the half, its 4-byte word, the step's first column
-      if constexpr (CODEC == kI4) {
-        h = st / 4, w = st % 4;
-        k = 128 * grp + 64 * h + 16 * t + 4 * w;
-      } else if constexpr (NUQ) {
-        h = st / 8, w = (st / 2) % 4;
-        k = 64 * h + 16 * t + 4 * w + 2 * (st % 2);
-      } else {
-        constexpr int HS = C::kSteps / 2;
-        h = st / HS, w = st % HS;
-        k = h * (C::kChunk / 2) + C::kEpl * t + 4 * w;
-      }
-      uint32_t f[2][2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if constexpr (CODEC == kI4)
-          i4_frag(word_of(s.q[r][h], w), grp, f[r]);
-        else if constexpr (NUQ)
-          nuq4_plane_frag(word_of(s.q[r][h], w) >> (16 * (st % 2)), plo[r],
-                          phi[r], f[r]);
-        else
-          b_frag<CODEC>(s.q[r][h], w, f[r]);
-      }
-      const uint32_t a[4] = {f[0][0], f[1][0], f[0][1], f[1][1]};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b[2] = {0u, 0u};
-        if (aok[nt]) {
-          if constexpr (NUQ) {  // columns k, k+1 and k+128, k+129
-            b[0] = *reinterpret_cast<const uint32_t*>(arow[nt] + k);
-            b[1] = *reinterpret_cast<const uint32_t*>(arow[nt] + k + 128);
-          } else {
-            const uint2 x = *reinterpret_cast<const uint2*>(arow[nt] + k);
-            b[0] = x.x;
-            b[1] = x.y;
-          }
-        }
-        mma_bf16_16816(AFF ? part[nt] : acc[nt], a, b);
-        if constexpr (AFF) {
-          ones_mma(asum[nt], b[0]);
-          ones_mma(asum[nt], b[1]);
-        }
-      }
-    }
-    if constexpr (AFF) {
-      // Fragment rows 0 and 1's pair of this group, from lanes t = 2 grp
-      // and 2 grp + 1 of the row (i8: group 0 only).
-      const int src = (lane & ~3) | (NG == 2 ? grp << 1 : 0);
-      const float s0 = __shfl_sync(0xffffffffu, s.mul, src);
-      const float o0 = __shfl_sync(0xffffffffu, s.off, src);
-      const float s1 = __shfl_sync(0xffffffffu, s.mul, src | 1);
-      const float o1 = __shfl_sync(0xffffffffu, s.off, src | 1);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float r0 = asum[nt][0], r1 = asum[nt][1];
-        float* pp = part[nt];
-        acc[nt][0] += s0 * pp[0] + o0 * r0;
-        acc[nt][1] += s0 * pp[1] + o0 * r1;
-        acc[nt][2] += s1 * pp[2] + o1 * r0;
-        acc[nt][3] += s1 * pp[3] + o1 * r1;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pp[e] = asum[nt][e] = 0.f;
-      }
-    }
-  }
+  const int chunks = K / C::kChunk, cmax = (chunks + splits - 1) / splits;
+  const int pad = CODEC == kNuq4 ? 2 : 4;
+  const int pc = warp_cols<GATED>() * (8 / kw);
+  DecodeSmem L;
+  L.red = (M * (cmax * C::kChunk + pad) * 2 + 15) / 16 * 16;
+  L.wred = L.red + (splits > 1 ? M * 2 * pc * 4 : 0);
+  L.segs = L.wred + (kw > 1 ? 8 * (M > 8 ? 2 : 1) * 4 * 32 * 4 : 0);
+  L.segs_ld = cmax * C::kChunk / kNormSeg;  // the longest split's segments
+  L.mul = L.segs + (pro ? M * L.segs_ld * 4 : 0);
+  L.yt = L.mul + 16 * 4;
+  L.bytes = L.yt + (post ? M * ((pc + splits - 1) / splits) * 4 : 0);
+  return L;
 }
 
 // The output of one (row m, column n): scaled, K2 gated.
@@ -347,6 +173,71 @@ __device__ __forceinline__ void store_out(const DecodeArgs& p, size_t off,
     static_cast<__nv_bfloat16*>(p.out)[off] = __float2bfloat16_rn(v);
   else
     static_cast<float*>(p.out)[off] = v;
+}
+
+// Output (m, n) = v, of a block's share of the panel (yt[j] its column
+// j's slot there): under a post-norm the raw value goes to y and yt for
+// the epilogue; else add + v to out.
+__device__ __forceinline__ void emit(const DecodeArgs& p, int m, int n,
+                                    float v, float* yt) {
+  const size_t off = (size_t)m * p.N + n;
+  if (p.post_w != nullptr) {
+    if (!p.coop) p.y[off] = v;
+    *yt = v;
+  } else {
+    store_out(p, off, p.add != nullptr ? __fadd_rn(v, __ldg(p.add + off)) : v);
+  }
+}
+
+// A's slice (chunks [c0, c1)) into the staging, normalized there under a
+// prologue norm.  A row's multiplier needs its sum of squares over the
+// whole K: each block leaves the sums of squares of its slice's segments
+// in its shared memory, and (K split over a cluster) every block reads all
+// of them, segment by segment in one order, from the block that holds it
+// (distributed shared memory).
+template <int CODEC, bool GATED>
+__device__ __forceinline__ void stage_a(const DecodeArgs& p, int c0, int c1,
+                                        __nv_bfloat16* As, int SA) {
+  using C = Codec<CODEC>;
+  constexpr int PAD = CODEC == kNuq4 ? 2 : 4;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int M = p.M, K = p.K, S = p.splits;
+  const int k0 = c0 * C::kChunk, k1 = c1 * C::kChunk;
+  if (p.norm == nullptr) {
+    copy_stage<PAD>(p.a, K, k0, (k1 - k0) / 8, M, As, SA);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = K / C::kChunk;
+  const DecodeSmem L = decode_smem<CODEC, GATED>(M, K, S, p.kw, true,
+                                                 p.post_w != nullptr);
+  float* segs = reinterpret_cast<float*>(smem + L.segs);
+  float* mul = reinterpret_cast<float*>(smem + L.mul);
+  const int ld = L.segs_ld;
+  norm_segments(p.a32, K, k0, k1, M, segs, ld);
+  if (S > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int m = warp; m < M; m += kDecodeThreads / 32) {
+      const float r = norm_row_mul(K, lane, [&](int s) {
+        // The split that holds segment s, and its first segment.
+        const int q = ((s * kNormSeg / C::kChunk + 1) * S - 1) / chunks;
+        const int s0 = q * chunks / S * C::kChunk / kNormSeg;
+        return cluster.map_shared_rank(segs, q) + m * ld + s - s0;
+      });
+      if (lane == 0) mul[m] = r;
+    }
+  } else {
+    __syncthreads();
+    for (int m = warp; m < M; m += kDecodeThreads / 32) {
+      const float r = norm_row_mul(K, lane, [&](int s) {
+        return segs + m * ld + s;
+      });
+      if (lane == 0) mul[m] = r;
+    }
+  }
+  __syncthreads();
+  norm_stage(p.a32, p.norm, K, k0, (k1 - k0) / 8, M, mul, As, SA);
 }
 
 template <int CODEC, int NT, bool GATED, bool STACKED>
@@ -377,20 +268,8 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& p) {
     if (w0 + j < w1)
       load_slot<CODEC, GATED, STACKED>(ring[j], rows, p, w0 + j, t);
 
-  // A's slice: columns [c0, c1) chunks of all M rows, 16-byte loads.
-  {
-    const int n16 = (c1 - c0) * C::kChunk / 8;
-    const __nv_bfloat16* src = p.a + (size_t)c0 * C::kChunk;
-    for (int i = tid; i < M * n16; i += kDecodeThreads) {
-      const int m = i / n16, j = i % n16;
-      const uint4 v = ldg_nc(src + (size_t)m * K + 8 * j);
-      uint32_t* dst = reinterpret_cast<uint32_t*>(As + (size_t)m * SA + 8 * j);
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-  }
+  // A's slice: columns [c0, c1) chunks of all M rows (stage_a).
+  stage_a<CODEC, GATED>(p, c0, c1, As, SA);
   __syncthreads();
   float acc[NT][4], part[NT][4], asum[NT][4];
 #pragma unroll
@@ -406,17 +285,19 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& p) {
         if (c + kDepth - 1 < w1)
           load_slot<CODEC, GATED, STACKED>(ring[(j + kDepth - 1) % kDepth],
                                            rows, p, c + kDepth - 1, t);
-        consume<CODEC, NT>(ring[j], As, SA, (c - c0) * C::kChunk, M, g, t,
-                           lane, acc, part, asum);
+        consume_chunk<CODEC, NT>(ring[j], As, SA, (c - c0) * C::kChunk, M,
+                                 g, t, lane, acc, part, asum);
       }
     }
   }
 
   // The kw partial sums of a row group meet in its warp kp = 0, in order.
-  float* red = reinterpret_cast<float*>(
-      smem + ((size_t)M * SA * 2 + 15) / 16 * 16);
+  const bool post = !GATED && p.post_w != nullptr;
+  const DecodeSmem L = decode_smem<CODEC, GATED>(M, K, S, kw,
+                                                 p.norm != nullptr, post);
+  float* red = reinterpret_cast<float*>(smem + L.red);
   if (kw > 1) {
-    float* wred = red + (S > 1 ? M * 2 * PC : 0);  // [8][NT * 4][32]
+    float* wred = reinterpret_cast<float*>(smem + L.wred);  // [8][NT*4][32]
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -433,67 +314,92 @@ __device__ __forceinline__ void decode_body(const DecodeArgs& p) {
     }
   }
   const bool writer = kp == 0;
+  float* yt = reinterpret_cast<float*>(smem + L.yt);
+  // The panel's first column and width, recomputed rather than held
+  // across the loop.
+  const int PCe = warp_cols<GATED>() * (8 / p.kw), c0e = fresh_ctaid_x() * PCe;
+  int ylo = 0, ycols = PCe;  // the block's share of the panel's columns
 
   // Lane (g, t) of a writer holds rows m = 8 nt + 2 t (+1) of fragment rows
   // g (acc 0, 1) and g + 8 (acc 2, 3).
   if (S == 1) {
-    if (!writer) return;
+    if (writer) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int m = 8 * nt + 2 * t + e;
-        if (m >= M) continue;
-        if constexpr (GATED) {
-          if (rows.n0 < N)
-            store_out(p, (size_t)m * N + rows.n0,
-                      finish<true>(p, acc[nt][e], acc[nt][2 + e]));
-        } else {
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * nt + 2 * t + e;
+          if (m >= M) continue;
+          if constexpr (GATED) {
+            if (rows.n0 < N)
+              store_out(p, (size_t)m * N + rows.n0,
+                        finish<true>(p, acc[nt][e], acc[nt][2 + e]));
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = row_n<false>(rows, h);
+              if (n < N)
+                emit(p, m, n, finish<false>(p, acc[nt][2 * h + e], 0.f),
+                     yt + m * PCe + n - c0e);
+            }
+          }
+        }
+    }
+    if (!post) return;
+  } else {
+    // Split K over the cluster's S blocks: each block leaves its partial
+    // products [M, NB * PC] in its shared memory, and block r adds the S
+    // partials of its share of the panel's columns in split order.
+    constexpr int NB = GATED ? 2 : 1;
+    const int W = NB * PCe;
+    if (writer) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * nt + 2 * t + e;
+          if (m >= M) continue;
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            if (row_n<false>(rows, h) < N)
-              store_out(p, (size_t)m * N + row_n<false>(rows, h),
-                        finish<false>(p, acc[nt][2 * h + e], 0.f));
+            if (row_n<GATED>(rows, h) < N)
+              red[m * W + (GATED ? h * PCe : 0) + row_n<GATED>(rows, h) -
+                  c0e] = acc[nt][2 * h + e];
         }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int rank = (int)cluster.block_rank();
+    ylo = rank * PCe / S;
+    ycols = (rank + 1) * PCe / S - ylo;
+    for (int i = fresh_tid_x(); i < M * ycols; i += kDecodeThreads) {
+      const int m = i / ycols, cl = ylo + i % ycols;
+      if (c0e + cl >= N) continue;
+      float v1 = 0.f, v2 = 0.f;
+      for (int sp = 0; sp < S; ++sp) {
+        const float* peer = cluster.map_shared_rank(red, sp) + m * W + cl;
+        v1 += peer[0];
+        if constexpr (GATED) v2 += peer[PCe];
       }
-    return;
+      const float v = finish<GATED>(p, v1, v2);
+      if constexpr (GATED)
+        store_out(p, (size_t)m * N + c0e + cl, v);
+      else
+        emit(p, m, c0e + cl, v, yt + m * ycols + cl - ylo);
+    }
+    cluster.sync();  // every block's partials stay until their readers are done
+    if (!post) return;
   }
 
-  // Split K over the cluster's S blocks: each block leaves its partial
-  // products [M, NB * PC] in its shared memory, and block r adds the S
-  // partials of its share of the panel's columns in split order.
-  constexpr int NB = GATED ? 2 : 1;
-  const int W = NB * PC;
-  if (writer) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int m = 8 * nt + 2 * t + e;
-      if (m >= M) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (row_n<GATED>(rows, h) < N)
-          red[m * W + (GATED ? h * PC : 0) + row_n<GATED>(rows, h) - col0] =
-              acc[nt][2 * h + e];
-    }
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int rank = (int)cluster.block_rank();
-  const int lo = rank * PC / S, cols = (rank + 1) * PC / S - lo;
-  for (int i = tid; i < M * cols; i += kDecodeThreads) {
-    const int m = i / cols, cl = lo + i % cols;
-    if (col0 + cl >= N) continue;
-    float v1 = 0.f, v2 = 0.f;
-    for (int sp = 0; sp < S; ++sp) {
-      const float* peer = cluster.map_shared_rank(red, sp) + m * W + cl;
-      v1 += peer[0];
-      if constexpr (GATED) v2 += peer[PC];
-    }
-    store_out(p, (size_t)m * N + col0 + cl, finish<GATED>(p, v1, v2));
-  }
-  cluster.sync();  // every block's partials stay until their readers are done
+  // The post-norm: this block's partial sums of squares (blocks in column
+  // order: panel, then rank), then the ticket and the last block's tail.
+  __syncthreads();
+  const int cnt = max(0, min(ycols, N - c0e - ylo));
+  post_partials(p, yt, ycols, cnt, blockIdx.x * gridDim.y + blockIdx.y);
+  float* mul = reinterpret_cast<float*>(smem + L.mul);
+  if (p.coop)
+    post_grid(p, yt, ycols, cnt, c0e + ylo, gridDim.x * gridDim.y, mul);
+  else
+    post_tail(p, gridDim.x * gridDim.y, mul);
 }
 
 // The kernels by name, one pair per codec, so the launch counters and the
@@ -550,34 +456,53 @@ static cudaError_t launch_one(const DecodeArgs& p, dim3 grid, int smem,
   static const cudaError_t attr = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, kDecodeSmemMax);
   if (attr != cudaSuccess) return attr;
-  cudaLaunchAttribute at;
-  at.id = cudaLaunchAttributeClusterDimension;
-  at.val.clusterDim.x = 1;
-  at.val.clusterDim.y = grid.y;
-  at.val.clusterDim.z = 1;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = 1;
+  at[0].val.clusterDim.y = grid.y;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kDecodeThreads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
-  cfg.attrs = &at;
+  cfg.attrs = at;
   cfg.numAttrs = grid.y > 1 ? 1 : 0;  // a cluster only where K is split
-  return cudaLaunchKernelEx(&cfg, k, p);
-}
-
-// The block's shared memory for `splits` blocks a panel and `kw` warps a
-// row group: A's slice of the longest split, padded rows, then (split K)
-// the block's partial products, then (kw > 1) the warps' partial sums.
-template <int CODEC, bool GATED>
-static int decode_smem(int M, int K, int splits, int kw) {
-  using C = Codec<CODEC>;
-  const int chunks = K / C::kChunk, cmax = (chunks + splits - 1) / splits;
-  const int pad = CODEC == kNuq4 ? 2 : 4;
-  const int a_bytes = (M * (cmax * C::kChunk + pad) * 2 + 15) / 16 * 16;
-  const int pc = warp_cols<GATED>() * (8 / kw);
-  const int red = splits > 1 ? M * 2 * pc * 4 : 0;
-  const int wred = kw > 1 ? 8 * (M > 8 ? 2 : 1) * 4 * 32 * 4 : 0;
-  return a_bytes + red + wred;
+  DecodeArgs q = p;
+  if (p.post_w != nullptr) {
+    // The post-norm's grid barrier where every block fits on the card at
+    // once (clusters of the split counted as the runtime would place
+    // them): a cooperative launch, which guarantees they are resident;
+    // else the last block's tail.
+    static int fit_smem = -1, fit_y = 0, fit = 0;  // clusters that fit
+    if (smem != fit_smem || (int)grid.y != fit_y) {
+      cudaError_t e;
+      if (grid.y > 1) {
+        e = cudaOccupancyMaxActiveClusters(&fit, k, &cfg);
+      } else {
+        int dev = 0, sms = 0;
+        e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+          e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+        if (e == cudaSuccess)
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &fit, k, kDecodeThreads, (size_t)smem);
+        fit *= sms;
+      }
+      if (e != cudaSuccess) return e;
+      fit_smem = smem;
+      fit_y = (int)grid.y;
+    }
+    q.coop = (int)grid.x <= fit;
+    if (q.coop) {
+      at[cfg.numAttrs] = at[1];
+      ++cfg.numAttrs;
+    }
+  }
+  return cudaLaunchKernelEx(&cfg, k, q);
 }
 
 // False when K, N or (nuq4) the tables' row stride is not what the kernel
@@ -597,15 +522,24 @@ static bool set_w(DecodeArgs& p, int b, const BOperand& w, int N, int K) {
 
 // The dynamic shared memory of a launch, or -1 when the entry refuses it:
 // rows of A past kDecodeRows (matmul_sm90.cu's), a split outside [1,
-// min(chunks, kMaxSplits)], kw not 1, 2, 4 or 8, A not 16-byte aligned.
+// min(chunks, kMaxSplits)], kw not 1, 2, 4 or 8, a post-norm without its
+// scratch, or a pointer the kernel reads in 16-byte words (out: 8)
+// misaligned.
 template <int CODEC, bool GATED>
-static int decode_check(const DecodeArgs& p, const void* a) {
+static int decode_check(const DecodeArgs& p) {
   const int chunks = p.K / Codec<CODEC>::kChunk, S = p.splits;
+  const bool post = p.post_w != nullptr;
+  auto odd = [](const void* q, int b) {
+    return (reinterpret_cast<uintptr_t>(q) & (b - 1)) != 0;
+  };
   if (p.M < 1 || p.M > kDecodeRows || S < 1 || S > chunks ||
       S > kMaxSplits || (p.kw != 1 && p.kw != 2 && p.kw != 4 && p.kw != 8) ||
-      (reinterpret_cast<uintptr_t>(a) & 15))
+      (post && (p.y == nullptr || p.slots == nullptr || p.ticket == nullptr)) ||
+      odd(p.a, 16) || odd(p.a32, 16) || odd(p.norm, 16) || odd(p.post_w, 16) ||
+      odd(p.add, 16) || odd(p.y, 16) || odd(p.out, 8))
     return -1;
-  const int smem = decode_smem<CODEC, GATED>(p.M, p.K, S, p.kw);
+  const int smem = decode_smem<CODEC, GATED>(p.M, p.K, S, p.kw,
+                                             p.norm != nullptr, post).bytes;
   return smem > kDecodeSmemMax ? -1 : smem;
 }
 
@@ -622,19 +556,29 @@ static cudaError_t launch_decode(DecodeArgs& p, const int* layer, int smem,
                  : launch_one<CODEC, 1, GATED, false>(p, grid, smem, st);
 }
 
-// out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first.
-// y: f32 [M, N] staging for the epilogue pass (may be out when out is f32).
-// layer: null (K1), or the device layer index of stacked weights (K12).
-// splits: the blocks that share the K of a panel (see the note above).
+// A as the kernel reads it: bf16 `a`, or f32 `a` with the prologue's
+// weights `norm`, normalized in the kernel.
+static void set_a(DecodeArgs& p, const void* a, const float* norm) {
+  p.norm = norm;
+  if (norm != nullptr)
+    p.a32 = static_cast<const float*>(a);
+  else
+    p.a = static_cast<const __nv_bfloat16*>(a);
+}
+
+// out = add + postnorm(scale * A . B^T), A optionally RMS-normalized first,
+// in one launch.  Under a post-norm: y, f32 [M, N] for the raw products
+// (may be out when out is f32), slots, f32 [blocks, M] (blocks = panels x
+// splits), and ticket, one int that is zero between launches (the last
+// block re-zeroes it; launches that share it must not overlap).  layer:
+// null (K1), or the device layer index of stacked weights (K12).  splits:
+// the blocks that share the K of a panel (see the note above).
 template <int CODEC>
 static int matmul_entry(const void* a, const float* norm, const BOperand& w,
                         const int* layer, int kw, int splits,
-                        const float* post_w,
-                        const float* add,
-                        __nv_bfloat16* a_scratch, float* y, void* out, int M,
-                        int N, int K, int out_bf16, int* launched,
-                        cudaStream_t st) {
-  const bool post = post_w != nullptr || add != nullptr;
+                        const float* post_w, const float* add, float* y,
+                        float* slots, int* ticket, void* out, int M, int N,
+                        int K, int out_bf16, int* launched, cudaStream_t st) {
   *launched = 0;
   DecodeArgs p = {};
   p.M = M; p.N = N; p.K = K;
@@ -642,25 +586,20 @@ static int matmul_entry(const void* a, const float* norm, const BOperand& w,
   p.splits = splits;
   if (!set_w<CODEC>(p, 0, w, N, K) || !set_w<CODEC>(p, 1, w, N, K))
     return (int)cudaErrorInvalidValue;
-  const int smem = decode_check<CODEC, false>(p, norm != nullptr ? a_scratch : a);
+  set_a(p, a, norm);
+  p.post_w = post_w; p.add = add; p.y = y; p.slots = slots; p.ticket = ticket;
+  p.out = out; p.out_bf16 = out_bf16;
+  const int smem = decode_check<CODEC, false>(p);
   if (smem < 0) return (int)cudaErrorInvalidValue;
-  p.out = post ? static_cast<void*>(y) : out;
-  p.out_bf16 = post ? 0 : out_bf16;
-  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
   const cudaError_t e = launch_decode<CODEC, false>(p, layer, smem, st);
   if (e != cudaSuccess) return (int)e;
-  *launched |= kLaunchedSelf;
-  if (post) {
-    postnorm_add_kernel<<<M, 256, 0, st>>>(y, post_w, add, out, N, out_bf16);
-    *launched |= kLaunchedPostnorm;
-  }
+  *launched = kLaunchedSelf;
   return (int)cudaGetLastError();
 }
 
 template <int CODEC>
 static int gated_entry(const void* a, const float* norm, const BOperand& w1,
                        const BOperand& w2, const int* layer, int kw, int splits,
-                       __nv_bfloat16* a_scratch,
                        void* out, int M, int N, int K, int* launched,
                        cudaStream_t st) {
   *launched = 0;
@@ -670,13 +609,13 @@ static int gated_entry(const void* a, const float* norm, const BOperand& w1,
   p.splits = splits;
   if (!set_w<CODEC>(p, 0, w1, N, K) || !set_w<CODEC>(p, 1, w2, N, K))
     return (int)cudaErrorInvalidValue;
-  const int smem = decode_check<CODEC, true>(p, norm != nullptr ? a_scratch : a);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
+  set_a(p, a, norm);
   p.out = out; p.out_bf16 = 1;
-  p.a = operand_a(a, norm, a_scratch, M, K, launched, st);
+  const int smem = decode_check<CODEC, true>(p);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   const cudaError_t e = launch_decode<CODEC, true>(p, layer, smem, st);
   if (e != cudaSuccess) return (int)e;
-  *launched |= kLaunchedSelf;
+  *launched = kLaunchedSelf;
   return (int)cudaGetLastError();
 }
 
@@ -690,152 +629,153 @@ static int gated_entry(const void* a, const float* norm, const BOperand& w1,
 extern "C" int gemma_matmul_i8(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_i8(
     const void* a, const float* norm,
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_sfp(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_sfp(
     const void* a, const float* norm,
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_bf16(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_bf16(
     const void* a, const float* norm,
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_f32(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_f32(
     const void* a, const float* norm,
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_i4(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_i4(
     const void* a, const float* norm,
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_nuq4(
     const void* a, const float* norm,
     const void* codes, const void* tables, int tstride, float scale,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
-  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), nullptr,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
+  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale),
+                             nullptr, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_nuq4(
     const void* a, const float* norm,
     const void* codes1, const void* tables1, int tstride1, float scale1,
     const void* codes2, const void* tables2, int tstride2, float scale2,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
-                           nuq4_b(codes2, tables2, tstride2, scale2), nullptr,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            nuq4_b(codes2, tables2, tstride2, scale2), nullptr,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_i8(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kI8>(a, norm, affine_b(codes, inv, zp, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_i8(
@@ -843,26 +783,26 @@ extern "C" int gemma_gated_stacked_i8(
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kI8>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_sfp(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kSfp>(a, norm, affine_b(codes, inv, zp, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_sfp(
@@ -870,26 +810,26 @@ extern "C" int gemma_gated_stacked_sfp(
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kSfp>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_bf16(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kBf16>(a, norm, affine_b(codes, inv, zp, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_bf16(
@@ -897,26 +837,26 @@ extern "C" int gemma_gated_stacked_bf16(
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kBf16>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_f32(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kF32>(a, norm, affine_b(codes, inv, zp, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_f32(
@@ -924,26 +864,26 @@ extern "C" int gemma_gated_stacked_f32(
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kF32>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_i4(
     const void* a, const float* norm,
     const void* codes, const float* inv, const float* zp, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kI4>(a, norm, affine_b(codes, inv, zp, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_i4(
@@ -951,26 +891,26 @@ extern "C" int gemma_gated_stacked_i4(
     const void* codes1, const float* inv1, const float* zp1, float scale1,
     const void* codes2, const float* inv2, const float* zp2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kI4>(a, norm, affine_b(codes1, inv1, zp1, scale1),
-                           affine_b(codes2, inv2, zp2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            affine_b(codes2, inv2, zp2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }
 
 extern "C" int gemma_matmul_stacked_nuq4(
     const void* a, const float* norm,
     const void* codes, const void* tables, int tstride, float scale,
     const int* layer,
-    int kw, int splits, const float* post_w,
-    const float* add, __nv_bfloat16* a_scratch, float* y, void* out, int M,
-    int N, int K, int out_bf16, int* launched, cudaStream_t st) {
+    int kw, int splits, const float* post_w, const float* add, float* y,
+    float* slots, int* ticket, void* out, int M, int N, int K, int out_bf16,
+    int* launched, cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
-  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale), layer,
-                            kw, splits, post_w, add, a_scratch, y,
-                            out, M, N, K, out_bf16, launched, st);
+  return matmul_entry<kNuq4>(a, norm, nuq4_b(codes, tables, tstride, scale),
+                             layer, kw, splits, post_w, add, y, slots,
+                             ticket, out, M, N, K, out_bf16, launched,
+                             st);
 }
 
 extern "C" int gemma_gated_stacked_nuq4(
@@ -978,11 +918,10 @@ extern "C" int gemma_gated_stacked_nuq4(
     const void* codes1, const void* tables1, int tstride1, float scale1,
     const void* codes2, const void* tables2, int tstride2, float scale2,
     const int* layer,
-    int kw, int splits, __nv_bfloat16* a_scratch,
-    void* out, int M, int N, int K, int* launched, cudaStream_t st) {
+    int kw, int splits, void* out, int M, int N, int K, int* launched,
+    cudaStream_t st) {
   if (layer == nullptr) return (int)cudaErrorInvalidValue;
   return gated_entry<kNuq4>(a, norm, nuq4_b(codes1, tables1, tstride1, scale1),
-                           nuq4_b(codes2, tables2, tstride2, scale2), layer,
-                           kw, splits, a_scratch, out, M, N, K,
-                           launched, st);
+                            nuq4_b(codes2, tables2, tstride2, scale2), layer,
+                            kw, splits, out, M, N, K, launched, st);
 }

@@ -12,7 +12,8 @@ Each `Kernel` carries `launches`, a plain integer that grows by one per
 launch of that kernel and nowhere else.  Every C entry reports, through a
 trailing `int* launched` before the stream, a bitmask of the kernels it
 put on the stream: bit 0 its own, bit i + 1 the i-th of the `passes` it
-was declared with (the GEMM entries chain norm passes in the same call).
+was declared with (the prefill GEMMs' and the top-k head's entries chain
+norm passes in the same call).
 `Kernel.launch` adds to the counts from that report alone, so a count says
 what ran, not what the wrapper asked for.  `chip_smoke.py` zeroes and
 reads the counts around the main path to show the path ran through the

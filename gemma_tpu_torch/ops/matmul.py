@@ -22,13 +22,13 @@ Both 4.5-bit kinds take 0.5625 bytes a weight.
 
 Every GEMM has a kernel path and a plain path.  For CUDA tensors the
 wrappers launch the hand-written kernels of csrc/ (K1 with its norm
-prologue and post-norm passes, K2, K3 the fused greedy head
-`matmul_top1`, K6 the fused top-k head `matmul_topk`, each built once per
-codec) or raise: K1 and K2 take the decode tile of matmul_decode.cu at M
-<= DECODE_ROWS rows (K split over warps and blocks where the panels
-alone would not fill the card: `decode_split`) and the wgmma tile of
-matmul_sm90.cu above it (prefill); for CPU tensors they take the plain
-versions below,
+prologue and post-norm, K2, K3 the fused greedy head `matmul_top1`, K6
+the fused top-k head `matmul_topk`, each built once per codec) or raise:
+K1 and K2 take the decode tile of matmul_decode.cu at M <= DECODE_ROWS
+rows (K split over warps and blocks where the panels alone would not fill
+the card: `decode_split`; the norms folded into the one launch) and the
+wgmma tile of matmul_sm90.cu above it (prefill; the norms as passes
+around it); for CPU tensors they take the plain versions below,
 which compute the same function: the B tile becomes bf16 (A's dtype) and
 feeds the product, and the group affines are applied to the output:
     i8:  out += inv_g * (A_g . C_g) - (inv_g * zp_g) * sum(A_g)
@@ -114,34 +114,33 @@ def _b_args(codec: str) -> list:
     return [_cuda.P] + side + [_cuda.F]
 
 
-# One C entry runs [prologue norm pass] -> GEMM -> [post-norm + add pass]
-# and reports which of them it launched; each is counted on its own Kernel.
-# One set of entries per codec, so the counts tell the kinds apart.
-# The decode entries take, after the B operands (and K12's layer pointer),
-# the split of K: warps a row group, blocks a cluster.
+# The decode entries of K1 and K2 (M <= DECODE_ROWS) are one launch each:
+# the prologue norm and the post-norm + residual add run inside the
+# kernel.  One set of entries per codec, so the counts tell the kinds
+# apart.  They take, after the B operands (and K12's layer pointer), the
+# split of K: warps a row group, blocks a cluster; K1 then the epilogue's
+# weights, add, y, slots and ticket (_device_scratch).
 _SPLIT = [_cuda.I, _cuda.I]
+_EPILOGUE = [_cuda.P] * 5
 MATMUL = {c: _cuda.Kernel(
     f"matmul_{c}", DECODE_SOURCE, f"gemma_matmul_{c}",
-    [_cuda.P] * 2 + _b_args(c) + _SPLIT + [_cuda.P] * 5 + [_cuda.I] * 4,
-    passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
+    [_cuda.P] * 2 + _b_args(c) + _SPLIT + _EPILOGUE + [_cuda.P]
+    + [_cuda.I] * 4) for c in K_MULTIPLE}
 GATED = {c: _cuda.Kernel(
     f"gated_{c}", DECODE_SOURCE, f"gemma_gated_{c}",
-    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + _SPLIT + [_cuda.P] * 2
-    + [_cuda.I] * 3,
-    passes=(PRENORM,)) for c in K_MULTIPLE}
+    [_cuda.P] * 2 + _b_args(c) + _b_args(c) + _SPLIT + [_cuda.P]
+    + [_cuda.I] * 3) for c in K_MULTIPLE}
 # K12: K1 and K2 on layer `layer` of a stacked weight.  The same C entry
 # layout with one more pointer after the B operands: the device int32
 # layer index.
 MATMUL_STACKED = {c: _cuda.Kernel(
     f"matmul_stacked_{c}", DECODE_SOURCE, f"gemma_matmul_stacked_{c}",
-    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] + _SPLIT + [_cuda.P] * 5
-    + [_cuda.I] * 4,
-    passes=(PRENORM, POSTNORM_ADD)) for c in K_MULTIPLE}
+    [_cuda.P] * 2 + _b_args(c) + [_cuda.P] + _SPLIT + _EPILOGUE + [_cuda.P]
+    + [_cuda.I] * 4) for c in K_MULTIPLE}
 GATED_STACKED = {c: _cuda.Kernel(
     f"gated_stacked_{c}", DECODE_SOURCE, f"gemma_gated_stacked_{c}",
     [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P] + _SPLIT
-    + [_cuda.P] * 2 + [_cuda.I] * 3,
-    passes=(PRENORM,)) for c in K_MULTIPLE}
+    + [_cuda.P] + [_cuda.I] * 3) for c in K_MULTIPLE}
 # K1 and K2 at M > DECODE_ROWS (prefill), plain or stacked: the stacked
 # entries' layout with the layer pointer (None when plain) followed by the
 # number of layers.
@@ -155,27 +154,42 @@ GATED_SM90 = {c: _cuda.Kernel(
     [_cuda.P] * 2 + _b_args(c) + _b_args(c) + [_cuda.P, _cuda.I]
     + [_cuda.P] * 2 + [_cuda.I] * 3,
     passes=(PRENORM,)) for c in K_MULTIPLE}
+# K3: one launch, the final norm folded in (matmul.cu:top1_body).
 TOP1 = {c: _cuda.Kernel(
     f"top1_{c}", SOURCE, f"gemma_top1_{c}",
     [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
-    + [_cuda.P] * 7 + [_cuda.I] * 4,
-    passes=(PRENORM,)) for c in K_MULTIPLE}
+    + [_cuda.P] * 6 + [_cuda.I] * 4) for c in K_MULTIPLE}
 TOPK = {c: _cuda.Kernel(
     f"topk_{c}", SOURCE, f"gemma_topk_{c}",
     [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
     + [_cuda.P] * 5 + [_cuda.I] * 4,
     passes=(PRENORM, TOPK_MERGE)) for c in K_MULTIPLE}
-# K3's blocks per 16 rows: each walks N / (8 * TOP1_BLOCKS) 8-column tiles
-# and leaves one online state per row for the last block to merge.  528
-# is one wave on an H100 (132 SMs x 4 blocks of 8 warps at 57 registers);
-# more blocks lengthen the last block's merge (chip_smoke.py sweeps it).
+# K3's blocks per 16 rows at most (the capacity of its part_* scratch):
+# the kernel launches as many as fit on the card at once, up to this and
+# one per 8 row groups of 16 vocabulary rows (two 256-thread blocks on
+# each of an H100's 132 SMs: 264); each leaves one online state per row
+# for the last block to merge.
 TOP1_BLOCKS = 528
 # K6's blocks per 16 rows: each leaves one sorted list of k_top pairs per
 # row for the merge kernel (chip_smoke.py sweeps it).
 TOPK_BLOCKS = 528
-# One zeroed int per device, counted up by K3's blocks and reset by the
-# last one: K3 launches on one device must not overlap (one stream).
-_top1_tickets: dict[torch.device, torch.Tensor] = {}
+# Per device: one zeroed int32 ticket, counted up by the blocks of K3 and
+# of a decode K1 under a post-norm and reset by each launch's last block,
+# and that K1's partial sums of squares ([blocks, M] f32).  Launches that
+# use them must not overlap: one stream per device.
+_scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_scratch(device, floats: int = 0):
+    """(ticket, slots) of `device`, slots holding at least `floats`."""
+    got = _scratch.get(device)
+    if got is None or got[1].numel() < floats:
+        ticket = got[0] if got is not None else torch.zeros(
+            1, dtype=torch.int32, device=device)
+        slots = torch.empty(max(floats, DECODE_WAVE * DECODE_ROWS),
+                            dtype=torch.float32, device=device)
+        got = _scratch[device] = (ticket, slots)
+    return got
 
 
 def sfp_decode(codes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -603,7 +617,9 @@ def matmul_plain(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
 
 
 def prenorm_plain(a, weight):
-    """The K1/K2 prologue in plain PyTorch: bf16(rmsnorm(a)) (_norm_a)."""
+    """The prologue norm in plain PyTorch: bf16(rmsnorm(a)) (_norm_a); the
+    plain version of the prologue pass (the prefill tile's and K6's) and of
+    the prologue folded into the decode tile and K3."""
     return rms_norm(a.float(), weight).to(torch.bfloat16)
 
 
@@ -681,6 +697,194 @@ def gated_ffn_plain(x, w1, w2, out_dtype=torch.bfloat16, prologue_norm=None):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' orders of summation and merging, in plain PyTorch: what the
+# folded prologue and epilogue of the decode tile and K3 compute, step by
+# step as the kernels take them (the CPU tests hold these against the JAX
+# package, and chip_smoke.py holds the folded prologue to
+# prenorm_fixed_order bit for bit; no serving path calls them).  The f32 operations are the
+# kernels' own, but for the tie-and-sum merges of K3, whose multiply-adds
+# the compiler may fuse.
+# ---------------------------------------------------------------------------
+
+NORM_SEG = 32  # gemm_common.cuh:kNormSeg, K of one partial sum of squares
+_INT_MAX = 2 ** 31 - 1
+
+
+def lane_sums(x: torch.Tensor) -> torch.Tensor:
+    """A warp's f32 sum of x [R, n] along n in the kernels' order: lane l
+    adds x[:, l], x[:, l + 32], ... in turn from 0, then the 32 lanes meet
+    in a butterfly (xor 16, 8, 4, 2, 1; gemm_common.cuh's norm_row_mul,
+    post_partials and post_tail).  Returns [R]."""
+    r, n = x.shape
+    x = F.pad(x.float(), (0, (-n) % 32)).reshape(r, -1, 32)
+    s = torch.zeros(r, 32, dtype=torch.float32, device=x.device)
+    for i in range(x.shape[1]):
+        s = s + x[:, i]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ o]
+    return s[:, 0]
+
+
+def _fma(a, b, c):
+    """f32 round(a * b + c), the kernels' __fmaf_rn (the product of two
+    f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def norm_multiplier(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The folded prologue's multiplier of each row of f32 a [M, >= k]
+    (zeros past the logical k): 1 / sqrt(ss / k + 1e-6), ss the sum of
+    squares in gemm_common.cuh's order: per segment of NORM_SEG K, 8 lanes
+    of 4 consecutive K, ((x0^2 + x1^2) + x2^2) + x3^2 each, meeting in a
+    butterfly (xor 4, 2, 1); the segment sums then as `lane_sums` adds
+    them (zero segments past k change nothing).  Returns [M]."""
+    a = a.float()
+    m, kp = a.shape
+    sq = F.pad(a, (0, (-kp) % NORM_SEG)).reshape(m, -1, 8, 4) ** 2
+    lane = ((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3]
+    j = torch.arange(8, device=a.device)
+    for o in (4, 2, 1):
+        lane = lane + lane[..., j ^ o]
+    ss = lane_sums(lane[..., 0])
+    return 1.0 / torch.sqrt(ss / k + 1e-6)
+
+
+def prenorm_fixed_order(a, weight, k: int | None = None):
+    """The prologue folded into the decode tile and K3: bf16(m + m * w),
+    one multiply-add, m = a * norm_multiplier(a, k); k the logical K
+    (default a's width; a and weight are zero past it)."""
+    a = a.float()
+    mul = norm_multiplier(a, a.shape[1] if k is None else k)[:, None]
+    m = a * mul
+    return _fma(m, weight.float(), m).to(torch.bfloat16)
+
+
+def decode_blocks(n: int, kw: int, splits: int) -> list[tuple[int, int]]:
+    """The decode tile's blocks of K1 over N output columns, in the order
+    the folded post-norm adds their partial sums (panel, then rank in the
+    cluster), each as its column range [lo, hi) clipped to N; (kw, splits)
+    as decode_split gives them."""
+    pc = DECODE_WARP_COLS[False] * (8 // kw)
+    out = []
+    for panel in range(-(-n // pc)):
+        for r in range(splits):
+            lo = panel * pc + r * pc // splits
+            hi = panel * pc + (r + 1) * pc // splits
+            out.append((min(lo, n), min(hi, n)))
+    return out
+
+
+def postnorm_add_blocks(y, weight, add=None, split=(8, 1),
+                        out_dtype=torch.float32):
+    """The post-norm + residual epilogue folded into the decode tile, on the
+    raw f32 product y [M, N]: every block's partial sum of squares of its
+    columns (decode_blocks at split = (kw, splits)) by `lane_sums`, the
+    blocks' partials by `lane_sums` again; then add + (m + m * w), m = y *
+    1 / sqrt(ss / N + 1e-6)."""
+    y = y.float()
+    n = y.shape[1]
+    parts = torch.stack([lane_sums(y[:, lo:hi] * y[:, lo:hi])
+                         for lo, hi in decode_blocks(n, *split)], dim=1)
+    mul = (1.0 / torch.sqrt(lane_sums(parts) / n + 1e-6))[:, None]
+    m = y * mul
+    out = _fma(m, weight.float(), m)
+    if add is not None:
+        out = out + add.float()
+    return out.to(out_dtype)
+
+
+def top1_plan(n: int, blocks: int) -> list[list[int]]:
+    """K3's row groups of each warp: warp gw of the blocks x 8 takes groups
+    gw, gw + W, ... (W = 8 blocks) of the ceil(n / 16); group r holds the
+    vocabulary rows [16 r, 16 r + 16) (matmul.cu:top1_body)."""
+    groups, warps = -(-n // 16), 8 * blocks
+    return [list(range(gw, groups, warps)) for gw in range(warps)]
+
+
+def _top1_merge(a, b, need_prob):
+    """matmul.cu:top1_merge on (m, s, i) states (ties to the lowest index)."""
+    (am, as_, ai), (bm, bs, bi) = a, b
+    m = torch.maximum(am, bm)
+    i = torch.where(am > bm, ai, torch.where(bm > am, bi,
+                                             torch.minimum(ai, bi)))
+    if not need_prob:
+        return m, torch.zeros_like(m), i
+    ninf = float("-inf")
+    s = torch.where(am != ninf, as_ * torch.exp(am - m), 0.0) + torch.where(
+        bm != ninf, bs * torch.exp(bm - m), 0.0)
+    return m, s, i
+
+
+def matmul_top1_emulated(a, w, *, final_cap, blocks: int, prologue_norm=None,
+                         allowed_mask=None, need_prob=True):
+    """K3 in its own order: the logits of the folded prologue's A, walked
+    by `top1_plan` over `blocks` blocks, each lane's vocabulary rows g and
+    g + 8 of its groups in increasing order into one online state a row
+    of A; then the 8 lanes of a row (g xor 1, 2, 4), the warps of a block
+    in order, and the blocks, lane l taking blocks l, l + 32, ..., then
+    the butterfly (xor 1 .. 16).  Returns (token int32, prob f32) [M]."""
+    if prologue_norm is not None:
+        a = prenorm_fixed_order(a, prologue_norm)
+    logits = _product_plain(a, w)
+    m, n = logits.shape
+    dev = logits.device
+    warps = 8 * blocks
+    groups = -(-n // 16)
+    live = torch.ones(n, dtype=torch.bool, device=dev) \
+        if allowed_mask is None else allowed_mask.bool().to(dev)
+    capped = need_prob and final_cap != 0.0
+    shape = (m, warps, 8)
+    st = (torch.full(shape, float("-inf"), device=dev),
+          torch.zeros(shape, device=dev),
+          torch.full(shape, _INT_MAX, dtype=torch.int64, device=dev))
+    gw = torch.arange(warps, device=dev)[:, None]
+    g = torch.arange(8, device=dev)[None, :]
+    for step in range(-(-groups // warps)):
+        grp = gw + step * warps
+        for h in (0, 1):
+            col = 16 * grp + g + 8 * h
+            ok = (grp < groups) & (col < n)
+            colc = col.clamp(max=n - 1)
+            ok = (ok & live[colc]).expand(shape)
+            v = logits[:, colc]
+            if capped:
+                v = final_cap * torch.tanh(v / final_cap)
+            sm, ss, si = st
+            up = ok & (v > sm)
+            if need_prob:
+                grown = ss * torch.exp(sm - v) + 1.0
+                ss = torch.where(up, grown,
+                                 torch.where(ok, ss + torch.exp(v - sm), ss))
+            st = (torch.where(up, v, sm), ss,
+                  torch.where(up, col.expand(shape), si))
+    for o in (1, 2, 4):  # lanes xor 4, 8, 16: g xor 1, 2, 4
+        st = _top1_merge(st, tuple(x[..., g[0] ^ o] for x in st), need_prob)
+    ws = tuple(x[..., 0].reshape(m, blocks, 8) for x in st)
+    r = tuple(x[..., 0] for x in ws)
+    for wi in range(1, 8):
+        r = _top1_merge(r, tuple(x[..., wi] for x in ws), need_prob)
+    pad = (-blocks) % 32
+    lanes = (torch.full((m, 32), float("-inf"), device=dev),
+             torch.zeros(m, 32, device=dev),
+             torch.full((m, 32), _INT_MAX, dtype=torch.int64, device=dev))
+    cols = tuple(torch.cat([x, torch.full((m, pad), fill, dtype=x.dtype,
+                                          device=dev)], 1).reshape(m, -1, 32)
+                 for x, fill in zip(r, (float("-inf"), 0.0, _INT_MAX)))
+    for i in range(cols[0].shape[1]):
+        lanes = _top1_merge(lanes, tuple(x[:, i] for x in cols), need_prob)
+    idx = torch.arange(32, device=dev)
+    for o in (1, 2, 4, 8, 16):
+        lanes = _top1_merge(lanes, tuple(x[:, idx ^ o] for x in lanes),
+                            need_prob)
+    best, s, i = (x[:, 0] for x in lanes)
+    token = torch.where(best == float("-inf"), 0, i).to(torch.int32)
+    if not need_prob:
+        return token, torch.ones_like(best)
+    return token, 1.0 / s.clamp_min(1e-30)
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
@@ -723,19 +927,27 @@ def _b_operand(w: QuantTensor, name: str):
             w.arrays[off].data_ptr())
 
 
-def _a_operand(a: torch.Tensor, k: int, prologue_norm):
-    """(A, norm, scratch) as the kernel takes them: f32 A with a norm and a
-    bf16 [M, K] scratch for the normalized rows, else bf16 A."""
-    scratch = None
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (the
+    kernels read these operands in 16-byte words)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _a_operand(a: torch.Tensor, k: int, prologue_norm, scratch=False):
+    """(A, norm, scratch) as the kernel takes them: f32 A with a norm, else
+    bf16 A; with `scratch`, a bf16 [M, K] scratch for a norm pass to write
+    the normalized rows to (the prefill tile's and K6's entries)."""
+    buf = None
     if prologue_norm is not None:
         _cuda.check(a, "a", torch.float32)
         _cuda.check(prologue_norm, "prologue_norm", torch.float32, (k,))
-        scratch = torch.empty(a.shape, dtype=torch.bfloat16, device=a.device)
+        if scratch:
+            buf = torch.empty(a.shape, dtype=torch.bfloat16, device=a.device)
     else:
         _cuda.check(a, "a", torch.bfloat16)
     if a.ndim != 2 or a.shape[1] != k:
         raise ValueError(f"a must be [M, {k}], got {tuple(a.shape)}")
-    return a, prologue_norm, scratch
+    return _aligned(a), _aligned(prologue_norm), buf
 
 
 def _check_epilogue(weight, add, m, n):
@@ -758,7 +970,7 @@ def prenorm(a, weight):
     """bf16(rmsnorm(a)) over whole rows: the prologue pass alone on CUDA."""
     if not a.is_cuda:
         return prenorm_plain(a, weight)
-    a, weight, out = _a_operand(a, a.shape[-1], weight)
+    a, weight, out = _a_operand(a, a.shape[-1], weight, scratch=True)
     PRENORM.launch(a.data_ptr(), weight.data_ptr(), out.data_ptr(),
                    a.shape[0], a.shape[1])
     return out
@@ -799,24 +1011,42 @@ def matmul(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
 def _matmul_cuda(a, w, out_dtype, add, prologue_norm, epilogue_norm, layer):
     """matmul's kernel path: checks, allocates and launches."""
     _, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul")
-    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype}")
     m = a.shape[0]
-    post = epilogue_norm is not None or add is not None
+    decode = m <= DECODE_ROWS
+    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm,
+                                    scratch=not decode)
     _check_epilogue(epilogue_norm, add, m, w.n)
+    epilogue_norm, add = _aligned(epilogue_norm), _aligned(add)
     out = torch.empty(m, w.n, dtype=out_dtype, device=a.device)
-    y = None  # f32 staging of the GEMM output for the epilogue pass
+    # f32 [M, N] of the raw product where a post-norm follows it: the
+    # prefill tile's epilogue pass reads it (as the add pass does), the
+    # decode tile's last block.
+    post = epilogue_norm is not None or (add is not None and not decode)
+    y = None
     if post:
         y = out if out_dtype == torch.float32 else torch.empty(
             m, w.n, dtype=torch.float32, device=a.device)
     kernel, layer_args = _gemm_kernel(
         m, w, layer, a.device, MATMUL, MATMUL_STACKED, MATMUL_SM90, False)
+    if not decode:
+        kernel.launch(
+            a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
+            float(w.scale), *layer_args, _cuda.ptr(epilogue_norm),
+            _cuda.ptr(add), _cuda.ptr(a_scratch), _cuda.ptr(y),
+            out.data_ptr(), m, w.n, w.k, int(out_dtype == torch.bfloat16))
+        return out
+    ticket = slots = None
+    if epilogue_norm is not None:
+        kw, splits = layer_args[-2:]  # blocks: panels x splits
+        blocks = -(-w.n // (DECODE_WARP_COLS[False] * (8 // kw))) * splits
+        ticket, slots = _device_scratch(a.device, blocks * m)
     kernel.launch(
         a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), *layer_args, _cuda.ptr(epilogue_norm),
-        _cuda.ptr(add), _cuda.ptr(a_scratch), _cuda.ptr(y), out.data_ptr(),
-        m, w.n, w.k, int(out_dtype == torch.bfloat16))
+        _cuda.ptr(add), _cuda.ptr(y), _cuda.ptr(slots), _cuda.ptr(ticket),
+        out.data_ptr(), m, w.n, w.k, int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -834,14 +1064,17 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
                                  prologue_norm=prologue_norm,
                                  allowed_mask=allowed_mask,
                                  need_prob=need_prob)
+    return _top1_cuda(a, w, final_cap, prologue_norm, allowed_mask,
+                      need_prob)
+
+
+def _top1_cuda(a, w, final_cap, prologue_norm, allowed_mask, need_prob):
+    """matmul_top1's kernel path: checks, allocates and launches."""
     codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul_top1")
-    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
+    a, norm, _ = _a_operand(a, w.k, prologue_norm)
     m = a.shape[0]
     allowed_mask = _mask_operand(allowed_mask, w.n)
-    ticket = _top1_tickets.get(a.device)
-    if ticket is None:
-        ticket = _top1_tickets[a.device] = torch.zeros(
-            1, dtype=torch.int32, device=a.device)
+    ticket, _ = _device_scratch(a.device)
     part = torch.empty(2, m, TOP1_BLOCKS, dtype=torch.float32,
                        device=a.device)
     part_i = torch.empty(m, TOP1_BLOCKS, dtype=torch.int32, device=a.device)
@@ -850,9 +1083,9 @@ def matmul_top1(a, w, *, final_cap, prologue_norm=None, allowed_mask=None,
     TOP1[codec].launch(
         a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), float(final_cap), _cuda.ptr(allowed_mask),
-        int(need_prob), _cuda.ptr(a_scratch), part[0].data_ptr(),
-        part[1].data_ptr(), part_i.data_ptr(), ticket.data_ptr(),
-        tok.data_ptr(), prob.data_ptr(), m, w.n, w.k, TOP1_BLOCKS)
+        int(need_prob), part[0].data_ptr(), part[1].data_ptr(),
+        part_i.data_ptr(), ticket.data_ptr(), tok.data_ptr(),
+        prob.data_ptr(), m, w.n, w.k, TOP1_BLOCKS)
     return tok, prob
 
 
@@ -901,7 +1134,7 @@ def matmul_topk(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
                                  prologue_norm=prologue_norm,
                                  allowed_mask=allowed_mask)
     codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul_topk")
-    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm)
+    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm, scratch=True)
     m = a.shape[0]
     allowed_mask = _mask_operand(allowed_mask, w.n)
     part_v = torch.empty(m, TOPK_BLOCKS, k_top, dtype=torch.float32,
@@ -941,13 +1174,15 @@ def _gated_cuda(x, w1, w2, out_dtype, prologue_norm, layer):
                          f"{w2.kind} {w2.shape}")
     if out_dtype != torch.bfloat16:
         raise ValueError("gated_ffn emits bf16 on CUDA")
-    x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm)
     m = x.shape[0]
+    decode = m <= DECODE_ROWS
+    x, norm, a_scratch = _a_operand(x, w1.k, prologue_norm,
+                                    scratch=not decode)
     out = torch.empty(m, w1.n, dtype=torch.bfloat16, device=x.device)
     kernel, layer_args = _gemm_kernel(
         m, w1, layer, x.device, GATED, GATED_STACKED, GATED_SM90, True)
+    scratch = () if decode else (_cuda.ptr(a_scratch),)
     kernel.launch(x.data_ptr(), _cuda.ptr(norm), b1, inv1, zp1,
                   float(w1.scale), b2, inv2, zp2, float(w2.scale),
-                  *layer_args, _cuda.ptr(a_scratch), out.data_ptr(), m, w1.n,
-                  w1.k)
+                  *layer_args, *scratch, out.data_ptr(), m, w1.n, w1.k)
     return out

@@ -1,7 +1,7 @@
-"""Decode speed of the large-model paths of chip_smoke.py (I: Gemma2-27B
-with i4 weights, 46 layers; J: Gemma2-9B with nuq4 weights, 42 layers)
-for a checkout of the port on the card, so that two checkouts can be
-compared in one run:
+"""Decode speed of three serving paths of chip_smoke.py (A: Gemma2-2B with
+i8 weights, 26 layers; I: Gemma2-27B with i4 weights, 46 layers; J:
+Gemma2-9B with nuq4 weights, 42 layers) for a checkout of the port on the
+card, so that two checkouts can be compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_decode.py [--root DIR] [--runs N]
 
@@ -12,10 +12,10 @@ default RuntimeConfig (bf16 KV, chunks of 4 decode steps), batch 4 with
 prompts of 17, 130, 300 and 700 tokens.  Per path: `--runs` calls of
 generate_batch with 16 new tokens after a warm-up, each one's decode
 tok/s (TimingInfo); then two chunks of 4 decode steps under
-torch.profiler: the host wall per step and the device time per step of
-the decode GEMMs (K1, K2: any kernel of the GEMM tiles), the rest of the
-port's kernels and the torch ops, summed by kernel.  Prints one JSON
-line.
+torch.profiler: the host wall per step, and per step the device time and
+the number of device activities (kernels, copies, sets) of the decode
+GEMMs (K1, K2: any kernel of the decode tile) and of the rest (the port's
+other kernels and the torch ops).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -46,7 +46,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig, TimingInfo
-    from gemma_tpu_torch.models.configs import (config_gemma2_9b,
+    from gemma_tpu_torch.models.configs import (config_gemma2_2b,
+                                                config_gemma2_9b,
                                                 config_gemma2_27b)
     from gemma_tpu_torch.utils.synth import synth_params
 
@@ -58,7 +59,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     res = {"root": root, "card": card}
     gen = torch.Generator().manual_seed(3)
-    for label, config, kind in (("I", config_gemma2_27b(), "i4"),
+    for label, config, kind in (("A", config_gemma2_2b(), "i8"),
+                                ("I", config_gemma2_27b(), "i4"),
                                 ("J", config_gemma2_9b(), "nuq4")):
         params = synth_params(config, kind=kind, seed=0, device="cuda")
         engine = GemmaEngine(params, config, RuntimeConfig(seq_len=8192))
@@ -90,13 +92,17 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = (time.monotonic() - t0) * 1e3
         device = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+        count = dict.fromkeys(device, 0)
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 device[kernel_class(e.key)] += e.self_device_time_total / 1e3
+                count[kernel_class(e.key)] += e.count
         res[label] = {
             "tok_s": tok_s,
             "host_wall_ms_per_step": wall / steps,
             "device_ms_per_step": {k: v / steps for k, v in device.items()},
+            "device_activities_per_step": {
+                k: v / steps for k, v in count.items()},
         }
         del engine, params, cache
         torch.cuda.empty_cache()

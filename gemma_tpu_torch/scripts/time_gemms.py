@@ -1,31 +1,42 @@
-"""Time the unstacked GEMM kernels (K1, K2, K3, K6) of a checkout of the
-port on the card, so that two checkouts can be compared in one run:
+"""Time the GEMM kernels (K1, K2, K3, K6 and the stacked K12) of a
+checkout of the port on the card, so that two checkouts can be compared in
+one run:
 
     python3 gemma_tpu_torch/scripts/time_gemms.py [--root DIR]
 
 --root: the checkout whose `gemma_tpu_torch` is imported (default: the one
 this file is in); its kernels build under DIR/build/.  Cases, each at
 batch 4 (M = 4) unless named prefill:
-  - Gemma2-2B widths for every weight codec (i8, sfp, bf16, f32, i4,
-    nuq4): K1 qkv with its prologue, att_w and linear with the post-norm +
-    residual pass, K2 with its prologue; i8 and i4 also K3 and K6 (k_top
-    64) over the 256000-row head;
-  - the same four at Gemma2-9B and Gemma2-27B widths for i4 and nuq4;
-  - each decode GEMM alone (bf16 A, no passes) for i4 (2B, 9B, 27B),
-    nuq4 (9B, 27B), bf16 and f32 (2B), beside one PyTorch call of the
-    same function where there is one ("lib": torch._weight_int4pack_mm on
-    the i4 codes repacked, F.linear for bf16 and f32; K2 as gelu(y1) * y2
-    over two such calls), which does not depend on --root;
+  - the decode GEMMs with their norms: K1 qkv with its prologue norm, att_w
+    and linear with the post-norm + residual add, linear with the add
+    alone, K2 with its prologue; at Gemma2-2B widths for every weight
+    codec (i8, sfp, bf16, f32, i4, nuq4), at Gemma2-9B and Gemma2-27B
+    widths for i4 and nuq4; a checkout whose decode entries chain norm
+    passes around the GEMM is timed for GEMM and passes together, as its
+    callers pay for them;
+  - K12, the same with-norm GEMMs on layer 1 of 2 stacked layers, i8 at
+    Gemma2-2B widths and i4 at Gemma2-27B's;
+  - each of those GEMMs alone (bf16 A, no norm, no add), beside one
+    PyTorch call of the same function where there is one ("lib":
+    torch._weight_int4pack_mm on the i4 codes repacked, F.linear for bf16
+    and f32; K2 as gelu(y1) * y2 over two such calls; unstacked only),
+    which does not depend on --root;
+  - K3 over the 256000-row embedding with the final norm and the cap,
+    with prob, for every codec at Gemma2-2B's K 2304 (i8 also without
+    prob), i4 at Gemma2-27B's K 4608 and nuq4 at Gemma2-9B's K 3584; K6
+    (k_top 64) for i8 and i4 at Gemma2-2B's;
   - the 2048 rows of a prefill round (4 x 512) for i8, bf16 and i4
     weights (K1 qkv, att_w and linear, K2; bf16 A, no passes, as the
     prefill branch calls them).
-Each is timed as chip_smoke.py times kernels (`ops/_cuda.time_ms`:
-CUDA-graph replays between CUDA events).  Prints one JSON line.
+Each is timed as chip_smoke.py times kernels (`ops/_cuda.time_ms` of the
+checkout this file is in: CUDA-graph replays between CUDA events; the
+heads over 5 replays, the rest over 20).  Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import os
@@ -86,73 +97,93 @@ def dense_call(torch, a, w, w2=None):
         * F.linear(a, w2.arrays["w"])
 
 
-def decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind):
-    """The decode GEMMs of one model's widths and one kind: with their
-    passes, and (alone=True kinds) without them beside the library."""
+CODECS = ("i8", "sfp", "bf16", "f32", "i4", "nuq4")
+VOCAB = 256000
+
+
+def decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind,
+                 stacked=False):
+    """The decode GEMMs of one model's widths and one kind (stacked: on
+    layer 1 of 2 stacked layers): with their norms, alone, and beside the
+    library call where there is one."""
     d, ff, n_qkv, k_att = WIDTHS[model]
     b = 4
 
     def randn(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device=dev).mul_(s)
 
+    def weight(n, k):
+        w = synth_quant(gen, n, k, dev, kind)
+        if not stacked:
+            return w
+        w2 = synth_quant(gen, n, k, dev, kind)
+        return mm.stack_quant_tensors(
+            [w, dataclasses.replace(w2, scale=w.scale)])
+
     x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
     post, add = randn(d, s=0.05), randn(b, d, s=10.0)
     a_att = randn(b, k_att, s=3.0).to(torch.bfloat16)
     a_lin = randn(b, ff, s=3.0).to(torch.bfloat16)
     x_bf = mm.prenorm_plain(x, norm)
-    alone = (kind in ("i4", "nuq4") or model == "2B") and kind in (
-        "i4", "nuq4", "bf16", "f32")
-    lib = {"i4": int4pack_call, "bf16": dense_call,
-           "f32": dense_call}.get(kind)
+    lay = {"layer": 1} if stacked else {}
+    lib = None if stacked else {"i4": int4pack_call, "bf16": dense_call,
+                                "f32": dense_call}.get(kind)
     tag = f"{kind} {model}" if model != "2B" else kind
-    for name, n, k, a_alone, passes in (
+    k1, k2 = ("K12", "K12 gated") if stacked else ("K1", "K2")
+    for name, n, k, a_alone, norms in (
             ("qkv", n_qkv, d, x_bf, dict(a=x, prologue_norm=norm)),
             ("att_w", d, k_att, a_att,
              dict(a=a_att, epilogue_norm=post, add=add)),
             ("linear", d, ff, a_lin,
              dict(a=a_lin, epilogue_norm=post, add=add))):
-        w = synth_quant(gen, n, k, dev, kind)
+        w = weight(n, k)
         sfx = "+pre" if name == "qkv" else "+post"
-        out[f"K1 {tag} {name}{sfx}"] = lambda w=w, kw=passes: mm.matmul(
-            kw["a"], w, **{k2: v for k2, v in kw.items() if k2 != "a"})
-        if alone:
-            out[f"K1 {tag} {name} alone"] = lambda a=a_alone, w=w: mm.matmul(
-                a, w)
-            if lib is not None:
-                out[f"K1 {tag} {name} lib"] = lib(torch, a_alone, w)
-    g1 = synth_quant(gen, ff, d, dev, kind)
-    g2 = synth_quant(gen, ff, d, dev, kind)
-    out[f"K2 {tag} +pre"] = lambda g1=g1, g2=g2: mm.gated_ffn(
-        x, g1, g2, prologue_norm=norm)
-    if alone:
-        out[f"K2 {tag} alone"] = lambda g1=g1, g2=g2: mm.gated_ffn(
-            x_bf, g1, g2)
+        out[f"{k1} {tag} {name}{sfx}"] = lambda w=w, kw=norms: mm.matmul(
+            kw["a"], w, **{key: v for key, v in kw.items() if key != "a"},
+            **lay)
+        out[f"{k1} {tag} {name} alone"] = lambda a=a_alone, w=w: mm.matmul(
+            a, w, **lay)
+        if name == "linear" and not stacked:
+            out[f"{k1} {tag} linear+add"] = lambda w=w: mm.matmul(
+                a_lin, w, add=add)
         if lib is not None:
-            out[f"K2 {tag} lib"] = lib(torch, x_bf, g1, g2)
+            out[f"{k1} {tag} {name} lib"] = lib(torch, a_alone, w)
+    g1, g2 = weight(ff, d), weight(ff, d)
+    out[f"{k2} {tag} +pre"] = lambda: mm.gated_ffn(
+        x, g1, g2, prologue_norm=norm, **lay)
+    out[f"{k2} {tag} alone"] = lambda: mm.gated_ffn(x_bf, g1, g2, **lay)
+    if lib is not None:
+        out[f"{k2} {tag} lib"] = lib(torch, x_bf, g1, g2)
 
 
-def kernel_cases(torch, mm, synth_quant):
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(77)
-    b, d, ff, n_qkv, vocab = 4, 2304, 9216, 4096, 256000
+def head_cases(torch, mm, synth_quant, gen, dev, out):
+    """K3 for every codec at Gemma2-2B's K (i8 also without prob), i4 at
+    Gemma2-27B's and nuq4 at Gemma2-9B's; K6 for i8 and i4."""
+    b = 4
+    for model, kind, probs in (
+            *(("2B", k, (True, False) if k == "i8" else (True,))
+              for k in CODECS), ("27B", "i4", (True,)),
+            ("9B", "nuq4", (True,))):
+        d = WIDTHS[model][0]
+        x = torch.randn(b, d, generator=gen, device=dev) * 30
+        norm = torch.randn(d, generator=gen, device=dev) * 0.05
+        head = synth_quant(gen, VOCAB, d, dev, kind, rms=0.05)
+        for prob in probs:
+            tag = f"K3 {kind} {model}" + ("" if prob else " no prob")
+            out[tag] = lambda x=x, h=head, n=norm, p=prob: mm.matmul_top1(
+                x, h, final_cap=30.0, prologue_norm=n, need_prob=p)
+        if model == "2B" and kind in ("i8", "i4"):
+            out[f"K6 {kind} k64"] = lambda x=x, h=head, n=norm: \
+                mm.matmul_topk(x, h, 64, final_cap=30.0, prologue_norm=n)
+
+
+def prefill_cases(torch, mm, synth_quant, gen, dev, out):
+    d, ff, n_qkv = 2304, 9216, 4096
+    m = 4 * 512
 
     def randn(*shape, s=1.0):
         return torch.randn(*shape, generator=gen, device=dev).mul_(s)
 
-    x, norm = randn(b, d, s=30.0), randn(d, s=0.05)
-    out = {}
-    for kind in ("i8", "sfp", "bf16", "f32", "i4", "nuq4"):
-        decode_cases(torch, mm, synth_quant, gen, dev, out, "2B", kind)
-    for model in ("9B", "27B"):
-        for kind in ("i4", "nuq4"):
-            decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind)
-    for kind in ("i8", "i4"):
-        head = synth_quant(gen, vocab, d, dev, kind, rms=0.05)
-        out[f"K3 {kind}"] = lambda h=head: mm.matmul_top1(
-            x, h, final_cap=30.0, prologue_norm=norm)
-        out[f"K6 {kind} k64"] = lambda h=head: mm.matmul_topk(
-            x, h, 64, final_cap=30.0, prologue_norm=norm)
-    m = 4 * 512
     for kind in ("i8", "bf16", "i4"):
         for name, n, k in (("qkv", n_qkv, d), ("att_w", d, 2048),
                            ("linear", d, ff)):
@@ -165,7 +196,6 @@ def kernel_cases(torch, mm, synth_quant):
         a = randn(m, d).to(torch.bfloat16)
         out[f"K2 {kind} prefill"] = lambda a=a, g1=g1, g2=g2: mm.gated_ffn(
             a, g1, g2)
-    return out
 
 
 def main() -> int:
@@ -187,9 +217,26 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     time_ms = own_timer()
-    res = {"root": root, "card": card, "ms": {
-        name: time_ms(fn)
-        for name, fn in kernel_cases(torch, mm, synth_quant).items()}}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    common = (torch, mm, synth_quant, gen, dev)
+    decode = [("2B", k, False) for k in CODECS] + [
+        (m, k, False) for m in ("9B", "27B") for k in ("i4", "nuq4")] + [
+        ("2B", "i8", True), ("27B", "i4", True)]
+    # (replays timed, the cases of one group of weights)
+    groups = [(20, lambda out, m=m, k=k, st=st: decode_cases(
+        *common, out, m, k, st)) for m, k, st in decode]
+    groups += [(5, lambda out: head_cases(*common, out)),
+               (20, lambda out: prefill_cases(*common, out))]
+    ms = {}
+    for iters, fill in groups:  # one group's weights on the card at a time
+        cases: dict = {}
+        fill(cases)
+        for name, fn in cases.items():
+            ms[name] = time_ms(fn, iters)
+        del cases
+        torch.cuda.empty_cache()
+    res = {"root": root, "card": card, "ms": ms}
     print(json.dumps(res), flush=True)
     return 0
 

@@ -178,5 +178,6 @@ def test_decode_entries_refuse_prefill_rows():
     for entry in ("static int matmul_entry(", "static int gated_entry("):
         body = src[src.index(entry):]
         body = body[:body.index("\n}\n")]
-        assert body.index("decode_check<CODEC, ") < body.index("operand_a(")
+        assert body.index("decode_check<CODEC, ") < body.index(
+            "launch_decode<CODEC, ")
         assert "if (smem < 0) return (int)cudaErrorInvalidValue;" in body

@@ -8,8 +8,8 @@ Phases (any failure exits non-zero before the result line):
      build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed,
      with the registers and spills of each attention kernel, the decode
      tile and the heads (-Xptxas -v; a spill in K5, in the Gemma2 (G = 2)
-     instantiations of K4 / K8 / K10, in the decode tile of K1 / K2 / K12
-     or in K3 fails);
+     instantiations of K4 / K8 / K10 / K11, in the decode tile of K1 / K2
+     / K12, in K3 or in K6 and its selection fails);
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
@@ -17,12 +17,16 @@ Phases (any failure exits non-zero before the result line):
      989 TFLOP/s bf16, the H100 SXM data-sheet peaks) and, for the dense
      GEMMs, torch.nn.functional.linear on the same inputs: the GEMMs
      with their norms folded in (and the norm passes alone, which the
-     prefill tile and the top-k head still chain), the gated GEMM and the
+     prefill tile still chains), the gated GEMM and the
      fused greedy head for i8, sfp, bf16, f32, i4 and nuq4 weights (kind
      nuq runs the sfp kernels),
      the fused top-k head for the same kinds (k_top 2, 64, 128; M = 4 and
-     20; an allowed mask; fewer live columns than k_top; saturated ties)
-     with its merge pass alone; the decode tile of K1 and K2
+     20; an allowed mask; fewer live columns than k_top; saturated ties;
+     M = 1, 4, 13, 16 and 20 each repeated bit for bit and two graph
+     replays; its values held to the plain version, to the plain head on
+     the kernels' own prologue A and against a bf16-A control that must
+     fail the limit, `check_topk_values`) with its selection alone as a
+     merge; the decode tile of K1 and K2
      (csrc/matmul_decode.cu) for every kind, plain and stacked, at M = 1,
      4, 8, 13 and 16 (`check_decode_rows`: each call repeated bit for bit,
      row 0 alone equal to row 0 in the batch) and one-hot reads
@@ -30,7 +34,8 @@ Phases (any failure exits non-zero before the result line):
      stacked, at the same row counts, repeats and graph replays bit for
      bit (`check_fused_rows`), and its prologue read back through an
      identity weight bit for bit against the kernels' order of the sum of
-     squares (`check_prologue_bits`); the greedy head at M = 4 and 20
+     squares, and K6's top 128 of it (`check_prologue_bits`); the greedy
+     head at M = 4 and 20
      for every kind, repeated and replayed in a graph bit for bit, its
      prob held to the plain version within a limit that a bf16-A control
      must fail (`check_top1_prob`); the packed kinds once more at the decode
@@ -44,7 +49,10 @@ Phases (any failure exits non-zero before the result line):
      K10 case repeated for the same bits (`phase_attention`); and the
      split-weight decode kernels at both head shapes: write + attend
      (in-kernel RoPE, and pre-encoded), the row write alone, attention
-     alone, and the S-blocked write + attend; the stacked GEMMs (K12:
+     alone, and the S-blocked write + attend (K11: batch 4 on both pools,
+     and batch 1 at 8001 live rows at Gemma2-2B's, -9B's and -27B's head
+     shapes, each case repeated and replayed in a graph bit for bit);
+     the stacked GEMMs (K12:
      qkv, att_w, linear and the gated GEMM on layers 0, 6 and 12 of 13
      stacked Gemma2-2B layers for every kind, and i4 at Gemma2-27B widths
      over 2), each timed beside the unstacked kernel on the same layer;
@@ -120,7 +128,7 @@ Phases (any failure exits non-zero before the result line):
           decode speed, device busy and idle share beside path A's;
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-O; the diagnostic's and the post-norm pass's, on no path, 0),
+     4A-O; the diagnostic's and the norm passes', on no path, 0),
      then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
@@ -372,9 +380,13 @@ for _kind in WEIGHT_KINDS:
         if _kind in ("bf16", "f32") else LIBRARY_NOTE[f"matmul_{_kind}"])
     LIBRARY_NOTE[f"gated_sm90_{_kind}"] = LIBRARY_NOTE[f"gated_{_kind}"]
 # The kernels this slice of the port changed, and how.
-CHANGED = {"matmul_prenorm": "no longer on a decode step: folded into the "
-                             "decode tile and K3 (the prefill tile and K6 "
-                             "keep it)",
+CHANGED = {"matmul_prenorm": "no longer on any decode step: folded into "
+                             "the decode tile, K3 and K6 (the prefill tile "
+                             "keeps it)",
+           "topk_merge": "redesigned as K6's selection: the k_top best of "
+                         "each 4096-entry slice (a pruning bound, a radix "
+                         "select over 64-bit keys, a bitonic sort), the "
+                         "last block of a row merging the slices' lists",
            "matmul_postnorm_add": "no longer on a decode step: folded into "
                                   "the decode tile (the prefill tile keeps "
                                   "it)"}
@@ -388,12 +400,22 @@ for _kind in WEIGHT_KINDS:
     CHANGED[f"top1_{_kind}"] = (
         "redesigned on the decode tile's warp: persistent blocks over "
         "16-row vocabulary groups, the final norm folded in")
-# On no serving path: K13, a standalone diagnostic; and the post-norm pass,
+    CHANGED[f"topk_{_kind}"] = (
+        "redesigned on K3's stream, the final norm folded in (no prologue "
+        "pass): it writes the capped logits, and topk_merge selects")
+for _kind in ("i8", "bf16", "f32"):
+    CHANGED[f"decode_sblocked_{_kind}"] = (
+        "redesigned on K4's body: runs of the live positions from the ring, "
+        "the window and the head count alone, one block each, loads in "
+        "flight before the encode, K read once, the last block merging the "
+        "runs")
+# On no serving path: K13, a standalone diagnostic; and the norm passes,
 # which only the prefill tile's entries chain (the prefill branch norms in
-# torch ops; decode folds the post-norm into the decode tile).  Each is
-# held against its plain version all the same.
+# torch ops; decode folds the prologue into the decode tile, K3 and K6 and
+# the post-norm into the decode tile).  Each is held against its plain
+# version all the same.
 STANDALONE = {f"nuq_diag_{_v}" for _v in ("d1", "d2", "d3")} | {
-    "matmul_postnorm_add"}
+    "matmul_prenorm", "matmul_postnorm_add"}
 for _v, _what in (("d1", "codes read as int8"),
                   ("d2", "codes zero-extended through int32"),
                   ("d3", "table entries gathered per 128-chunk")):
@@ -406,12 +428,14 @@ for _v, _what in (("d1", "codes read as int8"),
 
 def _held(name: str) -> bool:
     """K5, the G = 2 instantiations (every Gemma2 head shape) of K4's body
-    with K8 and K10, the decode tile of K1 / K2 / K12 and the greedy head
-    K3: the kernels the serving paths run that this script holds to no
-    spill."""
-    return name.startswith(("flash_attention_", "mm_", "top1_")) or (
-        name.startswith(("decode_attention_", "decode_write_attend_",
-                         "decode_attend_")) and name.endswith(",2>"))
+    with K8, K10 and K11, the decode tile of K1 / K2 / K12, the greedy head
+    K3 and the top-k head K6 with its selection: the kernels the serving
+    paths run that this script holds to no spill."""
+    return name.startswith(("flash_attention_", "mm_", "top1_", "topk_")) \
+        or "topk_merge_kernel" in name or (
+            name.startswith(("decode_attention_", "decode_write_attend_",
+                             "decode_attend_", "decode_sblocked_"))
+            and name.endswith(",2>"))
 
 
 def ptxas_report(logs: dict, sources, held=_held) -> None:
@@ -581,6 +605,18 @@ TOP1_PROB_TOL = 5e-4
 # The same prob against the plain head on the kernels' own prologue A:
 # only the order of the exp sum differs.
 TOP1_PROB_TOL_SAME_A = 1e-4
+# K6's values against its plain version (rms_norm's prologue), over the
+# largest |value| (the same products in another f32 order, and one-ulp
+# flips of the bf16 prologue A where the kernels' sum of squares rounds
+# the other way), and the limit of `check_topk`'s index pinning.  Set
+# from readings (PERF.md, K6): 5e-4 sits above the largest error of the
+# sound runs and below the smallest error of a control that every run
+# checks must fail it (the plain head on A rounded to bf16 before its
+# norm); K1's 1e-3 did not keep that control out by a clear margin.
+TOPK_TOL = 5e-4
+# The same values against the plain head on the kernels' own prologue A:
+# only the order of the f32 sums differs.
+TOPK_TOL_SAME_A = 1e-4
 
 
 def check_decode_rows(torch, gen, label, k, call, plain, rel):
@@ -663,7 +699,10 @@ def check_prologue_bits(torch, gen):
     its rows alone) and 9216 (K split over a cluster, whose blocks share
     their segments' sums), plain and stacked (K12).  K3 stages its A with
     the same functions (gemm_common.cuh: norm_segments, norm_row_mul,
-    norm_stage)."""
+    norm_stage); K6, which stages it as K3 does and returns values, reads
+    it back too: through the identity at K 2304 and 4608 (no cap) its 128
+    largest values of each row, with their indices, must equal those of
+    prenorm_fixed_order's A bit for bit."""
     from gemma_tpu_torch.ops import matmul as mm
 
     for k in (2304, 9216):
@@ -684,9 +723,25 @@ def check_prologue_bits(torch, gen):
                          f": {int((got != want).sum())} of {got.numel()} "
                          "elements of A differ from prenorm_fixed_order")
         del eye, w, stacked
+    for k in (2304, 4608):
+        eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+        w = mm.QuantTensor("bf16", (k, k), 1.0, {"w": eye})
+        norm = torch.randn(k, generator=gen, device="cuda").mul_(0.05)
+        a16 = torch.randn(16, k, generator=gen, device="cuda").mul_(30.0)
+        for m in DECODE_ROWS_CHECKED:
+            a = a16[:m].contiguous()
+            vals, idxs = mm.matmul_topk(a, w, 128, prologue_norm=norm)
+            want = torch.sort(mm.prenorm_fixed_order(a, norm).float(), dim=-1,
+                              descending=True, stable=True)
+            if not (torch.equal(vals, want.values[:, :128]) and torch.equal(
+                    idxs, want.indices[:, :128].to(torch.int32))):
+                fail(f"K6's prologue (K={k}, M={m}): its top 128 of A differ "
+                     "from prenorm_fixed_order's")
+        del eye, w
     print(f"[2] the decode tile's prologue, read back through an identity "
           f"weight (K 2304 and 9216, M in {DECODE_ROWS_CHECKED}, plain and "
-          "stacked): bit-identical to prenorm_fixed_order", flush=True)
+          "stacked): bit-identical to prenorm_fixed_order; K6's top 128 of "
+          "it (K 2304 and 4608) bit-identical", flush=True)
 
 
 def check_one_hot_rows(torch, label, w, ms=DECODE_ROWS_CHECKED):
@@ -886,6 +941,7 @@ def phase_kernels(torch):
         attention_window_sizes=big.attention_window_sizes[:2])
     phase_attention(torch, res, big2, ("i8", "bf16", "f32"), primary=False)
     phase_split_attention(torch, res, big2, ("bf16",), primary=False)
+    phase_sblocked_long(torch, res)
     return res
 
 
@@ -1240,10 +1296,12 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
                 kern_count = da.DECODE_SBLOCKED[ck.kv.dtype].launches - before
                 if kern_count != 1:
                     fail(f"{name}: GEMMA_SBLOCK_DECODE=1 did not launch K11")
+                runs, run = da.sblock_split(ring, window, kvh)
                 label = (f"{shape} {pool_name} ring {ring} "
-                         f"(s_alloc {ck.pool(layer)[0].shape[4]}, "
-                         f"blocks of {block}) {mode}")
+                         f"(s_alloc {ck.pool(layer)[0].shape[4]}, S block "
+                         f"{block}; {runs} runs of {run}) {mode}")
                 check_written_rows(torch, name, label, kind, ck, cp, layer)
+                same_bits(torch, f"{name} {label}", f, got)
                 sel = slice(None) if vmask is None else valid[:, 0]
                 live = live_rows(ck, layer, window)
                 record(res, torch, name,
@@ -1256,6 +1314,91 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
             _set_env("GEMMA_SBLOCK_DECODE", old)
         del sb_cache
     torch.cuda.empty_cache()
+
+
+def same_bits(torch, label, f, got):
+    """f() again, and a CUDA graph of f replayed once, give `got`'s bits
+    (K11: the runs' partials merge in one order; its tickets are zero
+    again after every launch)."""
+    if not torch.equal(f(), got):
+        fail(f"{label}: a repeat gave other bits")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = f()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, got):
+        fail(f"{label}: a graph replay gave other bits")
+    del graph
+
+
+def phase_sblocked_long(torch, res):
+    """K11 where its split exists for: batch 1 at position 8000 (8001 live
+    rows) on the global pool of a seq_len 8192 bf16 cache, at Gemma2-2B's,
+    -9B's and -27B's head shapes, RoPE in the kernel; against its plain
+    version (1e-2 of max|out|, as phase_split_attention holds K11), the
+    written rows as check_written_rows says, a repeat and a graph replay
+    bit for bit."""
+    import dataclasses
+
+    from gemma_tpu_torch.models.configs import (config_gemma2_2b,
+                                                config_gemma2_9b,
+                                                config_gemma2_27b)
+    from gemma_tpu_torch.ops import decode_attention as da
+    from gemma_tpu_torch.ops.ops import create_inv_timescale
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8000)
+    pos = torch.tensor([[8000]], device=dev)
+    old = _set_env("GEMMA_SBLOCK_DECODE", "1")
+    try:
+        for model, full in (("2B", config_gemma2_2b()),
+                            ("9B", config_gemma2_9b()),
+                            ("27B", config_gemma2_27b())):
+            cfg = dataclasses.replace(
+                full, num_layers=2, layer_configs=full.layer_configs[:2],
+                attention_window_sizes=full.attention_window_sizes[:2])
+            lc = cfg.layer_configs[0]
+            heads, kvh, hd = lc.heads, lc.kv_heads, lc.qkv_dim
+            rope = da.RopeSpec(
+                torch.from_numpy(create_inv_timescale(hd)).to(dev), 0,
+                cfg.query_scale_value())
+            cache = random_cache(torch, cfg, "bf16", gen, b=1)
+            block = da._s_block(cache, 1)
+            if block is None:
+                fail(f"K11 {model}: pick_s_block finds no block for the "
+                     "global pool")
+            q = torch.randn(1, 1, heads, hd, generator=gen, device=dev) * 2
+            kv = torch.randn(1, 1, kvh, 2, hd, generator=gen, device=dev) * 2
+            k, v = kv[..., 0, :], kv[..., 1, :]
+            window = cfg.attention_window_sizes[1]
+            ring = cache.pool(1)[2]
+            ck, cp = cache.copy(), cache.copy()
+            f = lambda: da.decode_attention_write(  # noqa: E731
+                ck, 1, q, pos, k, v, window, cfg.att_cap, None, rope)
+            p = lambda: da.decode_attention_write_sblocked_plain(  # noqa
+                cp, 1, q, pos, k, v, window, block, cfg.att_cap, None, rope)
+            got, want = f(), p()
+            runs, run = da.sblock_split(ring, window, kvh)
+            label = (f"{model} B=1 H={heads} KVH={kvh} D={hd} global ring "
+                     f"{ring}, live 8001 rows ({runs} runs of {run})")
+            check_written_rows(torch, "decode_sblocked_bf16", label, "bf16",
+                               ck, cp, 1)
+            same_bits(torch, f"decode_sblocked_bf16 {label}", f, got)
+            row_bytes = 2 * hd * 2
+            record(res, torch, "decode_sblocked_bf16", label, got, want,
+                   1e-2 * float(want.abs().max()), f, p,
+                   8001 * kvh * row_bytes + heads * hd * 4 * 2
+                   + kvh * (2 * hd * 4 + row_bytes), 4 * 8001 * heads * hd)
+            del cache, ck, cp
+            torch.cuda.empty_cache()
+    finally:
+        _set_env("GEMMA_SBLOCK_DECODE", old)
 
 
 def check_top1_prob(torch, label, prob, x, w_head, fnorm, cfg, control=True,
@@ -1433,8 +1576,13 @@ def check_topk(torch, label, got, want, tol):
     """K6 against its plain version: values within `tol`, the same live
     entries, and indices equal wherever both neighbouring plain values are
     further apart than `tol` (closer pairs are ties either may order).
-    Returns the max value error."""
-    (vals, idxs), (wv, wi) = got, want
+    `want` may hold one entry more than `got` (the plain version's
+    (k_top + 1)-th): then the last entry's neighbour past the list counts
+    too, as a logit that moves by less than `tol` may cross the list's
+    edge.  Returns the max value error."""
+    (vals, idxs), (wv_all, wi) = got, want
+    k = vals.shape[1]
+    wv, wi = wv_all[:, :k], wi[:, :k]
     live = torch.isfinite(wv)
     if not bool((torch.isfinite(vals) == live).all()):
         fail(f"{label}: live entries differ from the plain version's")
@@ -1443,12 +1591,19 @@ def check_topk(torch, label, got, want, tol):
     if not bool(live.any()):
         return 0.0
     err = float((vals - wv)[live].abs().max())
-    filled = torch.where(live, wv, torch.full_like(wv, -1e30))
+    filled = torch.where(torch.isfinite(wv_all), wv_all,
+                         torch.full_like(wv_all, -1e30))
     gap = (filled[:, :-1] - filled[:, 1:]) > tol
     pinned = live.clone()
-    pinned[:, 1:] &= gap
-    pinned[:, :-1] &= gap
-    bad = int(((idxs != wi) & pinned).sum())
+    pinned[:, 1:] &= gap[:, :k - 1]
+    pinned &= gap[:, :k] if wv_all.shape[1] > k else \
+        torch.cat([gap[:, :k - 1], torch.ones_like(gap[:, :1])], dim=1)
+    wrong = (idxs != wi) & pinned
+    bad = int(wrong.sum())
+    for r, j in wrong.nonzero()[:4].tolist():
+        print(f"[2] {label}: row {r} rank {j}: index {int(idxs[r, j])} "
+              f"value {float(vals[r, j]):.7g}, plain {int(wi[r, j])} "
+              f"{float(wv[r, j]):.7g}", flush=True)
     order = bool((vals[:, :-1] >= vals[:, 1:])[live[:, 1:]].all()) \
         if vals.shape[1] > 1 else True
     print(f"[2] {label}: value max_abs_err {err:.4g} (tol {tol:.4g}), "
@@ -1459,16 +1614,111 @@ def check_topk(torch, label, got, want, tol):
     return err
 
 
+def check_topk_values(torch, label, got, x, w_head, fnorm, cfg, k_top,
+                      control=True, **kw):
+    """K6's values [M, k_top] (kw: allowed_mask) held three ways, each as
+    max |difference| over max |plain value|: to the plain version
+    (rms_norm's prologue) within TOPK_TOL; to the plain head on the
+    kernels' own prologue A (prenorm_fixed_order: the same bf16 A, only the
+    order of the f32 sums differs) within TOPK_TOL_SAME_A; and, with
+    `control`, to the plain head on A rounded to bf16 before its norm,
+    which must differ by more than TOPK_TOL (else the limit would pass such
+    a fault).  Values are compared rank by rank, so near ties that swap
+    their indices do not count."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    def err(a, **norm):
+        want = mm.matmul_topk_plain(a, w_head, k_top,
+                                    final_cap=cfg.final_cap, **norm, **kw)[0]
+        live = torch.isfinite(want)
+        return float((got[0] - want)[live].abs().max()
+                     / want[live].abs().max()) if bool(live.any()) else 0.0
+
+    e = err(x, prologue_norm=fnorm)
+    same = err(mm.prenorm_fixed_order(x, fnorm))
+    ctrl = err(x.to(torch.bfloat16).float(), prologue_norm=fnorm) \
+        if control else None
+    print(f"[2] {label}: values max err {e:.4g} of max|value| (tol "
+          f"{TOPK_TOL:g}), {same:.4g} against the kernels' prologue order "
+          f"(tol {TOPK_TOL_SAME_A:g})"
+          + ("" if ctrl is None else
+             f", bf16-A control {ctrl:.4g} (must exceed {TOPK_TOL:g})"),
+          flush=True)
+    if e > TOPK_TOL:
+        fail(f"{label}: values disagree with the plain version: {e:.4g}")
+    if same > TOPK_TOL_SAME_A:
+        fail(f"{label}: values disagree with the plain head on the kernels' "
+             f"prologue A: {same:.4g}")
+    if ctrl is not None and ctrl <= TOPK_TOL:
+        fail(f"{label}: the bf16-A control passes the value limit "
+             f"({ctrl:.4g}): the limit cannot tell a fault apart")
+
+
+def topk_rows_and_replays(torch, kind, w_head, fnorm, cfg, label=""):
+    """K6 (k_top 64, the final norm folded in, cap 30) at M = 1, 4, 13, 16
+    and 20 against its plain version: indices and values as `check_topk`
+    holds them (tolerance TOPK_TOL of max|value|), the values three ways
+    (`check_topk_values`), each call repeated bit for bit; then at M = 4 a
+    CUDA graph replayed twice, bit for bit (the selection's tickets are
+    zero again after every launch)."""
+    from gemma_tpu_torch.ops import matmul as mm
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    d = w_head.k
+    xs = torch.randn(20, d, generator=gen, device="cuda") * 30
+    kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm)
+    for m in (1, 4, 13, 16, 20):
+        x = xs[:m].contiguous()
+        got = mm.matmul_topk(x, w_head, 64, **kw)
+        want = mm.matmul_topk_plain(x, w_head, 65, **kw)
+        tag = f"topk_{kind}{label} M={m}"
+        check_topk(torch, tag, got, want,
+                   TOPK_TOL * float(want[0].abs().max()))
+        check_topk_values(torch, tag, got, x, w_head, fnorm, cfg, 64)
+        again = mm.matmul_topk(x, w_head, 64, **kw)
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                              again[1])):
+            fail(f"{tag}: a repeat gave other bits")
+    x = xs[:4].contiguous()
+
+    def head():
+        v, i = mm.matmul_topk(x, w_head, 64, **kw)
+        return torch.cat([v, i.float()])
+
+    got = head()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        head()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = head()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, got)
+    del graph
+    print(f"[2] topk_{kind}{label}: M in (1, 4, 13, 16, 20) within tol, "
+          f"repeats bit-identical; two graph replays bit-identical {same}",
+          flush=True)
+    if not same:
+        fail(f"topk_{kind}{label}: a graph replay gave other bits")
+
+
 def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
-    """K6 at the decode head's shape (N=256000, K=2304, the final-norm
-    prologue, cap 30) for one weight kind: M = 4 and 20, k_top 2, 64 and
+    """K6 at the decode head's shape (N=256000, K=2304, the final norm
+    folded in, cap 30) for one weight kind: M = 4 and 20, k_top 2, 64 and
     128 under a 1-in-8 allowed mask (k_top 64 also without), a mask that
     leaves fewer live columns than k_top, and an input whose top logits
-    saturate the cap into exact ties.  full=False: M=4, k_top=64 only.
+    saturate the cap into exact ties (full=False: M=4, k_top=64 only);
+    then `topk_rows_and_replays`.
 
-    Tolerance: values within 1e-3 of max|logit| (K1's bound: the same
-    products in another f32 order, and rare one-ulp flips of the
-    bf16-rounded prologue A); indices as `check_topk` says."""
+    Tolerance: values within TOPK_TOL of max|logit| (the same products in
+    another f32 order, and rare one-ulp flips of the bf16 prologue A where
+    the kernels' sum of squares rounds the other way); indices as
+    `check_topk` says."""
     import dataclasses
 
     from gemma_tpu_torch.ops import matmul as mm
@@ -1490,16 +1740,23 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
                   allowed_mask=allowed)
         f = lambda: mm.matmul_topk(x, w_head, k_top, **kw)  # noqa: E731
         p = lambda: mm.matmul_topk_plain(x, w_head, k_top, **kw)  # noqa: E731
-        got, want = f(), p()
-        label = (f"M={m} K={d} N={n} k_top={k_top} (+prenorm, merge), "
+        got = f()
+        want = mm.matmul_topk_plain(x, w_head, k_top + 1, **kw)
+        label = (f"M={m} K={d} N={n} k_top={k_top} (norm folded, "
+                 f"selection), "
                  f"{'mask 1/8' if allowed is not None else 'no mask'}")
-        tol = 1e-3 * float(want[0][torch.isfinite(want[0])].abs().max())
+        tol = TOPK_TOL * float(want[0][torch.isfinite(want[0])].abs().max())
         check_topk(torch, f"{name} {label}", got, want, tol)
+        want = (want[0][:, :k_top], want[1][:, :k_top])
         nbytes = (x.numel() * 4 + fnorm.numel() * 4 + weight_bytes(w_head)
                   + (n if allowed is not None else 0) + m * k_top * 8)
+        if (m, k_top) == (4, 64):
+            check_topk_values(torch, f"{name} {label}", got, x, w_head,
+                              fnorm, cfg, k_top, allowed_mask=allowed)
         record(res, torch, name, label, got[0], want[0], tol, f, p, nbytes,
                2 * m * n * d, iters=5,
                primary=(m, k_top, allowed is not None) == (4, 64, False))
+    topk_rows_and_replays(torch, kind, w_head, fnorm, cfg)
     if not full:
         return
     x = xs[4]
@@ -1509,7 +1766,7 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
     kw = dict(final_cap=cfg.final_cap, prologue_norm=fnorm, allowed_mask=few)
     got = mm.matmul_topk(x, w_head, 8, **kw)
     want = mm.matmul_topk_plain(x, w_head, 8, **kw)
-    tol = 1e-3 * float(want[0][:, :5].abs().max())
+    tol = TOPK_TOL * float(want[0][:, :5].abs().max())
     check_topk(torch, f"{name} 5 live columns, k_top=8", got, want, tol)
     if not (bool(torch.isneginf(got[0][:, 5:]).all())
             and bool((got[1][:, 5:] == 0).all())):
@@ -1538,13 +1795,14 @@ def phase_topk(torch, res, kind, w_head, fnorm, cfg, full=True):
 
     chosen = mm.TOPK_BLOCKS
     sweep = []
-    for blocks in (132, 264, 528, 1056):
+    for blocks in (66, 132, 198, 264):
         mm.TOPK_BLOCKS = blocks
         sweep.append(f"{blocks}: {time_ms(head, 5):.4f}")
     mm.TOPK_BLOCKS = chosen
-    print(f"[2] {name} k_top=64, ms by TOPK_BLOCKS (the port uses {chosen}): "
-          f"{', '.join(sweep)}", flush=True)
-    # The merge pass alone: 528 sorted lists of 64 per row, exact.
+    print(f"[2] {name} k_top=64, ms by TOPK_BLOCKS (the port uses {chosen}, "
+          f"which the card's residency caps): {', '.join(sweep)}", flush=True)
+    # The selection alone as a merge: 528 sorted lists of 64 per row,
+    # exact.
     m, blocks, k_top = 4, 528, 64
     pv = torch.sort(torch.randn(m, blocks, k_top, generator=gen,
                                 device="cuda"), dim=-1,
@@ -1819,12 +2077,19 @@ def phase_k7b(torch, res):
                head_bytes + 2 * b * 4, 2 * b * n_vocab * d, iters=5)
         f = lambda: mm.matmul_topk(x, w_head, 64, **kw)  # noqa: E731
         p = lambda: mm.matmul_topk_plain(x, w_head, 64, **kw)  # noqa: E731
-        got, want = f(), p()
-        tol = 1e-3 * float(want[0].abs().max())
-        label = f"{width} M=4 K={d} N={n_vocab} k_top=64 (+prenorm, merge)"
+        got = f()
+        want = mm.matmul_topk_plain(x, w_head, 65, **kw)
+        tol = TOPK_TOL * float(want[0].abs().max())
+        label = (f"{width} M=4 K={d} N={n_vocab} k_top=64 (norm folded, "
+                 "selection)")
         check_topk(torch, f"topk_{kind} {label}", got, want, tol)
+        want = (want[0][:, :64], want[1][:, :64])
+        check_topk_values(torch, f"topk_{kind} {label}", got, x, w_head,
+                          norm, cfg, 64)
         record(res, torch, f"topk_{kind}", label, got[0], want[0], tol, f, p,
                head_bytes + b * 64 * 8, 2 * b * n_vocab * d, iters=5)
+        if (kind, width) in (("i4", "27B"), ("nuq4", "9B")):
+            topk_rows_and_replays(torch, kind, w_head, norm, cfg, f" {width}")
         del w_head
         torch.cuda.empty_cache()
 
@@ -2977,8 +3242,9 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         attention per layer; a decode step 3 GEMMs and the gated GEMM,
         their norms folded in (one launch each), and decode attention per
         layer, then its head: "top1" the fused greedy head (its norm folded
-        in), "topk" the fused top-k head with its prologue and merge passes
-        and the draw, "gemm" the head as one more GEMM (one-step chunks).
+        in), "topk" the fused top-k head (its norm folded in) with its
+        selection and the draw, "gemm" the head as one more GEMM (one-step
+        chunks).
         Split q / kv weights add one GEMM per layer.  att_kind: the codec of att_w where it differs from
         the rest's.  dec: the decode attention kernels' launches per step
         by name (default K4 of the KV kind on every layer).  scan: the
@@ -2993,7 +3259,7 @@ def phase_main_path(torch, new_tokens: int = 32) -> dict:
         per_layer = (2 if att_kind else 3) + split
         want = {f"matmul_sm90_{wkind}": rounds * per_layer * layers,
                 f"matmul_{wkind}": steps if head == "gemm" else 0,
-                "matmul_prenorm": steps if head == "topk" else 0,
+                "matmul_prenorm": 0,
                 f"gated_sm90_{wkind}": rounds * layers,
                 f"flash_attention_{kv}": rounds * layers}
         want[f"{d_mm}{wkind}"] = want.get(f"{d_mm}{wkind}", 0) \
@@ -3314,11 +3580,12 @@ def phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
        under sync debug mode "error"; then 4 tokens each over bf16 and
        f32 KV.
     N. GEMMA_SBLOCK_DECODE=1, the default runtime with fused i8 weights:
-       the packed call routes to the split one and K11-bf16 (48-row
-       blocks on the global pool, 48 on the local); 8 tokens against the
-       switch unset, profiled as M; then 4 tokens over f32 KV (K11-f32)
-       and over i8 KV at seq_len=8191 (8192-row global pools have 128-row
-       blocks: K11-i8; the local pools have none: K8-i8)."""
+       the packed call routes to the split one and K11-bf16 (pick_s_block
+       finds S blocks for both pools, so K11 takes both: runs of 128 rows);
+       8 tokens against the switch unset, profiled as M; then 4 tokens
+       over f32 KV (K11-f32) and over i8 KV at seq_len=8191 (8192-row
+       global pools have 128-row S blocks: K11-i8; the local pools have
+       none: K8-i8)."""
     import dataclasses
 
     from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig

@@ -54,26 +54,6 @@ __device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t* out) {
   out[1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632u);
 }
 
-// Four consecutive KV-pool elements -> four exact floats: i8 codes (by
-// byte permutes), bf16 (a shift) or f32.  p is aligned to 4 elements.
-__device__ __forceinline__ void ld4(const int8_t* p, float* c) {
-  i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), c);
-}
-__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* c) {
-  const uint2 w = *reinterpret_cast<const uint2*>(p);
-  c[0] = __uint_as_float(w.x << 16);
-  c[1] = __uint_as_float(w.x & 0xffff0000u);
-  c[2] = __uint_as_float(w.y << 16);
-  c[3] = __uint_as_float(w.y & 0xffff0000u);
-}
-__device__ __forceinline__ void ld4(const float* p, float* c) {
-  const float4 w = *reinterpret_cast<const float4*>(p);
-  c[0] = w.x;
-  c[1] = w.y;
-  c[2] = w.z;
-  c[3] = w.w;
-}
-
 // The attention kernels' compute type for a pool of element type T
 // (decode_attention.py:662-663, flash_attention.py:65-69): f32 for an f32
 // pool, bf16 otherwise (i8 codes are exact in bf16).  Rounds x to it.

@@ -51,16 +51,20 @@
 // Partial sums are added in a fixed order (lanes, warps, ranks): the same
 // inputs give the same bits.
 //
-// K11: one block per (b, h, S block of `bs` rows); blocks past the live
-// frontier min(pos, ring-1) / bs return at once, so the reads follow the
-// ring's occupancy.  A block finds its rows' max m (pass 1), then sums
-// e = exp(score - m) of the ok rows (s), the new row's share apart (er),
-// and the panel rows' e (times scale_v for i8) rounded to the compute
-// type times V (acc).  The last live block of (b, h) to finish (an atomic
-// ticket, as K3 merges) combines the partials with weights exp(m_j - M),
-// a block with no ok row weighing 0, normalizes once by max(s, 1e-30) and
-// adds the new row's V times its share (times scale_v, rounded to the
-// compute type).  Block j = 0 writes the row.
+// K11 runs the same body with no cluster: the live positions of (b, h) are
+// cut into runs whose number and length come from the ring, the window
+// and the head count alone (sb_split: batch 1 at Gemma2 widths fills the
+// card, ~264 blocks), one block a run; blocks past the live frontier
+// return at once, so the reads follow the ring's occupancy.  A block
+// keeps its rows' max m, the sum s of exp(score - m) over its rows, the
+// new row's exp weight er apart, and acc = the panel rows' exp weights
+// (times scale_v for i8) rounded to the compute type, times V.  The last
+// block of (b, h) to take the ticket (an atomic counter it re-zeroes)
+// merges the runs' partials with weights exp(m_j - M) (a run with no row
+// weighs 0), its threads spread over the G*D outputs, normalizes once by
+// max(s, 1e-30) and adds the new row's V times its share (times scale_v,
+// rounded to the compute type).  Run 0 writes the row.  The TPU kernel's
+// S block (pick_s_block) decides only whether K11 is taken.
 //
 // K9: one block per (b, k/v, h) copies the pool-typed row (and its scale)
 // to the ring row; nothing else of the pool moves.
@@ -374,18 +378,17 @@ __device__ __forceinline__ void store_out(const SplitArgs& p, size_t at, float o
   p.out[at] = o;
 }
 
-// The absolute position ring row s holds, given the newest position pos
-// (pm = pos % ring): pos - ((pm - s) mod ring).
-__device__ __forceinline__ int key_abs(int pos, int pm, int s, int ring) {
-  const int d = (pm - s) % ring;
-  return pos - (d < 0 ? d + ring : d);
-}
-
-// K4's body, shared by K8 and K10.  One thread-block cluster of CL blocks
-// (dec_cluster) per (b, h) splits the live positions p_lo..pos into CL
-// contiguous runs (rank r: p_lo + r*n/CL up to p_lo + (r+1)*n/CL, n live
-// positions; ops/decode_attention.py:decode_row_split), so the newest
-// position, the new row, falls to the last rank.  A block:
+// K4's body, shared by K8, K10 and K11.  The live positions p_lo..pos of
+// (b, h) are cut into contiguous runs, one a block:
+//  - K4 / K8 / K10: one thread-block cluster of CL blocks (dec_cluster) per
+//    (b, h), rank r taking p_lo + r*n/CL up to p_lo + (r+1)*n/CL (n live
+//    positions; ops/decode_attention.py:decode_row_split), so the newest
+//    position, the new row, falls to the last rank;
+//  - K11: nj blocks per (b, h), no cluster, block j taking p_lo + j*run up
+//    to p_lo + (j+1)*run, clipped to pos (sb_split: nj and run from the
+//    ring, the window and the head count alone); blocks past the live
+//    frontier return at once.
+// A block:
 //  1. puts its rows' loads in flight before it encodes the new row: K and
 //     V in chunks of DC = 32 rows, the first NS chunks of each (2 to 4,
 //     up to ~100 KB) and every row's i8 scales at once, later chunks
@@ -395,12 +398,17 @@ __device__ __forceinline__ int key_abs(int pos, int pm, int s, int ring) {
 //  2. scores its rows, 8 lanes a row (4 rows a warp at a time), q in
 //     registers: scale_k, soft cap; keeps them in shared memory, with its
 //     max m_r and l_r = sum exp(s - m_r) (K is read once);
-//  3. exchanges (m_r, l_r) across the cluster: M = max m_r, L = sum over
-//     ranks in order of l_r exp(m_r - M); turns each kept score into the
-//     probability exp(s - M) * (1 / L) (times scale_v), rounded to the
-//     compute type;
+//  3. K4 / K8 / K10: exchanges (m_r, l_r) across the cluster: M = max
+//     m_r, L = sum over ranks in order of l_r exp(m_r - M); turns each
+//     kept score into the probability exp(s - M) * (1 / L) (times
+//     scale_v), rounded to the compute type.  K11: turns each into its
+//     exp weight against the block's own max, exp(s - m_r) (times
+//     scale_v), rounded to the compute type; the new row's weight is kept
+//     apart (er) and its V left out;
 //  4. multiplies V by the probabilities, lanes splitting D; lanes, warps
-//     and then ranks add their partial sums in order.
+//     and then ranks add their partial sums in order.  K11 writes its
+//     partial (m_r, l_r, er, acc[G][D]) instead; the last block of (b, h)
+//     to take the ticket merges them (sb_merge).
 constexpr int DC = 32;          // rows a chunk
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_MAXR = 2048;  // rows a block: rings up to cluster * 2048
@@ -413,7 +421,43 @@ constexpr int DEC_MAXR = 2048;  // rows a block: rings up to cluster * 2048
 // decode_cluster.
 __host__ __device__ constexpr int dec_cluster(int kvh) { return kvh <= 4 ? 8 : 4; }
 
-template <typename T, int D, int G>
+// K11's split (ops/decode_attention.py:sblock_split): runs of `run` rows,
+// a multiple of DC and at least SB_MIN_RUN, as short as lets batch 1 fill
+// SB_TARGET blocks (two an SM on an H100's 132) over the longest live
+// span min(ring, window); nj runs cover that span.  Runs of 64 rows were
+// slower than runs of 128 at batch 4 (each block's fixed costs: the
+// encode, the ticket), so no run is shorter than 128.
+constexpr int SB_TARGET = 264;
+constexpr int SB_MIN_RUN = 128;
+constexpr int SB_MAXR = 2048;      // the longest run the entries take
+constexpr int SB_MAX_RUNS = 512;   // the most runs, whose weights sb_merge keeps
+__host__ __device__ inline void sb_split(int ring, int window, int kvh,
+                                         int* nj, int* run) {
+  const int live = ring < window ? ring : window;
+  const int per = (SB_TARGET + kvh - 1) / kvh;
+  int r = ((live + per - 1) / per + DC - 1) / DC * DC;
+  r = r > SB_MIN_RUN ? r : SB_MIN_RUN;
+  *run = r;
+  *nj = (live + r - 1) / r;
+}
+
+// K11's arguments: K8's, the runs' partials and the arrival tickets.
+struct SblockArgs {
+  SplitArgs d;
+  float* part;   // [B, KVH, nj, G, D + 4]: m, s, er, a pad, then acc[D]
+  int* ticket;   // [B * KVH], zero between launches
+  int nj, run;   // sb_split's
+};
+
+// Rows whose scores a block keeps, reserved beside the chunk slots when NS
+// is chosen: K4 / K8 / K10 up to 1024 (rings of 8192 over clusters of 8),
+// K11 its run (SB_TARGET keeps Gemma2's runs at 512 rows or fewer); and
+// the most chunk slots of K (and of V): K11's runs are up to 512 rows
+// long, and more slots keep more of a run in flight where rows are small.
+constexpr int DEC_RESERVE = 1024, DEC_NSMAX = 4;
+constexpr int SB_RESERVE = 512, SB_NSMAX = 8;
+
+template <typename T, int D, int G, int RESERVE, int NSMAX>
 struct DecSmem {
   static constexpr int RB = D * (int)sizeof(T);     // bytes a row
   static constexpr int NP = RB / 16;                // 16-byte pieces a row
@@ -421,16 +465,16 @@ struct DecSmem {
   static constexpr int CB = DC * RB;                // bytes a chunk
   // Per kept row: G scores (i8: and the K and V scales).
   static constexpr int per_row = G * 4 + (std::is_same<T, int8_t>::value ? 8 : 0);
-  // Chunk slots of K and of V: 2 to 4 each, as many as keep the block
-  // within ~100 KB beside the scores of 1024 rows (two blocks an SM, so
+  // Chunk slots of K and of V: 2 to NSMAX each, as many as keep the block
+  // within ~100 KB beside the scores of RESERVE rows (two blocks an SM, so
   // clusters always find room); f32 rows at D = 256 take 2 slots and one
   // block an SM.
-  static constexpr int fit = (100 * 1024 - 1024 * per_row) / (2 * CB);
-  static constexpr int NS = fit < 2 ? 2 : fit > 4 ? 4 : fit;
+  static constexpr int fit = (100 * 1024 - RESERVE * per_row) / (2 * CB);
+  static constexpr int NS = fit < 2 ? 2 : fit > NSMAX ? NSMAX : fit;
   static constexpr int ring = NS * CB;
   static constexpr int acc = DEC_WARPS * G * D * 4;
   static constexpr int kring_or_acc = ring > acc ? ring : acc;
-  // Dynamic shared memory for `maxr` kept rows (ceil(ring / cluster)).
+  // Dynamic shared memory for `maxr` kept rows.
   static constexpr int bytes(int maxr) { return kring_or_acc + ring + maxr * per_row; }
 };
 
@@ -462,21 +506,115 @@ __device__ __forceinline__ void piece_f32(const uint4& w, float* f) {
 __device__ __forceinline__ bool brings_row(const DecArgs&) { return true; }
 __device__ __forceinline__ bool brings_row(const SplitArgs& p) { return p.knew != nullptr; }
 
-template <typename T, int D, int G, typename Args>
-__device__ __forceinline__ void decode_attention_body(const Args& p) {
+// K11's merge, by the last block of (b, h) to finish: the nl live runs'
+// partials at `all` ([nl][G][D + 4]).  Warp g takes query head g's run
+// weights w_j = exp(m_j - M) (0 for a run with no row) into wts[g][j] and
+// its sums S = sum s_j w_j and ER = sum er_j w_j (lane l runs j = l, l +
+// 32, ..., then the butterfly); then the block's threads take the G*D
+// outputs, each summing acc_j w_j over j in order, and add the new row's
+// V times its share ER / S (times scale_v, rounded to the compute type):
+// out = O / max(S, 1e-30) + cdt(ER / max(S, 1e-30)) * V_new.
+template <typename T, int D, int G>
+__device__ __forceinline__ void sb_merge(const SplitArgs& p, const float* all,
+                                         int nl, int b, int h,
+                                         const float* nv, float new_sv,
+                                         float* wts) {
+  constexpr int NW = DEC_WARPS;
+  constexpr int RS = G * (D + 4);  // floats a run
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  constexpr int PL = SB_MAX_RUNS / 32;  // runs a lane holds
+  __shared__ float den[G], share[G];
+  for (int g = warp; g < G; g += NW) {
+    // Every (m, s, er) of the lane's runs in flight at once.
+    float mj[PL], sj[PL], ej[PL];
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+      const int j = lane + 32 * u;
+      const float* pj = all + (size_t)j * RS + g * (D + 4);
+      mj[u] = j < nl ? __ldcg(pj) : -INFINITY;
+      sj[u] = j < nl ? __ldcg(pj + 1) : 0.f;
+      ej[u] = j < nl ? __ldcg(pj + 2) : 0.f;
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < PL; ++u) mx = fmaxf(mx, mj[u]);
+    mx = warp_max(mx);
+    float s = 0.f, r = 0.f;
+#pragma unroll
+    for (int u = 0; u < PL; ++u) {
+      const int j = lane + 32 * u;
+      const float w = mj[u] == -INFINITY ? 0.f : expf(mj[u] - mx);
+      if (j < nl) wts[g * nl + j] = w;
+      s += sj[u] * w;
+      r += ej[u] * w;
+    }
+    s = warp_sum(s);
+    r = warp_sum(r);
+    if (lane == 0) {
+      den[g] = fmaxf(s, 1e-30f);
+      share[g] = r;
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < G * D; x += NW * 32) {
+    const int g = x / D, d = x - g * D;
+    const float* pg = all + g * (D + 4) + 4 + d;
+    const float* wg = wts + g * nl;
+    float o = 0.f;
+    // 32 runs' loads in flight at a time, summed in run order.
+    for (int j0 = 0; j0 < nl; j0 += 32) {
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        v[u] = j0 + u < nl ? __ldcg(pg + (size_t)(j0 + u) * RS) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (j0 + u < nl) o += v[u] * wg[j0 + u];
+    }
+    float pr = share[g] / den[g];
+    if constexpr (std::is_same<T, int8_t>::value) pr *= new_sv;
+    p.out[(size_t)b * p.heads * D + (size_t)(h * G + g) * D + d] =
+        o / den[g] + cdt_round<T>(pr) * nv[d];
+  }
+}
+
+template <typename T, int D, int G, bool SB, typename Args>
+__device__ __forceinline__ void decode_attention_body(const Args& p,
+                                                      const SblockArgs* sa) {
   namespace cg = cooperative_groups;
-  using S = DecSmem<T, D, G>;
+  using S = DecSmem<T, D, G, SB ? SB_RESERVE : DEC_RESERVE,
+                        SB ? SB_NSMAX : DEC_NSMAX>;
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   constexpr int NW = DEC_WARPS, NP = S::NP, EPP = S::EPP, NS = S::NS;
   constexpr int PPL = NP / 8;                     // scoring: pieces a lane
   constexpr int LPRB = NP < 32 ? NP : 32;         // values: lanes a row
   constexpr int RPIB = 32 / LPRB, PPLB = NP / LPRB;
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), CL = (int)cluster.dim_blocks().x;
-  const int bh = blockIdx.x / CL;
-  const int maxr = (p.ring + CL - 1) / CL;
+  // K11's grid is run-major (block = run * B * KVH + (b, h)), so every
+  // pair's first runs, the live ones, are scheduled before the runs past
+  // the frontiers, which return at once.
+  const int CL = SB ? sa->nj : (int)cluster.dim_blocks().x;
+  const int nbh = gridDim.x / CL;
+  const int rank = SB ? (int)blockIdx.x / nbh : (int)cluster.block_rank();
+  const int bh = SB ? (int)blockIdx.x % nbh : (int)blockIdx.x / CL;
   const int b = bh / p.kvh, h = bh % p.kvh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // This block's run of live positions.
+  const int pos = p.pos[b];
+  const int p_lo = max(max(pos - p.window + 1, pos - p.ring + 1), 0);
+  const int n = pos - p_lo + 1;
+  int first, nr, maxr;
+  if constexpr (SB) {
+    maxr = sa->run;
+    first = p_lo + rank * sa->run;
+    nr = min(sa->run, n - rank * sa->run);
+    if (nr <= 0) return;  // past the live frontier: nothing to read
+  } else {
+    maxr = (p.ring + CL - 1) / CL;
+    first = p_lo + (rank * n) / CL;
+    nr = p_lo + ((rank + 1) * n) / CL - first;
+  }
   extern __shared__ __align__(16) unsigned char dsm[];
   unsigned char* sK = dsm;                              // [NS][DC][RB]
   float* acc_s = reinterpret_cast<float*>(dsm);         // [NW][G][D], after scoring
@@ -487,14 +625,9 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
   __shared__ float sk[D], sv[D], sq[G * D];
   __shared__ float red[NW * G];
   __shared__ float cm[G], cl[G];  // this block's max and denominator
-  __shared__ float part[G * D];   // this block's share of the output
+  __shared__ float cer[G];        // K11: the new row's exp weight
+  __shared__ float part[SB ? 1 : G * D];  // this block's share of the output
 
-  // This block's run of live positions.
-  const int pos = p.pos[b];
-  const int p_lo = max(max(pos - p.window + 1, pos - p.ring + 1), 0);
-  const int n = pos - p_lo + 1;
-  const int first = p_lo + (rank * n) / CL;
-  const int nr = p_lo + ((rank + 1) * n) / CL - first;
   const int nch = (nr + DC - 1) / DC;
   const int s_first = first % p.ring;  // ring row of the run's first position
   // The new row (pos % ring, or the garbage row for an invalid slot) and
@@ -544,8 +677,8 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
     ++group;
   }
 
-  // Every block of the cluster encodes the new row (cheap: D values);
-  // rank 0 writes it to the pool.
+  // Every block encodes the new row (cheap: D values); rank 0 (K11: run
+  // 0) writes it to the pool.
   const NewRow nr_ = encode_rows<T, D, G, NW>(p, b, h, rank == 0, sk, sv, sq, red);
   // One reciprocal each, multiplied in the loops: a division there compiles
   // a call to its slow path, and registers saved around such calls spill.
@@ -623,6 +756,17 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
     if (lane == 0) red[warp * G + g] = wmx;
   }
   __syncthreads();
+  // K11 runs of NS + 1 to 2 NS chunks: the V chunks past the first NS go
+  // out now, into the K slots the scores are done with, instead of each
+  // waiting for a V slot during the V pass.
+  const bool early = SB && nch > NS && nch <= 2 * NS;
+  if (early) {
+    for (int c = NS; c < nch; ++c) {
+      load_chunk(vpan, sK, c);
+      cp_async_commit();
+      ++group;
+    }
+  }
   float mb[G], e[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -647,35 +791,54 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
       for (int w = 0; w < NW; ++w) tot += red[w * G + g];
       cm[g] = mb[g];
       cl[g] = nr > 0 ? tot : 0.f;
+      cer[g] = 0.f;
     }
   }
-  cluster.sync();
   float M[G], L[G], invL[G];
-  // The ranks' values are read unrolled (clusters of at most 8), so the
-  // distributed-shared-memory loads are all in flight at once.
+  if constexpr (SB) {
+    // K11: weights against this block's own max, unnormalized.
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float rm[8], rl[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      rm[r] = r < CL ? cluster.map_shared_rank(cm, r)[g] : -INFINITY;
-      rl[r] = r < CL ? cluster.map_shared_rank(cl, r)[g] : 0.f;
+    for (int g = 0; g < G; ++g) {
+      M[g] = mb[g];
+      L[g] = 1.f;
+      invL[g] = 1.f;
     }
-    float mm = -INFINITY, ll = 0.f;
+    __syncthreads();  // cer zeroed before the new row's owner sets it
+  } else {
+    cluster.sync();
+    // The ranks' values are read unrolled (clusters of at most 8), so the
+    // distributed-shared-memory loads are all in flight at once.
 #pragma unroll
-    for (int r = 0; r < 8; ++r) mm = fmaxf(mm, rm[r]);
+    for (int g = 0; g < G; ++g) {
+      float rm[8], rl[8];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      if (rl[r] > 0.f) ll += rl[r] * expf(rm[r] - mm);
-    M[g] = mm;
-    L[g] = ll;
-    invL[g] = 1.f / ll;
+      for (int r = 0; r < 8; ++r) {
+        rm[r] = r < CL ? cluster.map_shared_rank(cm, r)[g] : -INFINITY;
+        rl[r] = r < CL ? cluster.map_shared_rank(cl, r)[g] : 0.f;
+      }
+      float mm = -INFINITY, ll = 0.f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) mm = fmaxf(mm, rm[r]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (rl[r] > 0.f) ll += rl[r] * expf(rm[r] - mm);
+      M[g] = mm;
+      L[g] = ll;
+      invL[g] = 1.f / ll;
+    }
   }
-  // Probabilities (times scale_v), rounded to the compute type, in place.
+  // Probabilities (K11: exp weights) times scale_v, rounded to the compute
+  // type, in place.  K11 keeps the new row's weight apart.
   for (int i = tid; i < nr; i += NW * 32) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float pr = expf(sc[i * G + g] - M[g]) * invL[g];
+      const float ex = expf(sc[i * G + g] - M[g]);
+      if (SB && i == newi) {
+        cer[g] = ex;
+        sc[i * G + g] = 0.f;
+        continue;
+      }
+      float pr = ex * invL[g];
       if constexpr (kQuant) pr *= sSv[i];
       sc[i * G + g] = cdt_round<T>(pr);
     }
@@ -689,15 +852,15 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
 #pragma unroll
     for (int x = 0; x < PPLB * EPP; ++x) acc[g][x] = 0.f;
   for (int c = 0; c < nch; ++c) {
-    if (c >= 1 && c + NS - 1 < nch) {  // V of a chunk past the first NS
+    if (!early && c >= 1 && c + NS - 1 < nch) {  // V of a chunk past the first NS
       load_chunk(vpan, sV, c + NS - 1);
       cp_async_commit();
       ++group;
     }
     cp_async_wait(group - vgrp(c, kgroups) - 1);
     __syncthreads();
-    unsigned char* slot = sV + (c % NS) * S::CB;
-    if (newi >= c * DC && newi < (c + 1) * DC) {
+    unsigned char* slot = (early && c >= NS ? sK : sV) + (c % NS) * S::CB;
+    if (!SB && newi >= c * DC && newi < (c + 1) * DC) {
       for (int d = tid; d < D; d += NW * 32)
         reinterpret_cast<T*>(slot + (newi - c * DC) * S::RB)[d] = from_f32<T>(sv[d]);
       __syncthreads();
@@ -740,27 +903,58 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
           acc_s[(warp * G + g) * D + (k * LPRB + jb) * EPP + x] = acc[g][k * EPP + x];
   }
   __syncthreads();
-  for (int x = tid; x < G * D; x += NW * 32) {
-    float o = 0.f;
-    for (int w = 0; w < NW; ++w) o += acc_s[w * G * D + x];
-    part[x] = o;
+  if constexpr (SB) {
+    // This run's partial, then the ticket; the last run to arrive merges.
+    float* mine = sa->part + ((size_t)bh * CL + rank) * G * (D + 4);
+    for (int x = tid; x < G * D; x += NW * 32) {
+      float o = 0.f;
+      for (int w = 0; w < NW; ++w) o += acc_s[w * G * D + x];
+      mine[(x / D) * (D + 4) + 4 + x % D] = o;
+    }
+    if (tid < G) {
+      mine[tid * (D + 4) + 0] = cm[tid];
+      mine[tid * (D + 4) + 1] = cl[tid];
+      mine[tid * (D + 4) + 2] = cer[tid];
+    }
+    // One thread fences for the block after the barrier (release), takes
+    // the ticket, and the last block's fences again before its threads
+    // read the others' partials (acquire), as a grid barrier does.
+    __shared__ int is_last;
+    const int nl = (n + sa->run - 1) / sa->run;
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();
+      is_last = atomicAdd(sa->ticket + bh, 1) == nl - 1;
+      if (is_last) __threadfence();
+    }
+    __syncthreads();
+    if (!is_last) return;
+    sb_merge<T, D, G>(p, sa->part + (size_t)bh * CL * G * (D + 4), nl, b, h,
+                      sv, nr_.sv, acc_s);
+    if (tid == 0) sa->ticket[bh] = 0;
+  } else {
+    for (int x = tid; x < G * D; x += NW * 32) {
+      float o = 0.f;
+      for (int w = 0; w < NW; ++w) o += acc_s[w * G * D + x];
+      part[x] = o;
+    }
+    cluster.sync();
+    if (rank == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        for (int d = tid; d < D; d += NW * 32) {
+          float ro[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) ro[r] = r < CL ? cluster.map_shared_rank(part, r)[g * D + d] : 0.f;
+          float o = 0.f;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) o += ro[r];
+          if (!(L[g] > 0.f)) o = 0.f;
+          store_out(p, (size_t)b * p.heads * D + (size_t)(h * G + g) * D + d, o);
+        }
+    }
+    cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
   }
-  cluster.sync();
-  if (rank == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      for (int d = tid; d < D; d += NW * 32) {
-        float ro[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) ro[r] = r < CL ? cluster.map_shared_rank(part, r)[g * D + d] : 0.f;
-        float o = 0.f;
-#pragma unroll
-        for (int r = 0; r < 8; ++r) o += ro[r];
-        if (!(L[g] > 0.f)) o = 0.f;
-        store_out(p, (size_t)b * p.heads * D + (size_t)(h * G + g) * D + d, o);
-      }
-  }
-  cluster.sync();  // keep every block's shared memory alive until rank 0 has read it
 }
 
 // One kernel name per entry and pool type, so a profiler trace tells them
@@ -768,7 +962,7 @@ __device__ __forceinline__ void decode_attention_body(const Args& p) {
 #define GEMMA_DEC_KERNEL(NAME, T, ARGS)                                     \
   template <int D, int G>                                                   \
   __global__ void __launch_bounds__(DEC_WARPS * 32) NAME(ARGS p) {          \
-    decode_attention_body<T, D, G>(p);                                      \
+    decode_attention_body<T, D, G, false>(p, nullptr);                      \
   }
 GEMMA_DEC_KERNEL(decode_attention_i8_kernel, int8_t, DecArgs)
 GEMMA_DEC_KERNEL(decode_attention_bf16_kernel, __nv_bfloat16, DecArgs)
@@ -781,12 +975,14 @@ GEMMA_DEC_KERNEL(decode_attend_bf16_kernel, __nv_bfloat16, SplitArgs)
 GEMMA_DEC_KERNEL(decode_attend_f32_kernel, float, SplitArgs)
 #undef GEMMA_DEC_KERNEL
 
-// Launched as clusters of dec_cluster(kvh) blocks (runtime cluster
-// dimensions); the shared-memory ceiling is raised once per kernel, to the
-// most any ring takes, not on every decode launch.
+// K4 / K8 / K10 launch as clusters of dec_cluster(kvh) blocks (runtime
+// cluster dimensions), K11 (cl 0) without; the shared-memory ceiling is
+// raised once per kernel, to the most any ring takes, not on every decode
+// launch.
 template <typename Args>
 static cudaError_t launch_one(void (*kernel)(Args), const Args& p, int bytes,
-                              int max_bytes, int cl, int batch, cudaStream_t st) {
+                              int max_bytes, int blocks, int cl,
+                              cudaStream_t st) {
   static std::mutex mu;
   static std::set<void*> ready;
   {
@@ -798,7 +994,7 @@ static cudaError_t launch_one(void (*kernel)(Args), const Args& p, int bytes,
     }
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * p.kvh * cl);
+  cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(DEC_WARPS * 32);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = st;
@@ -808,7 +1004,7 @@ static cudaError_t launch_one(void (*kernel)(Args), const Args& p, int bytes,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cl > 0 ? 1 : 0;
 
   return cudaLaunchKernelEx(&cfg, kernel, p);
 }
@@ -816,7 +1012,7 @@ static cudaError_t launch_one(void (*kernel)(Args), const Args& p, int bytes,
 // K4 (DecArgs); K8 (op 1) or K10 (op 2) (SplitArgs).
 template <typename T, int D, int G, typename Args>
 static cudaError_t launch_dec(const Args& p, int op, int batch, cudaStream_t st) {
-  using S = DecSmem<T, D, G>;
+  using S = DecSmem<T, D, G, DEC_RESERVE, DEC_NSMAX>;
   const int cl = dec_cluster(p.kvh);
   const int bytes = S::bytes((p.ring + cl - 1) / cl), max_bytes = S::bytes(DEC_MAXR);
   void (*kernel)(Args);
@@ -831,7 +1027,7 @@ static cudaError_t launch_dec(const Args& p, int op, int batch, cudaStream_t st)
   } else {
     kernel = op == 1 ? decode_write_attend_f32_kernel<D, G> : decode_attend_f32_kernel<D, G>;
   }
-  return launch_one(kernel, p, bytes, max_bytes, cl, batch, st);
+  return launch_one(kernel, p, bytes, max_bytes, batch * p.kvh * cl, cl, st);
 }
 
 template <typename T, typename Args>
@@ -1106,210 +1302,17 @@ extern "C" int gemma_kv_write_f32(
 }
 
 // ---------------------------------------------------------------------------
-// K11: S-blocked write + attend with an online softmax across blocks.
+// K11: the write + attend over runs of sb_split, one block a run, the
+// partials merged by the last block of (b, h) to finish (see the body).
 // ---------------------------------------------------------------------------
 
-struct SblockArgs {
-  SplitArgs d;
-  float* part;   // [B, KVH, nj, G, D + 4]: m, s, er, pad, then acc[D]
-  int* ticket;   // [B * KVH], zero between launches
-  int bs;        // rows per block; s_alloc % bs == 0
-};
-
-constexpr int SB_WARPS = 8;
-
-template <typename T, int D, int G>
-__device__ __forceinline__ void sblocked_body(const SblockArgs& a) {
-  constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  constexpr int NW = SB_WARPS;
-  constexpr int DPL = D / 32;
-  const SplitArgs& p = a.d;
-  const int nj = p.s_alloc / a.bs;
-  const int j = blockIdx.x % nj;
-  const int bh = blockIdx.x / nj;
-  const int b = bh / p.kvh, h = bh % p.kvh;
-  const int pos = p.pos[b];
-  const int hi = min(pos, p.ring - 1) / a.bs;
-  if (j > hi) return;  // past the live frontier: nothing to read
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  __shared__ float sk[D], sv[D], sq[G * D];
-  __shared__ float red[32];
-  __shared__ float wm[NW][G], ws[NW][G], wr[NW][G];
-  __shared__ float acc_s[NW][G][D];
-  __shared__ int is_last;
-
-  const NewRow nr = encode_rows<T, D, G, NW>(p, b, h, j == 0, sk, sv, sq,
-                                             red);
-  const int row = nr.row;
-  const float new_sk = nr.sk, new_sv = nr.sv;
-  const size_t plane = (size_t)p.s_alloc * D;
-  const size_t kbase = panel_of(p, b, 0, h), vbase = panel_of(p, b, 1, h);
-  const T* kpan = static_cast<const T*>(p.pool) + kbase * plane;
-  const T* vpan = static_cast<const T*>(p.pool) + vbase * plane;
-  const float* ksc = kQuant ? p.scales + kbase * p.s_alloc : nullptr;
-  const float* vsc = kQuant ? p.scales + vbase * p.s_alloc : nullptr;
-
-  float qr[G][DPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) qr[g][i] = sq[g * D + lane * DPL + i];
-
-  const int start = max(pos - p.window + 1, 0);
-  const int pm = pos % p.ring;
-  const int s0 = j * a.bs, s1 = s0 + a.bs;
-  const float cap = p.att_cap;
-  auto ok_row = [&](int s) {
-    if (s >= p.ring) return false;
-    const int ka = key_abs(pos, pm, s, p.ring);
-    return ka >= start && ka <= pos;
-  };
-  // The new row's score, like every other, is an f32 multiply-and-sum of
-  // q and the row in the compute type.
-  auto score = [&](int s, float* out_sc) {
-    float c[DPL];
-    if (s == row) {
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) c[i] = sk[lane * DPL + i];
-    } else {
-      const T* src = kpan + (size_t)s * D + lane * DPL;
-#pragma unroll
-      for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) d += qr[g][i] * c[i];
-      float v = warp_sum(d);
-      if constexpr (kQuant) v *= s == row ? new_sk : ksc[s];
-      if (cap != 0.f) v = cap * tanhf(v / cap);
-      out_sc[g] = v;
-    }
-  };
-
-  // Pass 1: the block's max over its ok rows.
-  float m[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) m[g] = -INFINITY;
-  for (int s = s0 + warp; s < s1; s += NW) {
-    if (!ok_row(s)) continue;
-    float sc[G];
-    score(s, sc);
-#pragma unroll
-    for (int g = 0; g < G; ++g) m[g] = fmaxf(m[g], sc[g]);
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int g = 0; g < G; ++g) wm[warp][g] = m[g];
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float mm = -INFINITY;
-    for (int w = 0; w < NW; ++w) mm = fmaxf(mm, wm[w][g]);
-    m[g] = mm;
-  }
-
-  // Pass 2: exp weights from the block max; the new row's apart.
-  float acc[G][DPL], ssum[G], er[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    ssum[g] = er[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[g][i] = 0.f;
-  }
-  for (int s = s0 + warp; s < s1; s += NW) {
-    if (!ok_row(s)) continue;
-    float sc[G];
-    score(s, sc);
-    if (s == row) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float e = expf(sc[g] - m[g]);
-        ssum[g] += e;
-        er[g] += e;
-      }
-      continue;
-    }
-    float c[DPL];
-    const T* src = vpan + (size_t)s * D + lane * DPL;
-#pragma unroll
-    for (int i = 0; i < DPL; i += 4) ld4(src + i, c + i);
-    const float sv_s = kQuant ? vsc[s] : 1.f;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float e = expf(sc[g] - m[g]);
-      ssum[g] += e;
-      const float w = cdt_round<T>(e * sv_s);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] += w * c[i];
-    }
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int g = 0; g < G; ++g) { ws[warp][g] = ssum[g]; wr[warp][g] = er[g]; }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc_s[warp][g][lane * DPL + i] = acc[g][i];
-  __syncthreads();
-
-  float* mine = a.part + ((size_t)bh * nj + j) * G * (D + 4);
-  if (tid < G) {
-    float st = 0.f, rt = 0.f;
-    for (int w = 0; w < NW; ++w) { st += ws[w][tid]; rt += wr[w][tid]; }
-    mine[tid * (D + 4) + 0] = m[tid];
-    mine[tid * (D + 4) + 1] = st;
-    mine[tid * (D + 4) + 2] = rt;
-  }
-  if (tid < D) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float o = 0.f;
-      for (int w = 0; w < NW; ++w) o += acc_s[w][g][tid];
-      mine[g * (D + 4) + 4 + tid] = o;
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(a.ticket + bh, 1) == hi;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-
-  // The last live block of (b, h): combine blocks 0..hi.
-  const float* all = a.part + (size_t)bh * nj * G * (D + 4);
-  if (tid < D) {
-    const float nv = sv[tid];  // the new V in the pool's type (i8: codes)
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = -INFINITY;
-      for (int jj = 0; jj <= hi; ++jj)
-        mx = fmaxf(mx, __ldcg(all + ((size_t)jj * G + g) * (D + 4)));
-      float st = 0.f, rt = 0.f, o = 0.f;
-      for (int jj = 0; jj <= hi; ++jj) {
-        const float* pj = all + ((size_t)jj * G + g) * (D + 4);
-        const float mj = __ldcg(pj);
-        if (mj == -INFINITY) continue;  // no ok row in block jj
-        const float w = expf(mj - mx);
-        st += __ldcg(pj + 1) * w;
-        rt += __ldcg(pj + 2) * w;
-        o += __ldcg(pj + 4 + tid) * w;
-      }
-      const float den = fmaxf(st, 1e-30f);
-      float pr = rt / den;
-      if constexpr (kQuant) pr *= new_sv;
-      o = o / den + cdt_round<T>(pr) * nv;
-      p.out[(size_t)b * p.heads * D + (size_t)(h * G + g) * D + tid] = o;
-    }
-  }
-  if (tid == 0) a.ticket[bh] = 0;
-}
-
+// Two blocks an SM, as their shared memory allows at D = 256: up to 128
+// registers a thread (G = 4, no Gemma2 shape, takes what it needs).
 #define GEMMA_SBLOCK_KERNEL(NAME, T)                                        \
   template <int D, int G>                                                   \
-  __global__ void __launch_bounds__(SB_WARPS * 32) NAME(SblockArgs a) {     \
-    sblocked_body<T, D, G>(a);                                              \
+  __global__ void __launch_bounds__(DEC_WARPS * 32, G == 4 ? 1 : 2)         \
+      NAME(SblockArgs a) {                                                  \
+    decode_attention_body<T, D, G, true>(a.d, &a);                          \
   }
 GEMMA_SBLOCK_KERNEL(decode_sblocked_i8_kernel, int8_t)
 GEMMA_SBLOCK_KERNEL(decode_sblocked_bf16_kernel, __nv_bfloat16)
@@ -1317,14 +1320,14 @@ GEMMA_SBLOCK_KERNEL(decode_sblocked_f32_kernel, float)
 #undef GEMMA_SBLOCK_KERNEL
 
 template <typename T, int D, int G>
-static void launch_sb(const SblockArgs& a, int batch, cudaStream_t st) {
-  const dim3 grid(batch * a.d.kvh * (a.d.s_alloc / a.bs)), block(SB_WARPS * 32);
-  if constexpr (std::is_same<T, int8_t>::value)
-    decode_sblocked_i8_kernel<D, G><<<grid, block, 0, st>>>(a);
-  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    decode_sblocked_bf16_kernel<D, G><<<grid, block, 0, st>>>(a);
-  else
-    decode_sblocked_f32_kernel<D, G><<<grid, block, 0, st>>>(a);
+static cudaError_t launch_sb(const SblockArgs& a, int batch, cudaStream_t st) {
+  using S = DecSmem<T, D, G, SB_RESERVE, SB_NSMAX>;
+  void (*kernel)(SblockArgs);
+  if constexpr (std::is_same<T, int8_t>::value) kernel = decode_sblocked_i8_kernel<D, G>;
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value) kernel = decode_sblocked_bf16_kernel<D, G>;
+  else kernel = decode_sblocked_f32_kernel<D, G>;
+  return launch_one(kernel, a, S::bytes(a.run), S::bytes(SB_MAXR),
+                    batch * a.d.kvh * a.nj, 0, st);
 }
 
 template <typename T>
@@ -1335,11 +1338,11 @@ static int sblocked(const float* q, const void* knew, const void* vnew,
                     const bool* valid, float* out, int batch, int n_layers,
                     int layer, int kvh, int heads, int s_alloc, int d,
                     int ring, int window, int q_bs, int pe_mode, float qscale,
-                    float att_cap, float* part, int* ticket, int s_block,
+                    float att_cap, float* part, int part_floats, int* ticket,
                     int* launched, cudaStream_t st) {
   *launched = 0;
-  if ((pe_mode >= 0) != (inv_ts != nullptr) || s_block <= 0 ||
-      s_alloc % s_block != 0 || heads % kvh != 0)
+  if ((pe_mode >= 0) != (inv_ts != nullptr) || heads % kvh != 0 ||
+      ring <= 0 || window <= 0 || knew == nullptr)
     return (int)cudaErrorInvalidValue;
   if (std::is_same<T, int8_t>::value &&
       (scales == nullptr || (pe_mode < 0 && nsc == nullptr)))
@@ -1350,33 +1353,40 @@ static int sblocked(const float* q, const void* knew, const void* vnew,
                    s_alloc, ring, window, q_bs, pe_mode, qscale, att_cap);
   a.part = part;
   a.ticket = ticket;
-  a.bs = s_block;
+  sb_split(ring, window, kvh, &a.nj, &a.run);
   const int g = heads / kvh;
-  if (d == 256 && g == 2) launch_sb<T, 256, 2>(a, batch, st);
-  else if (d == 256 && g == 1) launch_sb<T, 256, 1>(a, batch, st);
-  else if (d == 256 && g == 4) launch_sb<T, 256, 4>(a, batch, st);
-  else if (d == 128 && g == 2) launch_sb<T, 128, 2>(a, batch, st);
-  else if (d == 128 && g == 1) launch_sb<T, 128, 1>(a, batch, st);
-  else if (d == 128 && g == 4) launch_sb<T, 128, 4>(a, batch, st);
+  // Runs longer than SB_MAXR (rings past SB_MAXR * SB_TARGET / kvh rows)
+  // and partials past the caller's buffer are refused.
+  if (a.run > SB_MAXR || a.nj > SB_MAX_RUNS ||
+      (long long)batch * kvh * a.nj * g * (d + 4) > (long long)part_floats)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (d == 256 && g == 2) e = launch_sb<T, 256, 2>(a, batch, st);
+  else if (d == 256 && g == 1) e = launch_sb<T, 256, 1>(a, batch, st);
+  else if (d == 256 && g == 4) e = launch_sb<T, 256, 4>(a, batch, st);
+  else if (d == 128 && g == 2) e = launch_sb<T, 128, 2>(a, batch, st);
+  else if (d == 128 && g == 1) e = launch_sb<T, 128, 1>(a, batch, st);
+  else if (d == 128 && g == 4) e = launch_sb<T, 128, 4>(a, batch, st);
   else return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
   *launched = 1;
   return (int)cudaGetLastError();
 }
 
-// K11: K8's parameters, then the partials [B, KVH, s_alloc / s_block, G,
-// D + 4], the [B * KVH] tickets and the block's rows.
+// K11: K8's parameters, then the partials [B, KVH, nj, G, D + 4] and their
+// capacity in floats, and the [B * KVH] tickets.
 extern "C" int gemma_decode_sblocked_i8(
     const float* q, const void* knew, const void* vnew, int new_bs,
     int new_hs, const float* nsc, const float* inv_ts, const float* knorm,
     const float* qnorm, int8_t* pool, float* scales, const int* pos,
     const bool* valid, float* out, int batch, int n_layers, int layer,
     int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
-    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
-    int s_block, int* launched, cudaStream_t st) {
+    int pe_mode, float qscale, float att_cap, float* part, int part_floats,
+    int* ticket, int* launched, cudaStream_t st) {
   return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
                   pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
                   heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
-                  att_cap, part, ticket, s_block, launched, st);
+                  att_cap, part, part_floats, ticket, launched, st);
 }
 
 extern "C" int gemma_decode_sblocked_bf16(
@@ -1385,12 +1395,12 @@ extern "C" int gemma_decode_sblocked_bf16(
     const float* qnorm, __nv_bfloat16* pool, float* scales, const int* pos,
     const bool* valid, float* out, int batch, int n_layers, int layer,
     int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
-    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
-    int s_block, int* launched, cudaStream_t st) {
+    int pe_mode, float qscale, float att_cap, float* part, int part_floats,
+    int* ticket, int* launched, cudaStream_t st) {
   return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
                   pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
                   heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
-                  att_cap, part, ticket, s_block, launched, st);
+                  att_cap, part, part_floats, ticket, launched, st);
 }
 
 extern "C" int gemma_decode_sblocked_f32(
@@ -1399,10 +1409,10 @@ extern "C" int gemma_decode_sblocked_f32(
     const float* qnorm, float* pool, float* scales, const int* pos,
     const bool* valid, float* out, int batch, int n_layers, int layer,
     int kvh, int heads, int s_alloc, int d, int ring, int window, int q_bs,
-    int pe_mode, float qscale, float att_cap, float* part, int* ticket,
-    int s_block, int* launched, cudaStream_t st) {
+    int pe_mode, float qscale, float att_cap, float* part, int part_floats,
+    int* ticket, int* launched, cudaStream_t st) {
   return sblocked(q, knew, vnew, new_bs, new_hs, nsc, inv_ts, knorm, qnorm,
                   pool, scales, pos, valid, out, batch, n_layers, layer, kvh,
                   heads, s_alloc, d, ring, window, q_bs, pe_mode, qscale,
-                  att_cap, part, ticket, s_block, launched, st);
+                  att_cap, part, part_floats, ticket, launched, st);
 }

@@ -4,9 +4,9 @@
 // codecs' element decoders (gemma_tpu/ops/matmul.py:_acc_step and
 // _sfp_tile_to_bf16; the i8 byte converters are common.cuh's), the walk of
 // K in 128-byte chunks that the heads and the decode tile share, the
-// decode tile's warp (its register ring and chunk product, which K3 runs
+// decode tile's warp (its register ring and chunk product, which K3 and K6 run
 // too) with the prologue norm and the post-norm epilogue folded into it,
-// the norm passes that the prefill tile and K6 chain around their kernels,
+// the norm passes that the prefill tile chains around its kernels,
 // and the B operand as the C entries receive it.
 #pragma once
 
@@ -149,7 +149,7 @@ __device__ __forceinline__ void b_frag(const uint4& q, int w, uint32_t* bf) {
 
 // ---------------------------------------------------------------------------
 // The decode tile's warp (matmul_decode.cu's K1 / K2 / K12 at M <= 16 rows,
-// matmul.cu's greedy head K3): a warp's 16 weight rows, decoded in
+// matmul.cu's heads K3 and K6): a warp's 16 weight rows, decoded in
 // registers, are mma.sync's 16-row operand and A^T (staged in shared
 // memory) the 8-wide one; a lane streams its rows' bytes through a
 // register ring of 128-byte chunks (matmul_decode.cu's note has the
@@ -762,7 +762,7 @@ namespace gemma {
 
 // Bits of an entry's `launched` report: its own kernel, then the passes.
 constexpr int kLaunchedSelf = 1, kLaunchedPrenorm = 2, kLaunchedPostnorm = 4;
-constexpr int kLaunchedMerge = 4;  // the top-k entries' second pass
+constexpr int kLaunchedMerge = 2;  // the top-k entries' selection
 
 // A for the GEMM: `a` itself (bf16), or RMSNorm(a) written to a_scratch
 // when a prologue norm is given (a is then f32).

@@ -15,8 +15,9 @@ CPU tensors.
     and the rows come pre-encoded.  The new row's score and value come
     from the kernel's registers, not the pool.  Returns f32
     [B, 1, heads, D].  With GEMMA_SBLOCK_DECODE=1, and a block from
-    `pick_s_block`, it runs K11 instead: the same over S blocks with an
-    online softmax, reading only blocks at or below the live frontier.
+    `pick_s_block`, it runs K11 instead: the same split over runs of the
+    live positions (`sblock_split`), one block a run, their softmax
+    partials merged by the last block to finish.
   - `kv_write_decode` (K9): the row write alone (i8 rows are quantized by
     torch ops first, as the JAX package quantizes outside its kernel).
   - `decode_attention` (K10): single-token attention, no write.
@@ -78,8 +79,9 @@ def _per_kind(name: str, argtypes: list) -> dict:
 # ring, window, q_bs, pe_mode; qscale, att_cap.
 _WRITE_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 9 + [_I] * 11 + [_F, _F])
 DECODE_WRITE_ATTEND = _per_kind("decode_write_attend", _WRITE_ARGS)
-# K11: K8's parameters, then part, ticket, s_block.
-DECODE_SBLOCKED = _per_kind("decode_sblocked", _WRITE_ARGS + [_P, _P, _I])
+# K11: K8's parameters, then the partials, their capacity in floats and
+# the tickets.
+DECODE_SBLOCKED = _per_kind("decode_sblocked", _WRITE_ARGS + [_P, _I, _P])
 # K9: new, new_scales, pool, scales, pos, valid; batch, n_layers, layer,
 # kvh, s_alloc, d, ring.
 KV_WRITE = _per_kind("kv_write", [_P] * 6 + [_I] * 7)
@@ -113,9 +115,60 @@ def decode_row_split(pos: int, ring: int, window: int,
             for r in range(cluster)]
 
 
+# K11's split (csrc/decode_attention.cu: sb_split): runs of the live
+# positions, a multiple of DECODE_CHUNK rows and at least SBLOCK_MIN_RUN,
+# as short as lets batch 1 fill SBLOCK_TARGET blocks (two 256-thread
+# blocks on each of an H100's 132 SMs) over the longest live span
+# min(ring, window).  The kernel refuses runs past SBLOCK_MAX_RUN rows and
+# more than SBLOCK_MAX_RUNS runs.
+DECODE_CHUNK = 32
+SBLOCK_TARGET = 264
+SBLOCK_MIN_RUN = 128
+SBLOCK_MAX_RUN = 2048
+SBLOCK_MAX_RUNS = 512
+
+
+def sblock_split(ring: int, window: int, kv_heads: int) -> tuple[int, int]:
+    """(runs, run): K11's blocks per (batch, KV head) and the live
+    positions each takes, from the shapes alone, never the batch or the
+    positions, so that a slot's sums are taken in one order at every batch
+    size and the launch is the same at every step."""
+    live = min(ring, window)
+    span = -(-live // -(-SBLOCK_TARGET // kv_heads))
+    run = max(SBLOCK_MIN_RUN, -(-span // DECODE_CHUNK) * DECODE_CHUNK)
+    return -(-live // run), run
+
+
+def sblock_row_split(pos: int, ring: int, window: int,
+                     kv_heads: int) -> list[range]:
+    """The live positions each block of K11 takes: run j is p_lo + j*run
+    up to p_lo + (j + 1)*run, clipped to pos (p_lo = max(pos - window + 1,
+    pos - ring + 1, 0)); runs past the frontier are empty and their blocks
+    return at once.  The kernel computes the same split from the device
+    positions."""
+    runs, run = sblock_split(ring, window, kv_heads)
+    p_lo = max(pos - window + 1, pos - ring + 1, 0)
+    return [range(min(p_lo + j * run, pos + 1),
+                  min(p_lo + (j + 1) * run, pos + 1)) for j in range(runs)]
+
+
 # K11's per-(batch, KV head) arrival counters, zero between launches (the
 # last block of each pair re-zeroes its own).
 _sblocked_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _sblocked_scratch(b, kv_heads, heads, d, ring, window, device):
+    """K11's partials, per (slot, KV head, run, query head) m, s, er, a
+    pad and the D partial sums (the same runs for every slot at every
+    batch), and the device's tickets, at least one per (slot, KV head)."""
+    runs, _ = sblock_split(ring, window, kv_heads)
+    part = torch.empty(b * kv_heads * runs * (heads // kv_heads) * (d + 4),
+                       dtype=torch.float32, device=device)
+    ticket = _sblocked_tickets.get(device)
+    if ticket is None or ticket.numel() < b * kv_heads:
+        ticket = _sblocked_tickets[device] = torch.zeros(
+            b * kv_heads, dtype=torch.int32, device=device)
+    return part, ticket
 
 
 class RopeSpec:
@@ -366,6 +419,69 @@ def decode_attention_write_sblocked_plain(cache, layer_idx, q, positions, k,
     return out.reshape(b, 1, heads, d)
 
 
+def decode_attention_write_sblocked_emulated(cache, layer_idx, q, positions,
+                                             k, v, window, att_cap=0.0,
+                                             valid=None,
+                                             rope: RopeSpec | None = None):
+    """K11 in its own split, in plain PyTorch (the CPU tests hold it against
+    the JAX kernel and the plain version; no serving path calls it): the
+    row written as K8 writes it; per run of `sblock_row_split`, the run's
+    max m of its scores, s = sum exp(score - m) over its rows, the new
+    row's exp weight er apart, and acc = the other rows' exp weights (times
+    scale_v) rounded to the compute type, times V; then the merge, with
+    run weights w_j = exp(m_j - M): O / max(S, 1e-30) + cdt(ER / max(S,
+    1e-30) * scale_v) * V_new, S, ER and O the w_j-weighted sums.  Its f32
+    sums are not taken in the kernel's order."""
+    if rope is not None:
+        q, k = rope.apply_host(q.float(), k.float(), positions)
+    pool, idx, ring = cache.pool(layer_idx)
+    sc = cache.pool_scale(layer_idx)
+    new, scale = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
+    rows = _ring_rows(positions, ring, valid)
+    _write_rows_plain(cache, layer_idx, new, scale, rows)
+
+    b, _, heads, d = q.shape
+    kvh = pool.shape[3]
+    cdt = torch.float32 if pool.dtype == torch.float32 else torch.bfloat16
+    qh = q.reshape(b, kvh, heads // kvh, d).float().to(cdt).float()
+    nv = new[:, 1].to(cdt).float()  # [B, KVH, D]
+    out = torch.empty(b, kvh, heads // kvh, d, device=q.device)
+    for bi in range(b):
+        pos = int(positions[bi, 0])
+        parts = []
+        for run in sblock_row_split(pos, ring, int(window), kvh):
+            if not len(run):
+                break
+            srow = torch.tensor([p % ring for p in run], device=q.device)
+            kk = pool[bi, idx, 0][:, srow].to(cdt).float()  # [KVH, R, D]
+            vv = pool[bi, idx, 1][:, srow].to(cdt).float()
+            scores = torch.einsum("kgd,krd->kgr", qh[bi], kk)
+            if sc is not None:
+                scores = scores * sc[bi, idx, 0, :, 0][:, srow][:, None, :]
+            if att_cap:
+                scores = ops.soft_cap(att_cap, scores)
+            m = scores.amax(-1)
+            e = torch.exp(scores - m[..., None])
+            at = srow == int(rows[bi])  # the new row, when the slot is valid
+            er = torch.where(at, e, torch.zeros_like(e)).sum(-1)
+            w = torch.where(at, torch.zeros_like(e), e)
+            if sc is not None:
+                w = w * sc[bi, idx, 1, :, 0][:, srow][:, None, :]
+            acc = torch.einsum("kgr,krd->kgd", w.to(cdt).float(), vv)
+            parts.append((m, e.sum(-1), er, acc))
+        mx = torch.stack([pt[0] for pt in parts]).amax(0)
+        wj = [torch.exp(pt[0] - mx) for pt in parts]
+        s_tot = sum(pt[1] * w for pt, w in zip(parts, wj)).clamp(min=1e-30)
+        er_tot = sum(pt[2] * w for pt, w in zip(parts, wj))
+        o = sum(pt[3] * w[..., None] for pt, w in zip(parts, wj))
+        p_row = er_tot / s_tot
+        if sc is not None:
+            p_row = p_row * scale[bi, 1][:, None]
+        out[bi] = o / s_tot[..., None] \
+            + p_row.to(cdt).float()[..., None] * nv[bi][:, None, :]
+    return out.reshape(b, 1, heads, d)
+
+
 # --- the kernels' wrappers --------------------------------------------------
 
 
@@ -520,8 +636,8 @@ def decode_attention_write(cache, layer_idx, q, positions, k, v, window,
     pool is updated in place.
 
     GEMMA_FUSED_DECODE=0: RoPE in torch ops, then K9 and K10.
-    GEMMA_SBLOCK_DECODE=1 with a block from `pick_s_block`: K11.  Else
-    the one-shot K8."""
+    GEMMA_SBLOCK_DECODE=1 with a block from `pick_s_block`: K11 (on the
+    CPU, its plain version over those S blocks).  Else the one-shot K8."""
     if not _fused():
         if rope is not None:
             q, k = rope.apply_host(q, k, positions)
@@ -570,15 +686,8 @@ def decode_attention_write(cache, layer_idx, q, positions, k, v, window,
             out.data_ptr(), b, n_layers, idx, kvh, heads, s_alloc, d, ring,
             int(window), q_bs, pe_mode, qscale, float(att_cap)]
     if s_block is not None:
-        nj = s_alloc // s_block
-        # Per (slot, KV head, block, query head): m, s, er, a pad, then the
-        # D partial sums.
-        part = torch.empty(b * kvh * nj * (heads // kvh) * (d + 4),
-                           dtype=torch.float32, device=q.device)
-        ticket = _sblocked_tickets.get(q.device)
-        if ticket is None or ticket.numel() < b * kvh:
-            ticket = _sblocked_tickets[q.device] = torch.zeros(
-                b * kvh, dtype=torch.int32, device=q.device)
-        args += [part.data_ptr(), ticket.data_ptr(), s_block]
+        part, ticket = _sblocked_scratch(b, kvh, heads, d, ring, int(window),
+                                         q.device)
+        args += [part.data_ptr(), part.numel(), ticket.data_ptr()]
     kernel.launch(*args)
     return out

@@ -101,10 +101,19 @@ PRENORM = _cuda.Kernel(
 POSTNORM_ADD = _cuda.Kernel(
     "matmul_postnorm_add", SOURCE, "gemma_postnorm_add",
     [_cuda.P] * 4 + [_cuda.I] * 3)
-# K6's second kernel: merges the blocks' sorted lists, one block per row.
+# K6's second kernel, the selection: per row, the k_top best of each slice
+# of TOPK_SLICE entries, then of the slices' lists (matmul.cu:
+# topk_merge_kernel).  Alone (its own C entry) it merges given lists:
+# part_v, part_i, vals, idxs; M, blocks, k_top; scratch_v, scratch_i,
+# tickets; slices.
 TOPK_MERGE = _cuda.Kernel(
     "topk_merge", SOURCE, "gemma_topk_merge",
-    [_cuda.P] * 4 + [_cuda.I] * 3)
+    [_cuda.P] * 4 + [_cuda.I] * 3 + [_cuda.P] * 3 + [_cuda.I])
+# Entries a block of the selection takes (matmul.cu:kSelSlice), and the
+# most list entries (slices x k_top) the row's last block merges
+# (kSelMaxMerge).
+TOPK_SLICE = 4096
+TOPK_MAX_MERGE = 8192
 
 
 def _b_args(codec: str) -> list:
@@ -159,35 +168,42 @@ TOP1 = {c: _cuda.Kernel(
     f"top1_{c}", SOURCE, f"gemma_top1_{c}",
     [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
     + [_cuda.P] * 6 + [_cuda.I] * 4) for c in K_MULTIPLE}
+# K6: K3's stream writing the capped logits [M, N] (the final norm folded
+# in), then the selection; after the B operand: cap, mask, k_top, the
+# logits, part_v, part_i, tickets, vals, idxs; M, N, K, blocks, slices.
 TOPK = {c: _cuda.Kernel(
     f"topk_{c}", SOURCE, f"gemma_topk_{c}",
     [_cuda.P] * 2 + _b_args(c) + [_cuda.F] + [_cuda.P] + [_cuda.I]
-    + [_cuda.P] * 5 + [_cuda.I] * 4,
-    passes=(PRENORM, TOPK_MERGE)) for c in K_MULTIPLE}
+    + [_cuda.P] * 6 + [_cuda.I] * 5,
+    passes=(TOPK_MERGE,)) for c in K_MULTIPLE}
 # K3's blocks per 16 rows at most (the capacity of its part_* scratch):
 # the kernel launches as many as fit on the card at once, up to this and
 # one per 8 row groups of 16 vocabulary rows (two 256-thread blocks on
 # each of an H100's 132 SMs: 264); each leaves one online state per row
 # for the last block to merge.
 TOP1_BLOCKS = 528
-# K6's blocks per 16 rows: each leaves one sorted list of k_top pairs per
-# row for the merge kernel (chip_smoke.py sweeps it).
+# K6's head blocks per 16 rows at most, as K3's (chip_smoke.py sweeps it).
 TOPK_BLOCKS = 528
-# Per device: one zeroed int32 ticket, counted up by the blocks of K3 and
-# of a decode K1 under a post-norm and reset by each launch's last block,
-# and that K1's partial sums of squares ([blocks, M] f32).  Launches that
-# use them must not overlap: one stream per device.
+# Per device: zeroed int32 tickets, counted up by the blocks of K3 and of a
+# decode K1 under a post-norm (the first) and of K6's selection (one a
+# row), each reset by its launch's last block; and that K1's partial sums
+# of squares ([blocks, M] f32).  Launches that use them must not overlap:
+# one stream per device.
 _scratch: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+_TICKETS = 64
 
 
-def _device_scratch(device, floats: int = 0):
-    """(ticket, slots) of `device`, slots holding at least `floats`."""
+def _device_scratch(device, floats: int = 0, tickets: int = 1):
+    """(tickets, slots) of `device`: at least `tickets` tickets and
+    `floats` slots."""
     got = _scratch.get(device)
-    if got is None or got[1].numel() < floats:
-        ticket = got[0] if got is not None else torch.zeros(
-            1, dtype=torch.int32, device=device)
-        slots = torch.empty(max(floats, DECODE_WAVE * DECODE_ROWS),
-                            dtype=torch.float32, device=device)
+    if got is None or got[1].numel() < floats or got[0].numel() < tickets:
+        ticket = got[0] if got is not None and got[0].numel() >= tickets \
+            else torch.zeros(max(tickets, _TICKETS), dtype=torch.int32,
+                             device=device)
+        slots = got[1] if got is not None and got[1].numel() >= floats \
+            else torch.empty(max(floats, DECODE_WAVE * DECODE_ROWS),
+                             dtype=torch.float32, device=device)
         got = _scratch[device] = (ticket, slots)
     return got
 
@@ -618,8 +634,8 @@ def matmul_plain(a, w, out_dtype=torch.float32, add=None, prologue_norm=None,
 
 def prenorm_plain(a, weight):
     """The prologue norm in plain PyTorch: bf16(rmsnorm(a)) (_norm_a); the
-    plain version of the prologue pass (the prefill tile's and K6's) and of
-    the prologue folded into the decode tile and K3."""
+    plain version of the prologue pass (the prefill tile's) and of the
+    prologue folded into the decode tile, K3 and K6."""
     return rms_norm(a.float(), weight).to(torch.bfloat16)
 
 
@@ -884,6 +900,124 @@ def matmul_top1_emulated(a, w, *, final_cap, blocks: int, prologue_norm=None,
     return token, 1.0 / s.clamp_min(1e-30)
 
 
+_DEAD_KEY = (0x007FFFFF << 32) | 0x80000000  # (-inf, INT_MAX): an empty slot
+
+
+def topk_keys(vals: np.ndarray, idxs: np.ndarray) -> np.ndarray:
+    """K6's selection keys (matmul.cu:sel_key) as uint64: the f32 value's
+    bits made monotone (-0.0 as +0.0) above the complement of the int32
+    index, so that the keys' order is (value descending, index
+    ascending)."""
+    v = np.where(vals == 0, np.float32(0), vals).astype(np.float32)
+    u = v.view(np.uint32)
+    hi = np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+    lo = ~np.asarray(idxs, np.int32).view(np.uint32)
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
+def _key_entries(keys: np.ndarray):
+    """(values f32, indices int32) of selection keys."""
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    u = np.where(hi & np.uint32(0x80000000), hi & np.uint32(0x7FFFFFFF), ~hi)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return u.view(np.float32), (~lo).view(np.int32)
+
+
+SEL_THREADS = 256  # matmul.cu:kSelThreads
+
+
+def _radix_kth(keys: np.ndarray, need: int):
+    """matmul.cu:radix_kth: passes over 8-bit digits from the top, each a
+    histogram of the digits among the keys that match `prefix` on `mask`,
+    the bin where the count from the top reaches the keys still needed;
+    done as soon as every key of that bin is taken.  Returns (prefix,
+    mask, need)."""
+    prefix = mask = 0
+    for step in range(8):
+        if need <= 0:
+            break
+        shift = 56 - 8 * step
+        match = (keys & np.uint64(mask)) == np.uint64(prefix)
+        hist = np.bincount(((keys[match] >> np.uint64(shift))
+                            & np.uint64(255)).astype(np.int64),
+                           minlength=256)
+        above = 0
+        for b in range(255, -1, -1):
+            if above + hist[b] >= need:
+                break
+            above += hist[b]
+        need -= above
+        prefix |= b << shift
+        mask |= 0xFF << shift
+        if need == hist[b]:
+            break
+    return prefix, mask, need
+
+
+def select_sorted_emulated(keys: np.ndarray, k_top: int) -> np.ndarray:
+    """matmul.cu:select_sorted on one block's keys: the keys above the
+    k_top-th key's prefix (`_radix_kth`) and those still needed of the ones
+    that match it, padded with empty slots to k_top and sorted
+    descending."""
+    keys = np.asarray(keys, np.uint64)
+    k_sel = min(k_top, len(keys))
+    prefix, mask, need = _radix_kth(keys, k_sel)
+    top = keys & np.uint64(mask)
+    chosen = np.concatenate([keys[top > np.uint64(prefix)],
+                             keys[top == np.uint64(prefix)][:need]])
+    assert len(chosen) == k_sel
+    chosen = np.concatenate([chosen, np.full(k_top - k_sel, _DEAD_KEY,
+                                             np.uint64)])
+    return np.sort(chosen)[::-1]
+
+
+def block_topk_emulated(keys: np.ndarray, k_top: int) -> np.ndarray:
+    """matmul.cu:block_topk: each of SEL_THREADS threads' largest key over
+    entries t, t + SEL_THREADS, ... (0 for a thread with none); the prefix
+    of the k_top-th largest of those maxima bounds the answer from below;
+    select_sorted_emulated of the keys at or above it."""
+    keys = np.asarray(keys, np.uint64)
+    tmax = np.zeros(SEL_THREADS, np.uint64)
+    for t in range(min(SEL_THREADS, len(keys))):
+        tmax[t] = keys[t::SEL_THREADS].max()
+    bound = np.uint64(_radix_kth(tmax, k_top)[0])
+    return select_sorted_emulated(keys[keys >= bound], k_top)
+
+
+def matmul_topk_emulated(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
+                         allowed_mask=None, slice_len: int = TOPK_SLICE):
+    """K6 in its own order: the logits of the folded prologue's A (K3's
+    stream writes each once), capped, masked columns -inf; per row, each
+    slice of `topk_slices(N, slice_len)` selected by
+    `block_topk_emulated`, the slices' lists round-tripped through (value,
+    index) and selected once more when there are several.
+    Returns (values f32, indices int32) [M, k_top], dead entries (-inf,
+    0)."""
+    if prologue_norm is not None:
+        a = prenorm_fixed_order(a, prologue_norm)
+    logits = _product_plain(a, w)
+    if final_cap:
+        logits = final_cap * torch.tanh(logits / final_cap)
+    if allowed_mask is not None:
+        logits = logits.masked_fill(~allowed_mask.bool(), float("-inf"))
+    logits = logits.float().numpy()
+    m, n = logits.shape
+    vals = np.empty((m, k_top), np.float32)
+    idxs = np.empty((m, k_top), np.int32)
+    cols = np.arange(n, dtype=np.int32)
+    for r in range(m):
+        lists = [block_topk_emulated(
+            topk_keys(logits[r, s.start:s.stop], cols[s.start:s.stop]), k_top)
+            for s in topk_slices(n, slice_len)]
+        if len(lists) > 1:
+            v, i = _key_entries(np.concatenate(lists))
+            lists = [block_topk_emulated(topk_keys(v, i), k_top)]
+        v, i = _key_entries(lists[0])
+        vals[r] = v
+        idxs[r] = np.where(v == -np.inf, 0, i)
+    return torch.from_numpy(vals), torch.from_numpy(idxs)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
@@ -936,7 +1070,7 @@ def _aligned(t):
 def _a_operand(a: torch.Tensor, k: int, prologue_norm, scratch=False):
     """(A, norm, scratch) as the kernel takes them: f32 A with a norm, else
     bf16 A; with `scratch`, a bf16 [M, K] scratch for a norm pass to write
-    the normalized rows to (the prefill tile's and K6's entries)."""
+    the normalized rows to (the prefill tile's entries)."""
     buf = None
     if prologue_norm is not None:
         _cuda.check(a, "a", torch.float32)
@@ -1089,11 +1223,40 @@ def _top1_cuda(a, w, final_cap, prologue_norm, allowed_mask, need_prob):
     return tok, prob
 
 
+def topk_slices(n: int, slice_len: int = TOPK_SLICE) -> list[range]:
+    """The entries of a row each block of K6's selection takes: slices of
+    `slice_len` consecutive entries, the last one ragged."""
+    return [range(lo, min(lo + slice_len, n))
+            for lo in range(0, n, slice_len)]
+
+
+def _select_scratch(m, n, k_top, device):
+    """The selection's lists [M, slices, k_top] (values, indices), its
+    slice count and the device's tickets; raises where the row's last
+    block could not hold the lists."""
+    slices = len(topk_slices(n))
+    if slices * k_top > TOPK_MAX_MERGE:
+        raise ValueError(f"top-k of {n} entries a row: {slices} slices of "
+                         f"k_top {k_top} exceed {TOPK_MAX_MERGE}")
+    part_v = torch.empty(m, slices, k_top, dtype=torch.float32,
+                         device=device)
+    part_i = torch.empty(m, slices, k_top, dtype=torch.int32, device=device)
+    tickets, _ = _device_scratch(device, tickets=m)
+    return part_v, part_i, slices, tickets
+
+
 def topk_merge(part_v, part_i, k_top):
-    """K6's merge pass alone on CUDA: part_v f32 / part_i int32
-    [M, blocks, k_top], each block's list sorted -> ([M, k_top]) x 2."""
+    """K6's selection alone on CUDA, as a merge: part_v f32 / part_i int32
+    [M, blocks, k_top] -> the k_top best of each row by (value descending,
+    index ascending), ([M, k_top]) x 2; dead entries (-inf) leave with
+    index 0."""
     if not part_v.is_cuda:
         return topk_merge_plain(part_v, part_i, k_top)
+    return _merge_cuda(part_v, part_i, k_top)
+
+
+def _merge_cuda(part_v, part_i, k_top):
+    """topk_merge's kernel path: checks, allocates and launches."""
     m, blocks, k = part_v.shape
     if k != k_top or not 1 <= k_top <= MAX_TOPK:
         raise ValueError(f"topk_merge: lists of {k}, k_top {k_top}")
@@ -1101,8 +1264,11 @@ def topk_merge(part_v, part_i, k_top):
     _cuda.check(part_i, "part_i", torch.int32, part_v.shape)
     vals = torch.empty(m, k_top, dtype=torch.float32, device=part_v.device)
     idxs = torch.empty(m, k_top, dtype=torch.int32, device=part_v.device)
+    sv, si, slices, tickets = _select_scratch(m, blocks * k_top, k_top,
+                                              part_v.device)
     TOPK_MERGE.launch(part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-                      idxs.data_ptr(), m, blocks, k_top)
+                      idxs.data_ptr(), m, blocks, k_top, sv.data_ptr(),
+                      si.data_ptr(), tickets.data_ptr(), slices)
     return vals, idxs
 
 
@@ -1133,21 +1299,27 @@ def matmul_topk(a, w, k_top, *, final_cap=0.0, prologue_norm=None,
         return matmul_topk_plain(a, w, k_top, final_cap=final_cap,
                                  prologue_norm=prologue_norm,
                                  allowed_mask=allowed_mask)
+    return _topk_cuda(a, w, k_top, final_cap, prologue_norm, allowed_mask)
+
+
+def _topk_cuda(a, w, k_top, final_cap, prologue_norm, allowed_mask):
+    """matmul_topk's kernel path: checks, allocates and launches the head
+    (the final norm folded in, as K3's) and its selection."""
     codec, b_ptr, inv_ptr, zp_ptr = _b_operand(w, "matmul_topk")
-    a, norm, a_scratch = _a_operand(a, w.k, prologue_norm, scratch=True)
+    a, norm, _ = _a_operand(a, w.k, prologue_norm)
     m = a.shape[0]
     allowed_mask = _mask_operand(allowed_mask, w.n)
-    part_v = torch.empty(m, TOPK_BLOCKS, k_top, dtype=torch.float32,
-                         device=a.device)
-    part_i = torch.empty(m, TOPK_BLOCKS, k_top, dtype=torch.int32,
-                         device=a.device)
+    logits = torch.empty(m, w.n, dtype=torch.float32, device=a.device)
+    part_v, part_i, slices, tickets = _select_scratch(m, w.n, k_top,
+                                                      a.device)
     vals = torch.empty(m, k_top, dtype=torch.float32, device=a.device)
     idxs = torch.empty(m, k_top, dtype=torch.int32, device=a.device)
     TOPK[codec].launch(
         a.data_ptr(), _cuda.ptr(norm), b_ptr, inv_ptr, zp_ptr,
         float(w.scale), float(final_cap), _cuda.ptr(allowed_mask), k_top,
-        _cuda.ptr(a_scratch), part_v.data_ptr(), part_i.data_ptr(),
-        vals.data_ptr(), idxs.data_ptr(), m, w.n, w.k, TOPK_BLOCKS)
+        logits.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        tickets.data_ptr(), vals.data_ptr(), idxs.data_ptr(), m, w.n, w.k,
+        TOPK_BLOCKS, slices)
     return vals, idxs
 
 

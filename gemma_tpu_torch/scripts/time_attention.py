@@ -1,5 +1,5 @@
-"""Time the attention kernels (K4, K5, K8, K10) of a checkout of the port
-on the card, so that two checkouts can be compared in one run:
+"""Time the attention kernels (K4, K5, K8, K10, K11) of a checkout of the
+port on the card, so that two checkouts can be compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_attention.py [--root DIR]
 
@@ -13,6 +13,11 @@ caches of random rows, batch 4:
     in the kernel) at positions 300, 450, 600, 700 with slot 2 invalid,
     and K10 (decode_attention) at the same positions, on the global pool:
     i8, bf16 and f32 pools at 2B, bf16 at 9B and 27B;
+  - K11 (decode_attention_write under GEMMA_SBLOCK_DECODE=1) beside K8 on
+    the same inputs, at those positions on both pools (where
+    `pick_s_block` takes K11 for the pool: i8 on a seq_len 8191 cache,
+    whose global pool has 128-row blocks and whose local one none), and at
+    batch 1, position 8000 (8001 live rows) on the global pool;
   - K5 (flash_prefill_attention) on a 512-token chunk: at positions 0 and
     512 on the global pool, 3584 on the global pool and 4352 on the local
     one (its live range wraps the 4608-row ring), for i8, bf16 and f32
@@ -45,12 +50,12 @@ def own_timer():
     return module.time_ms
 
 
-def random_cache(torch, cfg, kind, gen):
-    """A batch-4, seq_len 8192 cache of `kind` filled with random rows (i8
-    codes under scales |N(0, 0.02)|, else N(0, 0.5)), as chip_smoke.py's."""
+def random_cache(torch, cfg, kind, gen, b=4, seq_len=8192):
+    """A cache of `kind` filled with random rows (i8 codes under scales
+    |N(0, 0.02)|, else N(0, 0.5)), as chip_smoke.py's."""
     from gemma_tpu_torch.models.kv_cache import KVCache
 
-    cache = KVCache.create(cfg, 4, 8192, kind=kind, local_slack=512,
+    cache = KVCache.create(cfg, b, seq_len, kind=kind, local_slack=512,
                            device="cuda")
     for pool, sc in ((cache.kv, cache.kv_scale),
                      (cache.kv_local, cache.kv_local_scale)):
@@ -104,6 +109,8 @@ def cases(torch, model, cfg, kinds, time_ms, out):
         out[f"K10 {kind} {model}"] = time_ms(
             lambda: da.decode_attention(cache, 1, q_enc, pos, w_glob,
                                         cfg.att_cap))
+        sblocked(torch, da, cfg, kind, model, cache, gen, time_ms, out, rope,
+                 q_raw, kv_raw, pos, valid)
         starts = ((0, 1, w_glob), (512, 1, w_glob), (3584, 1, w_glob),
                   (4352, 0, w_loc)) if model == "2B" else ((512, 1, w_glob),)
         for start, layer, window in starts:
@@ -115,6 +122,44 @@ def cases(torch, model, cfg, kinds, time_ms, out):
                     cache, layer, q, positions, window, cfg.att_cap), 5)
         del cache
         torch.cuda.empty_cache()
+
+
+def sblocked(torch, da, cfg, kind, model, cache, gen, time_ms, out, rope,
+             q_raw, kv_raw, pos, valid):
+    """K11 beside K8 on the same inputs: batch 4 on both pools (i8 on a
+    seq_len 8191 cache), batch 1 at position 8000 on the global pool."""
+    dev = torch.device("cuda")
+    lc = cfg.layer_configs[0]
+    if kind == "i8":
+        cache = random_cache(torch, cfg, kind, gen, seq_len=8191)
+    one = random_cache(torch, cfg, kind, gen, b=1,
+                       seq_len=8191 if kind == "i8" else 8192)
+    q1 = torch.randn(1, 1, lc.heads, lc.qkv_dim, generator=gen, device=dev)
+    kv1 = torch.randn(1, 1, lc.kv_heads, 2, lc.qkv_dim, generator=gen,
+                      device=dev)
+    cases = [("B4", cache, layer, q_raw, kv_raw, pos, valid)
+             for layer in (1, 0)]
+    cases.append(("B1 pos 8000", one, 1, q1, kv1,
+                  torch.tensor([[8000]], device=dev), None))
+    old = os.environ.get("GEMMA_SBLOCK_DECODE")
+    try:
+        for label, c, layer, q, kv, p, v in cases:
+            if da._s_block(c, layer) is None:
+                continue
+            window = cfg.attention_window_sizes[layer]
+            pool = "global" if layer else "local"
+            for switch, name in (("1", "K11"), ("0", "K8")):
+                os.environ["GEMMA_SBLOCK_DECODE"] = switch
+                out[f"{name} {kind} {model} {label} {pool}"] = time_ms(
+                    lambda: da.decode_attention_write(
+                        c, layer, q, p, kv[..., 0, :], kv[..., 1, :], window,
+                        cfg.att_cap, v, rope))
+    finally:
+        if old is None:
+            os.environ.pop("GEMMA_SBLOCK_DECODE", None)
+        else:
+            os.environ["GEMMA_SBLOCK_DECODE"] = old
+    del one
 
 
 def main() -> int:

@@ -1,7 +1,8 @@
-"""Decode speed of three serving paths of chip_smoke.py (A: Gemma2-2B with
-i8 weights, 26 layers; I: Gemma2-27B with i4 weights, 46 layers; J:
-Gemma2-9B with nuq4 weights, 42 layers) for a checkout of the port on the
-card, so that two checkouts can be compared in one run:
+"""Decode speed of five serving paths of chip_smoke.py (A: Gemma2-2B with
+i8 weights, 26 layers; E: A sampled, top_k 64, temperature 0.8, seed 1;
+N: A under GEMMA_SBLOCK_DECODE=1; I: Gemma2-27B with i4 weights, 46
+layers; J: Gemma2-9B with nuq4 weights, 42 layers) for a checkout of the
+port on the card, so that two checkouts can be compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_decode.py [--root DIR] [--runs N]
 
@@ -13,9 +14,10 @@ prompts of 17, 130, 300 and 700 tokens.  Per path: `--runs` calls of
 generate_batch with 16 new tokens after a warm-up, each one's decode
 tok/s (TimingInfo); then two chunks of 4 decode steps under
 torch.profiler: the host wall per step, and per step the device time and
-the number of device activities (kernels, copies, sets) of the decode
-GEMMs (K1, K2: any kernel of the decode tile) and of the rest (the port's
-other kernels and the torch ops).  Prints one JSON line.
+the number of device activities (kernels, copies, sets) by kernel: the
+decode GEMMs (K1, K2: any kernel of the decode tile), the heads (K3; K6
+with its selection), decode attention (K4, K8, K11), the prologue pass
+and the rest (the draw, the torch ops).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -28,9 +30,17 @@ import sys
 import time
 
 
+CLASSES = (("top1_", "K3"), ("topk_", "K6"), ("decode_sblocked_", "K11"),
+           ("decode_attention_", "K4"), ("decode_write_attend_", "K8"),
+           ("prenorm_kernel", "prenorm"))
+
+
 def kernel_class(name: str) -> str:
     if name.startswith("void mm_") and "_kernel<" in name:
         return "K2" if "true>" in name else "K1"
+    for key, cls in CLASSES:
+        if key in name:
+            return cls
     return "other"
 
 
@@ -59,11 +69,19 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     res = {"root": root, "card": card}
     gen = torch.Generator().manual_seed(3)
-    for label, config, kind in (("A", config_gemma2_2b(), "i8"),
-                                ("I", config_gemma2_27b(), "i4"),
-                                ("J", config_gemma2_9b(), "nuq4")):
-        params = synth_params(config, kind=kind, seed=0, device="cuda")
-        engine = GemmaEngine(params, config, RuntimeConfig(seq_len=8192))
+    sampled = dict(top_k=64, temperature=0.8, seed=1)
+    params = None
+    for label, config, kind, extra, env in (
+            ("A", config_gemma2_2b(), "i8", {}, "0"),
+            ("E", config_gemma2_2b(), "i8", sampled, "0"),
+            ("N", config_gemma2_2b(), "i8", {}, "1"),
+            ("I", config_gemma2_27b(), "i4", {}, "0"),
+            ("J", config_gemma2_9b(), "nuq4", {}, "0")):
+        os.environ["GEMMA_SBLOCK_DECODE"] = env
+        if label not in ("E", "N"):  # E and N reuse A's weights
+            params = synth_params(config, kind=kind, seed=0, device="cuda")
+        engine = GemmaEngine(params, config,
+                             RuntimeConfig(seq_len=8192, **extra))
         prompts = [torch.randint(2, config.vocab_size, (n,),
                                  generator=gen).tolist()
                    for n in (17, 130, 300, 700)]
@@ -91,7 +109,8 @@ def main() -> int:
                 prev, pos = toks[:, -1].contiguous(), pos + 4
             torch.cuda.synchronize()
             wall = (time.monotonic() - t0) * 1e3
-        device = {"K1": 0.0, "K2": 0.0, "other": 0.0}
+        device = dict.fromkeys(["K1", "K2", *(c for _, c in CLASSES),
+                                "other"], 0.0)
         count = dict.fromkeys(device, 0)
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -104,8 +123,11 @@ def main() -> int:
             "device_activities_per_step": {
                 k: v / steps for k, v in count.items()},
         }
-        del engine, params, cache
+        del engine, cache
+        if label not in ("A", "E"):
+            params = None
         torch.cuda.empty_cache()
+    os.environ.pop("GEMMA_SBLOCK_DECODE", None)
     print(json.dumps(res), flush=True)
     return 0
 

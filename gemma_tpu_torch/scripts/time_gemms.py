@@ -24,7 +24,8 @@ batch 4 (M = 4) unless named prefill:
   - K3 over the 256000-row embedding with the final norm and the cap,
     with prob, for every codec at Gemma2-2B's K 2304 (i8 also without
     prob), i4 at Gemma2-27B's K 4608 and nuq4 at Gemma2-9B's K 3584; K6
-    (k_top 64) for i8 and i4 at Gemma2-2B's;
+    (k_top 64, the final norm and the cap) beside each on the same
+    inputs (a checkout whose K6 chains a prologue pass is timed with it);
   - the 2048 rows of a prefill round (4 x 512) for i8, bf16 and i4
     weights (K1 qkv, att_w and linear, K2; bf16 A, no passes, as the
     prefill branch calls them).
@@ -158,7 +159,8 @@ def decode_cases(torch, mm, synth_quant, gen, dev, out, model, kind,
 
 def head_cases(torch, mm, synth_quant, gen, dev, out):
     """K3 for every codec at Gemma2-2B's K (i8 also without prob), i4 at
-    Gemma2-27B's and nuq4 at Gemma2-9B's; K6 for i8 and i4."""
+    Gemma2-27B's and nuq4 at Gemma2-9B's; K6 (k_top 64) beside each on the
+    same inputs."""
     b = 4
     for model, kind, probs in (
             *(("2B", k, (True, False) if k == "i8" else (True,))
@@ -172,9 +174,8 @@ def head_cases(torch, mm, synth_quant, gen, dev, out):
             tag = f"K3 {kind} {model}" + ("" if prob else " no prob")
             out[tag] = lambda x=x, h=head, n=norm, p=prob: mm.matmul_top1(
                 x, h, final_cap=30.0, prologue_norm=n, need_prob=p)
-        if model == "2B" and kind in ("i8", "i4"):
-            out[f"K6 {kind} k64"] = lambda x=x, h=head, n=norm: \
-                mm.matmul_topk(x, h, 64, final_cap=30.0, prologue_norm=n)
+        out[f"K6 {kind} {model} k64"] = lambda x=x, h=head, n=norm: \
+            mm.matmul_topk(x, h, 64, final_cap=30.0, prologue_norm=n)
 
 
 def prefill_cases(torch, mm, synth_quant, gen, dev, out):

@@ -7,9 +7,10 @@ Phases (any failure exits non-zero before the result line):
   1. device: nvidia-smi name and power limit, torch/CUDA versions, and the
      build of every kernel in gemma_tpu_torch/csrc (parallel nvcc), timed,
      with the registers and spills of each attention kernel, the decode
-     tile and the heads (-Xptxas -v; a spill in K5, in the Gemma2 (G = 2)
-     instantiations of K4 / K8 / K10 / K11, in the decode tile of K1 / K2
-     / K12, in K3 or in K6 and its selection fails);
+     tile, the heads and K13 (-Xptxas -v; a spill in K5, in the Gemma2
+     (G = 2) instantiations of K4 / K8 / K10 / K11, in K9, in the decode
+     tile of K1 / K2 / K12, in K3, in K6 and its selection or in K13
+     fails);
   2. kernels vs their plain PyTorch versions on the card, at the shapes of
      the serving paths (Gemma2-2B, batch 4), each error printed beside its
      tolerance, each timed with CUDA events over a CUDA graph beside its
@@ -48,8 +49,10 @@ Phases (any failure exits non-zero before the result line):
      long position (3584) and with per-slot prefixes, each K4 / K5 / K8 /
      K10 case repeated for the same bits (`phase_attention`); and the
      split-weight decode kernels at both head shapes: write + attend
-     (in-kernel RoPE, and pre-encoded), the row write alone, attention
-     alone, and the S-blocked write + attend (K11: batch 4 on both pools,
+     (in-kernel RoPE, and pre-encoded), the row write alone from raw
+     rows (K9: f32 strided views, f32 and bf16 rows, every pool kind,
+     bit for bit, repeated and replayed in a graph, `check_kv_write`),
+     attention alone, and the S-blocked write + attend (K11: batch 4 on both pools,
      and batch 1 at 8001 live rows at Gemma2-2B's, -9B's and -27B's head
      shapes, each case repeated and replayed in a graph bit for bit);
      the stacked GEMMs (K12:
@@ -62,7 +65,8 @@ Phases (any failure exits non-zero before the result line):
      Gemma2-27B's and nuq4 at Gemma2-9B's, beside F.linear (dense kinds)
      or torch._weight_int4pack_mm (i4), then ragged rows, the passes, a
      stacked layer and one-hot reads at M = 130 (`phase_prefill` says
-     what); and the nuq4 gather diagnostic's three GEMMs (K13);
+     what); and the nuq4 gather diagnostic's three GEMMs (K13, M = 16
+     and 4, each repeated for the same bits, beside F.linear);
   3. a 2-layer model at Gemma2-2B width (synthetic weights): prefill +
      one decode step over an i8 cache, last logits on the card vs the
      plain path on the CPU, for i8, sfp, i4 and nuq4 weights, and for
@@ -191,7 +195,7 @@ def main() -> int:
     print(f"[1] built {len(list(_cuda.CSRC.glob('*.cu')))} sources in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
     ptxas_report(logs, ("flash_attention.cu", "decode_attention.cu",
-                        "matmul_decode.cu", "matmul.cu"))
+                        "matmul_decode.cu", "matmul.cu", "nuq_diag.cu"))
 
     results = phase_kernels(torch)
     phase_two_layers(torch)
@@ -305,9 +309,11 @@ for _kind in ("i8", "bf16", "f32"):
         _no_sdpa + ", and no in-place row write or RoPE")
     LIBRARY_NOTE[f"decode_attend_{_kind}"] = _no_sdpa
     LIBRARY_NOTE[f"kv_write_{_kind}"] = (
-        "codes and scales are two index_copy_ calls" if _kind == "i8" else
-        "index_copy_ of the same rows at their flat indices (one call, "
-        "indices made beforehand)")
+        "no single call: the library composition is _pool_rows of the "
+        "stacked rows (" + ("quantize_rows's torch ops" if _kind == "i8"
+                            else "a cast") + "), then index_copy_ of the rows"
+        + (" and of the scales" if _kind == "i8" else "")
+        + " at their flat indices (made beforehand)")
 _INT4PACK_CALL = "torch._weight_int4pack_mm"
 _INT4PACK = (f"{_INT4PACK_CALL} on the same A in bf16 and the codes repacked "
              "(zero = min + 8 * scale; no prologue, scale 1)")
@@ -404,6 +410,11 @@ for _kind in WEIGHT_KINDS:
         "redesigned on K3's stream, the final norm folded in (no prologue "
         "pass): it writes the capped logits, and topk_merge selects")
 for _kind in ("i8", "bf16", "f32"):
+    CHANGED[f"kv_write_{_kind}"] = (
+        "redesigned: takes the raw f32 or bf16 k and v through their "
+        "strides and encodes them itself (i8 by K4 / K8's encode), one "
+        "warp a row, four rows a block, one launch a layer (no stack or "
+        "torch-op quantize before it)")
     CHANGED[f"decode_sblocked_{_kind}"] = (
         "redesigned on K4's body: runs of the live positions from the ring, "
         "the window and the head count alone, one block each, loads in "
@@ -423,15 +434,24 @@ for _v, _what in (("d1", "codes read as int8"),
         f"scripts/proto_nuq_diag.py:26 (kern, pallas_call :64), variant "
         f"{_v.upper()}")
     LIBRARY_NOTE[f"nuq_diag_{_v}"] = (
-        f"no single PyTorch call multiplies bf16 A by {_what}")
+        f"torch.nn.functional.linear on A and the variant's B ({_what}) "
+        "made beforehand as bf16")
+    CHANGED[f"nuq_diag_{_v}"] = (
+        "redesigned on the decode tile: codes as mma.sync's 16-row operand "
+        "through its register ring, A staged once a block, warps and "
+        "cluster splits from the shapes (diag_split)"
+        + ("; the block's table slices staged once as bf16" if _v == "d3"
+           else ""))
 
 
 def _held(name: str) -> bool:
     """K5, the G = 2 instantiations (every Gemma2 head shape) of K4's body
     with K8, K10 and K11, the decode tile of K1 / K2 / K12, the greedy head
-    K3 and the top-k head K6 with its selection: the kernels the serving
-    paths run that this script holds to no spill."""
-    return name.startswith(("flash_attention_", "mm_", "top1_", "topk_")) \
+    K3 and the top-k head K6 with its selection, the row write K9 and the
+    diagnostic K13 on the decode tile: the kernels this script holds to
+    no spill."""
+    return name.startswith(("flash_attention_", "mm_", "top1_", "topk_",
+                            "kv_write_", "nuq_diag_")) \
         or "topk_merge_kernel" in name or (
             name.startswith(("decode_attention_", "decode_write_attend_",
                              "decode_attend_", "decode_sblocked_"))
@@ -450,9 +470,12 @@ def ptxas_report(logs: dict, sources, held=_held) -> None:
             if m:
                 name = m.group(1)
                 k = re.search(r"\d+(\w+_kernel)I(.*)EEv", name)
+                t = re.search(r"\d+(\w+_kernel)I(f|13__nv_bfloat16)Ev", name)
                 if k:
                     targs = re.findall(r"L[ib](\d+)E?", k.group(2))
                     name = f"{k.group(1)}<{','.join(targs)}>"
+                elif t:  # a kernel templated on its rows' type (K9)
+                    name = f"{t.group(1)}<{'float' if t.group(2) == 'f' else 'bf16'}>"
                 entry = [name, None, None]
                 seen.append(entry)
                 continue
@@ -931,6 +954,7 @@ def phase_kernels(torch):
 
     phase_attention(torch, res, cfg, ("i8", "bf16", "f32"))
     phase_split_attention(torch, res, cfg, ("i8", "bf16", "f32"))
+    check_kv_write(torch, res, cfg)
     # Gemma2-27B's head shape (32 query heads over 16 KV heads of 128, the
     # query scale 1/sqrt(model_dim / heads)): the D=128 instantiations, on
     # a 2-layer cut of its caches (K4 and K5 of every pool kind; the split
@@ -941,6 +965,7 @@ def phase_kernels(torch):
         attention_window_sizes=big.attention_window_sizes[:2])
     phase_attention(torch, res, big2, ("i8", "bf16", "f32"), primary=False)
     phase_split_attention(torch, res, big2, ("bf16",), primary=False)
+    check_kv_write(torch, res, big2, primary=False)
     phase_sblocked_long(torch, res)
     return res
 
@@ -1110,16 +1135,13 @@ def _set_env(name, value):
 
 
 def phase_split_attention(torch, res, cfg, kinds, primary=True):
-    """K8, K9, K10 and K11 against their plain versions at `cfg`'s head
+    """K8, K10 and K11 against their plain versions at `cfg`'s head
     shape, batch 4 at positions 300, 450, 600, 700 (K4's live rows) over
     both pools (layer 0 local, layer 1 global) of a seq_len=8192 cache of
     each KV kind in `kinds`:
       - K8 with RoPE in the kernel and one invalid slot on the global
         pool, and pre-encoded (torch-op RoPE, i8 rows quantized by torch
         ops) on the local pool;
-      - K9: the kernel alone on pre-made rows (the plain version quantizes
-        and writes), with `index_copy_` of the same rows as the library
-        call for bf16 and f32 pools (i8 also writes the scales: two calls);
       - K10 on both pools;
       - K11 (GEMMA_SBLOCK_DECODE=1) for bf16 and f32 on both pools (bf16
         blocks of 48 and 272 rows at Gemma2-2B's shape, f32 of 16), and
@@ -1130,8 +1152,8 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
     K11 rounds its exp weights against each block's max where the plain
     version rounds against the running max (the JAX suite's bound between
     the S-blocked and the one-shot kernel is 5e-3 of max|out| + 5e-3 of
-    |out|): 1e-2 of max|out|.  K9 writes exactly what the plain version
-    writes.  Written rows as check_written_rows says."""
+    |out|): 1e-2 of max|out|.  Written rows as check_written_rows says.
+    K9 is check_kv_write's."""
     from gemma_tpu_torch.ops import decode_attention as da
     from gemma_tpu_torch.ops.ops import create_inv_timescale
 
@@ -1204,53 +1226,6 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
                    got[sel], want[sel], rel_tol(want[sel], 1e-2), f, p,
                    att_bytes(kind, item, live, True), ops_of(live),
                    primary=primary and layer == 1)
-        # --- K9 ---
-        name = f"kv_write_{kind}"
-        ck, cp = cache.copy(), cache.copy()
-        da.kv_write_decode(ck, 1, pos, k_raw, v_raw, valid)
-        da.kv_write_decode_plain(cp, 1, pos, k_raw, v_raw, valid)
-        for a, w in ((ck.kv, cp.kv), (ck.kv_scale, cp.kv_scale)):
-            if a is not None and not torch.equal(a, w):
-                fail(f"{name}: the pool differs from the plain version's")
-        if not torch.equal(ck.kv_local, cache.kv_local):
-            fail(f"{name}: a write to the global pool moved the local one")
-        new, nsc = da._pool_rows(ck, torch.stack([k_raw[:, 0], v_raw[:, 0]],
-                                                 dim=1))
-        pool, idx, ring = ck.pool(1)
-        sc = ck.pool_scale(1)
-        nl, s_alloc = pool.shape[1], pool.shape[4]
-        pos32 = pos.to(torch.int32)
-        kern = da.KV_WRITE[pool.dtype]
-        f = lambda: kern.launch(  # noqa: E731
-            new.data_ptr(), 0 if nsc is None else nsc.data_ptr(),
-            pool.data_ptr(), 0 if sc is None else sc.data_ptr(),
-            pos32.data_ptr(), valid.data_ptr(), b, nl, idx, kvh, s_alloc, hd,
-            ring)
-        p = lambda: da.kv_write_decode_plain(  # noqa: E731
-            cp, 1, pos, k_raw, v_raw, valid)
-        bi = torch.arange(b, device=dev)
-        rows = torch.where(valid[:, 0], pos[:, 0] % ring,
-                           torch.full_like(pos[:, 0], ring))
-        library = None
-        if kind != "i8":
-            # One call, the same function on the same rows: index_copy_ of
-            # the 2*KVH rows of each slot at their flat row indices.
-            panel = ((torch.arange(b, device=dev)[:, None, None] * nl + idx)
-                     * 2 + torch.arange(2, device=dev)[None, :, None]) \
-                * kvh + torch.arange(kvh, device=dev)[None, None, :]
-            flat = (panel * s_alloc + rows[:, None, None]).reshape(-1)
-            flat_pool = pool.view(-1, hd)
-            src = new.reshape(-1, hd)
-            library = lambda: flat_pool.index_copy_(0, flat, src)  # noqa
-        def written(c):  # [B, 2, KVH, D]: the rows K9 writes
-            return c.pool(1)[0][:, idx][bi, :, :, rows]
-
-        record(res, torch, name, f"B=4 {shape} global ring 8192, 1 invalid "
-               "slot (kernel on pre-made rows)", written(ck), written(cp),
-               0.0, f, p,
-               2 * new.numel() * item + (4 * 2 * nsc.numel() if nsc is not
-                                         None else 0), 0,
-               primary=primary, library=library)
         # --- K10 ---
         name = f"decode_attend_{kind}"
         for layer, pool_name in ((1, "global ring 8192"),
@@ -1313,6 +1288,114 @@ def phase_split_attention(torch, res, cfg, kinds, primary=True):
         finally:
             _set_env("GEMMA_SBLOCK_DECODE", old)
         del sb_cache
+    torch.cuda.empty_cache()
+
+
+def check_kv_write(torch, res, cfg, primary=True):
+    """K9, the ring-row write from the raw rows, at `cfg`'s head shape on
+    the global pool (layer 1) of a seq_len=8192 cache of each KV kind,
+    batch 4 at positions 300, 450, 600, 700 with slot 2 invalid: f32 k and
+    v as strided views into one interleaved [B, 1, KVH, 2, D] row (the
+    split kv GEMM's layout; path M's v), contiguous f32 rows (path M's k,
+    RoPE's output) and bf16 rows.  The pool and its scales must equal the
+    plain version's bit for bit (an i8 row's codes and scale as
+    quantize_rows makes them), the local pool stay as it was, and a
+    repeat and two replays of a CUDA graph of the call write the same
+    bits.  Timed beside the library composition on the same rows:
+    `_pool_rows` (the cast, or quantize_rows) of the stacked rows, then
+    index_copy_ of the rows (and for i8 of the scales) at their flat
+    indices made beforehand."""
+    from gemma_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9191)
+    lc = cfg.layer_configs[0]
+    heads, kvh, hd = lc.heads, lc.kv_heads, lc.qkv_dim
+    b, layer = 4, 1
+    shape = f"H={heads} KVH={kvh} D={hd}"
+    pos = torch.tensor([[300], [450], [600], [700]], device=dev)
+    valid = torch.tensor([[True], [True], [False], [True]], device=dev)
+    kv_raw = torch.randn(b, 1, kvh, 2, hd, generator=gen, device=dev) * 2
+    kv_raw[0, 0, 1, 0] = 0.0  # an all-zero K row: scale 0
+    rows = {"f32 strided views": (kv_raw[..., 0, :], kv_raw[..., 1, :]),
+            "f32 contiguous": (kv_raw[..., 0, :].contiguous(),
+                               kv_raw[..., 1, :].contiguous()),
+            "bf16": (kv_raw[..., 0, :].to(torch.bfloat16).contiguous(),
+                     kv_raw[..., 1, :].to(torch.bfloat16).contiguous())}
+    for kind in ("i8", "bf16", "f32"):
+        name = f"kv_write_{kind}"
+        cache = random_cache(torch, cfg, kind, gen)
+        for what, (k, v) in rows.items():
+            ck, cp = cache.copy(), cache.copy()
+            f = lambda: da.kv_write_decode(ck, layer, pos, k, v, valid)  # noqa
+            p = lambda: da.kv_write_decode_plain(  # noqa: E731
+                cp, layer, pos, k, v, valid)
+            label = f"B=4 {shape} global ring 8192, {what}, 1 invalid slot"
+            before = da.KV_WRITE[ck.kv.dtype].launches
+            f()
+            if da.KV_WRITE[ck.kv.dtype].launches - before != 1:
+                fail(f"{name} {label}: kv_write_decode did not launch K9 "
+                     "once")
+            p()
+
+            def same(tag):
+                for a, w in ((ck.kv, cp.kv), (ck.kv_scale, cp.kv_scale)):
+                    if a is not None and not torch.equal(a, w):
+                        fail(f"{name} {label}: {tag}: the pool differs from "
+                             "the plain version's")
+                if not torch.equal(ck.kv_local, cache.kv_local):
+                    fail(f"{name} {label}: a write to the global pool moved "
+                         "the local one")
+
+            same("first call")
+            f()
+            same("a repeat")
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                f()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                f()
+            for _ in range(2):
+                graph.replay()
+            torch.cuda.synchronize()
+            same("two graph replays")
+            del graph
+
+            pool, idx, ring = ck.pool(layer)
+            nl, s_alloc = pool.shape[1], pool.shape[4]
+            bi = torch.arange(b, device=dev)
+            ring_rows = torch.where(valid[:, 0], pos[:, 0] % ring,
+                                    torch.full_like(pos[:, 0], ring))
+            panel = ((bi[:, None, None] * nl + idx) * 2
+                     + torch.arange(2, device=dev)[None, :, None]) * kvh \
+                + torch.arange(kvh, device=dev)[None, None, :]
+            flat = (panel * s_alloc + ring_rows[:, None, None]).reshape(-1)
+            flat_pool = pool.view(-1, hd)
+            sc = ck.pool_scale(layer)
+            flat_sc = None if sc is None else sc.view(-1)
+
+            def library():
+                new, nsc = da._pool_rows(
+                    ck, torch.stack([k[:, 0], v[:, 0]], dim=1))
+                flat_pool.index_copy_(0, flat, new.reshape(-1, hd))
+                if nsc is not None:
+                    flat_sc.index_copy_(0, flat, nsc.reshape(-1))
+
+            def written(c):  # [B, 2, KVH, D]: the rows K9 writes
+                return c.pool(layer)[0][:, idx][bi, :, :, ring_rows]
+
+            library()
+            same("the library composition")
+            in_item = k.element_size()
+            record(res, torch, name, label, written(ck), written(cp), 0.0, f,
+                   p, 2 * b * kvh * hd * (in_item + ck.kv.element_size())
+                   + (2 * b * kvh * 4 if kind == "i8" else 0), 0,
+                   primary=primary and what == "f32 strided views",
+                   library=library)
+        del cache
     torch.cuda.empty_cache()
 
 
@@ -2484,30 +2567,46 @@ def phase_prefill(torch, res):
 def phase_k13(torch, res):
     """K13, the nuq4 gather diagnostic (gemma_tpu_torch/ops/nuq_diag.py),
     D1, D2 and D3 at its script's shape (M=16, K=2304, N=9216, codes
-    pre-offset below 128), and D1 and D2 again on codes over all 256
-    bytes, where they part; each against run_plain at K1's rule, 1e-3 of
-    max|out| (exact bf16 products, f32 sums in another order)."""
+    pre-offset below 128) and at the decode batch (M=4), and D1 and D2
+    again on codes over all 256 bytes, where they part; each against
+    run_plain at K1's rule, 1e-3 of max|out| (exact bf16 products, f32
+    sums in another order), a repeat giving the same bits, and timed
+    beside torch.nn.functional.linear on A and the variant's B made
+    beforehand as bf16."""
+    import torch.nn.functional as F
+
     from gemma_tpu_torch.ops import nuq_diag as diag
     from gemma_tpu_torch.scripts.proto_nuq_diag import make_inputs
 
-    m, k, n = 16, 2304, 9216
+    k, n = 2304, 9216
     dev = torch.device("cuda")
-    a, codes, tables = make_inputs(m, k, n, dev)
+    a16, codes, tables = make_inputs(16, k, n, dev)
     full = torch.randint(0, 256, (n, k), dtype=torch.uint8, device=dev,
                          generator=torch.Generator(device=dev).manual_seed(13))
-    for variant in diag.VARIANTS:
-        for c, what in ((codes, "codes < 128"), (full, "codes 0..255")):
-            if variant == "D3" and c is full:
-                continue
-            f = lambda: diag.run(a, c, tables, variant)  # noqa: E731
-            p = lambda: diag.run_plain(a, c, tables, variant)  # noqa: E731
-            want = p()
-            nbytes = m * k * 2 + n * k + m * n * 4 + (
-                tables.numel() * 4 if variant == "D3" else 0)
-            record(res, torch, f"nuq_diag_{variant.lower()}",
-                   f"M={m} K={k} N={n} {what}", f(), want,
-                   1e-3 * float(want.abs().max()), f, p, nbytes,
-                   2 * m * n * k, primary=c is codes)
+    for m in (16, 4):
+        a = a16[:m].contiguous()
+        for variant in diag.VARIANTS:
+            for c, what in ((codes, "codes < 128"), (full, "codes 0..255")):
+                if variant == "D3" and c is full:
+                    continue
+                f = lambda: diag.run(a, c, tables, variant)  # noqa: E731
+                p = lambda: diag.run_plain(a, c, tables, variant)  # noqa
+                want = p()
+                got = f()
+                if not torch.equal(got, f()):
+                    fail(f"nuq_diag_{variant.lower()} M={m} {what}: a repeat "
+                         "gave other bits")
+                bb = diag.b_operand(c, tables, variant)
+                lib = lambda: F.linear(a, bb)  # noqa: E731
+                nbytes = m * k * 2 + n * k + m * n * 4 + (
+                    tables.numel() * 4 if variant == "D3" else 0)
+                kw, splits = diag.diag_split(n, k, variant)
+                record(res, torch, f"nuq_diag_{variant.lower()}",
+                       f"M={m} K={k} N={n} {what} (kw {kw}, splits "
+                       f"{splits})", got, want,
+                       1e-3 * float(want.abs().max()), f, p, nbytes,
+                       2 * m * n * k, primary=m == 16 and c is codes,
+                       library=lib)
 
 
 def phase_draw(torch, res, cfg):
@@ -3064,9 +3163,13 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
         fail(f"path {label}: device busy {busy:.3f} ms exceeds the host wall "
              f"{wall:.3f} ms of the same chunks")
     launches = sum(counted.values()) / steps
+    # Every device activity of the window (the port's kernels, torch's
+    # kernels, copies, sets), per step.
+    activities = sum(e.count for e in kern) / steps
     print(f"[{label}] decode profile, {steps} steps in chunks of {k}: host "
           f"wall {wall / steps:.3f} ms/step, device busy {busy / steps:.3f} "
-          f"ms/step, idle share {1 - busy / wall:.3f}", flush=True)
+          f"ms/step, idle share {1 - busy / wall:.3f}, device activities "
+          f"{activities:.3f}/step", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[{label}]   "
               f"{e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
@@ -3082,7 +3185,8 @@ def profile_chunks(torch, engine, prompts, chunks: int = 2, k: int = 4,
     print(f"[{label}] one chunk of {k} under sync debug mode 'error': no "
           "host sync", flush=True)
     return {"wall_ms": wall / steps, "busy_ms": busy / steps,
-            "idle": 1 - busy / wall, "launches": launches}
+            "idle": 1 - busy / wall, "launches": launches,
+            "activities": activities}
 
 
 def _to_device(params, dev):
@@ -3123,6 +3227,8 @@ def counted_run(torch, fn):
              (da, "decode_attention_write_plain"),
              (da, "decode_attention_write_sblocked_plain"),
              (da, "kv_write_decode_plain"), (da, "decode_attention_plain"),
+             # the torch-op row encode: K9 (path M) and K8 encode in-kernel
+             (da, "_pool_rows"), (da, "quantize_rows"),
              (fa, "flash_prefill_attention_plain")}
     saved = {(mod, n): getattr(mod, n) for mod, n in plain}
 
@@ -3575,10 +3681,11 @@ def phase_split_paths(torch, cfg, prompts, counted_generate, sampled,
        against a prefill-only forward), 8 sampled; then 4 greedy tokens
        each over i8 and f32 KV (K8-i8, K8-f32).
     M. GEMMA_FUSED_DECODE=0, i8 weights, kv_kind="i8": RoPE in torch ops,
-       then K9-i8 and K10-i8; 8 tokens against the same run with the
-       switch unset (K4), 3 runs, two chunks under torch.profiler and one
-       under sync debug mode "error"; then 4 tokens each over bf16 and
-       f32 KV.
+       then K9-i8 (the raw rows encoded in the kernel: one launch a
+       layer) and K10-i8; 8 tokens against the same run with the switch
+       unset (K4), 3 runs, two chunks under torch.profiler (its device
+       activities a step printed) and one under sync debug mode "error";
+       then 4 tokens each over bf16 and f32 KV.
     N. GEMMA_SBLOCK_DECODE=1, the default runtime with fused i8 weights:
        the packed call routes to the split one and K11-bf16 (pick_s_block
        finds S blocks for both pools, so K11 takes both: runs of 128 rows);

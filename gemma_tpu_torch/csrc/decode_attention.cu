@@ -66,8 +66,10 @@
 // rounded to the compute type).  Run 0 writes the row.  The TPU kernel's
 // S block (pick_s_block) decides only whether K11 is taken.
 //
-// K9: one block per (b, k/v, h) copies the pool-typed row (and its scale)
-// to the ring row; nothing else of the pool moves.
+// K9: from the raw f32 or bf16 rows through their strides, one warp per
+// (b, k/v, h) row, four rows a block: 16-byte loads, the row encoded in
+// registers (i8 by the encode K4 and K8 run, I8Row) and written to its
+// ring row with its scale; nothing else of the pool moves.
 //
 // What bounds them on an H100: bytes.  Per call the attention kernels
 // must read the live K and V rows, 2*D*sizeof(T) bytes per live row per
@@ -75,7 +77,9 @@
 // B=4, 4 KV heads, D=256 and 2054 live rows over the slots that is 4.3 MB
 // (i8), 8.4 MB (bf16) or 16.8 MB (f32) -> 1.3, 2.5 or 5.0 us at 3.35 TB/s.
 // At decode sizes the K4 body is bound by latency instead: the global
-// loads, the new row's encode, and three cluster barriers.  Built with
+// loads, the new row's encode, and three cluster barriers.  K9 moves
+// B*2*KVH rows in and out, 41 KB at Gemma2-2B's batch 4 with f32 rows and
+// an i8 pool (~0.01 us): it is one launch's latency.  Built with
 // -fmad=false so RoPE and the norms round like the plain version's
 // separate multiplies and adds (the attention's own products use explicit
 // fused multiply-adds).
@@ -229,6 +233,18 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
+// The i8 row encode of ops/kv_quant.py:quantize_rows, the one K4, K8 and
+// K9 share: from the row's max |x| (a max: exact in any order),
+// scale = amax / 127 and inv = 1 / scale, 0 for an all-zero row (IEEE
+// division: the source builds without fast-math); a code is rint(x * inv),
+// round half to even as torch.round and jnp.rint.
+struct I8Row {
+  float scale, inv;
+  __device__ __forceinline__ explicit I8Row(float amax)
+      : scale(amax / 127.0f), inv(scale > 0.f ? 1.0f / scale : 0.f) {}
+  __device__ __forceinline__ float code(float x) const { return rintf(x * inv); }
+};
+
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -274,13 +290,13 @@ __device__ __forceinline__ NewRow encode_rows(const DecArgs& p, int b, int h,
   const int row = (p.valid == nullptr || p.valid[b]) ? pos % p.ring : p.ring;
   float new_sk = 1.f, new_sv = 1.f;  // the new row's scales (i8)
   if constexpr (kQuant) {
-    const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
-    const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
-    new_sk = ka / 127.0f;
-    new_sv = va / 127.0f;
+    const I8Row ek(block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red));
+    const I8Row ev(block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red));
+    new_sk = ek.scale;
+    new_sv = ev.scale;
     if (tid < D) {
-      sk[tid] = rintf(sk[tid] * (new_sk > 0.f ? 1.0f / new_sk : 0.f));
-      sv[tid] = rintf(sv[tid] * (new_sv > 0.f ? 1.0f / new_sv : 0.f));
+      sk[tid] = ek.code(sk[tid]);
+      sv[tid] = ev.code(sv[tid]);
     }
     if (writer && tid == 0) {
       p.scales[kbase * p.s_alloc + row] = new_sk;
@@ -340,13 +356,13 @@ __device__ __forceinline__ NewRow encode_rows(const SplitArgs& p, int b,
     const size_t kp = panel_of(p, b, 0, h), vp = panel_of(p, b, 1, h);
     if constexpr (kQuant) {
       if (p.pe_mode >= 0) {
-        const float ka = block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red);
-        const float va = block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red);
-        nr.sk = ka / 127.0f;
-        nr.sv = va / 127.0f;
+        const I8Row ek(block_reduce<NW, true>(tid < D ? fabsf(sk[tid]) : 0.f, red));
+        const I8Row ev(block_reduce<NW, true>(tid < D ? fabsf(sv[tid]) : 0.f, red));
+        nr.sk = ek.scale;
+        nr.sv = ev.scale;
         if (tid < D) {
-          sk[tid] = rintf(sk[tid] * (nr.sk > 0.f ? 1.0f / nr.sk : 0.f));
-          sv[tid] = rintf(sv[tid] * (nr.sv > 0.f ? 1.0f / nr.sv : 0.f));
+          sk[tid] = ek.code(sk[tid]);
+          sv[tid] = ev.code(sv[tid]);
         }
       } else {
         nr.sk = p.nsc[((size_t)b * 2 + 0) * p.kvh + h];
@@ -1223,82 +1239,187 @@ extern "C" int gemma_decode_attend_f32(
 }
 
 // ---------------------------------------------------------------------------
-// K9: the in-place ring-row write.
+// K9: the in-place ring-row write, from the raw rows.
 // ---------------------------------------------------------------------------
 
+// k and v [B, 1, KVH, D], f32 or bf16 (in_bf16), each through its own
+// batch and head strides in elements (the composed path's k is RoPE's
+// output, its v a view into the fused qkv row).
 struct KvWriteArgs {
-  const void* rows;      // [B, 2, KVH, D] in the pool's type
-  const float* nsc;      // [B, 2, KVH] (i8), else null
+  const void* k;
+  const void* v;
+  int k_bs, k_hs, v_bs, v_hs;
   void* pool;
-  float* scales;         // (i8), else null
+  float* scales;  // (i8), else null
   const int* pos;
   const bool* valid;
-  int n_layers, layer, kvh, s_alloc, d, ring;
+  int rows, n_layers, layer, kvh, s_alloc, d, ring;
 };
 
-// Block (b, k/v, h), flattened as the rows' [B, 2, KVH] index.
-template <typename T>
-__device__ __forceinline__ void kv_write_body(const KvWriteArgs& p) {
-  const int bkh = blockIdx.x;
-  const int h = bkh % p.kvh, kv = (bkh / p.kvh) % 2, b = bkh / (2 * p.kvh);
-  const int row = (p.valid == nullptr || p.valid[b]) ? p.pos[b] % p.ring : p.ring;
-  const size_t panel = (((size_t)b * p.n_layers + p.layer) * 2 + kv) * p.kvh + h;
-  const T* src = static_cast<const T*>(p.rows) + (size_t)bkh * p.d;
-  T* dst = static_cast<T*>(p.pool) + (panel * p.s_alloc + row) * p.d;
-  for (int i = threadIdx.x; i < p.d; i += blockDim.x) dst[i] = src[i];
-  if (p.scales != nullptr && threadIdx.x == 0)
-    p.scales[panel * p.s_alloc + row] = p.nsc[bkh];
+constexpr int KVW_WARPS = 4;   // rows a block
+constexpr int KVW_MAXU = 2;    // 8-element units a lane: D <= 512
+
+// Eight consecutive elements of a raw row at x (16-byte aligned) as f32.
+template <typename TIn>
+__device__ __forceinline__ void load8(const TIn* x, float* f) {
+  if constexpr (std::is_same<TIn, float>::value) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(x) + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = __uint_as_float(w[i]);
+  } else {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x));
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
 }
 
-__global__ void kv_write_i8_kernel(KvWriteArgs p) { kv_write_body<int8_t>(p); }
-__global__ void kv_write_bf16_kernel(KvWriteArgs p) { kv_write_body<__nv_bfloat16>(p); }
-__global__ void kv_write_f32_kernel(KvWriteArgs p) { kv_write_body<float>(p); }
+// Eight encoded elements (i8: codes as floats) into the pool row at y.
+template <typename T>
+__device__ __forceinline__ void store8(T* y, const float* f) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    uint32_t w[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      w[h] = (uint32_t)(uint8_t)(int8_t)f[4 * h] |
+             (uint32_t)(uint8_t)(int8_t)f[4 * h + 1] << 8 |
+             (uint32_t)(uint8_t)(int8_t)f[4 * h + 2] << 16 |
+             (uint32_t)(uint8_t)(int8_t)f[4 * h + 3] << 24;
+    *reinterpret_cast<uint2*>(y) = make_uint2(w[0], w[1]);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    *reinterpret_cast<uint4*>(y) =
+        make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                   pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  } else {
+    reinterpret_cast<float4*>(y)[0] = make_float4(f[0], f[1], f[2], f[3]);
+    reinterpret_cast<float4*>(y)[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// One warp a (b, k/v, h) row, flattened as [B, 2, KVH]: lane l takes the
+// 8-element units l, l + 32 of the row (16-byte loads), i8 the row's max
+// |x| by a shuffle tree and the shared encode, bf16 rounding to nearest
+// even, f32 as it is; then the ring row's write.
+template <typename T, typename TIn>
+__device__ __forceinline__ void kv_write_body(const KvWriteArgs& p) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * KVW_WARPS + (threadIdx.x >> 5);
+  if (r >= p.rows) return;
+  const int h = r % p.kvh, kv = (r / p.kvh) % 2, b = r / (2 * p.kvh);
+  const TIn* src = static_cast<const TIn*>(kv ? p.v : p.k) +
+                   (size_t)b * (kv ? p.v_bs : p.k_bs) +
+                   (size_t)h * (kv ? p.v_hs : p.k_hs);
+  const int nu = p.d / 8;
+  float x[KVW_MAXU][8];
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < KVW_MAXU; ++i) {
+    const int u = lane + 32 * i;
+    if (u < nu) {
+      load8<TIn>(src + 8 * u, x[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(x[i][e]));
+    }
+  }
+  const int row = (p.valid == nullptr || p.valid[b]) ? p.pos[b] % p.ring : p.ring;
+  const size_t panel = (((size_t)b * p.n_layers + p.layer) * 2 + kv) * p.kvh + h;
+  T* dst = static_cast<T*>(p.pool) + (panel * p.s_alloc + row) * p.d;
+  if constexpr (std::is_same<T, int8_t>::value) {
+    const I8Row enc(warp_max(amax));
+#pragma unroll
+    for (int i = 0; i < KVW_MAXU; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[i][e] = enc.code(x[i][e]);
+    if (lane == 0) p.scales[panel * p.s_alloc + row] = enc.scale;
+  }
+#pragma unroll
+  for (int i = 0; i < KVW_MAXU; ++i) {
+    const int u = lane + 32 * i;
+    if (u < nu) store8<T>(dst + 8 * u, x[i]);
+  }
+}
+
+// One kernel name per pool type (the profiler's), TIn the rows' type.
+#define GEMMA_KVW_KERNEL(NAME, T)                                           \
+  template <typename TIn>                                                   \
+  __global__ void __launch_bounds__(KVW_WARPS * 32) NAME(KvWriteArgs p) {   \
+    kv_write_body<T, TIn>(p);                                               \
+  }
+GEMMA_KVW_KERNEL(kv_write_i8_kernel, int8_t)
+GEMMA_KVW_KERNEL(kv_write_bf16_kernel, __nv_bfloat16)
+GEMMA_KVW_KERNEL(kv_write_f32_kernel, float)
+#undef GEMMA_KVW_KERNEL
+
+template <typename T, typename TIn>
+static void (*kv_write_kernel())(KvWriteArgs) {
+  if constexpr (std::is_same<T, int8_t>::value) return kv_write_i8_kernel<TIn>;
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value) return kv_write_bf16_kernel<TIn>;
+  else return kv_write_f32_kernel<TIn>;
+}
 
 template <typename T>
-static int kv_write(const T* rows, const float* nsc, T* pool, float* scales,
-                    const int* pos, const bool* valid, int batch, int n_layers,
-                    int layer, int kvh, int s_alloc, int d, int ring,
-                    int* launched, cudaStream_t st) {
+static int kv_write(const void* k, const void* v, int k_bs, int k_hs,
+                    int v_bs, int v_hs, int in_bf16, T* pool, float* scales,
+                    const int* pos, const bool* valid, int batch,
+                    int n_layers, int layer, int kvh, int s_alloc, int d,
+                    int ring, int* launched, cudaStream_t st) {
   *launched = 0;
-  if (std::is_same<T, int8_t>::value != (scales != nullptr) ||
-      (scales != nullptr && nsc == nullptr))
+  // 16-byte loads of 8 elements: d, the strides and the rows' starts
+  // must keep every unit 16-byte aligned.
+  const int esize = in_bf16 ? 2 : 4;
+  auto odd = [&](const void* q, int stride) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) != 0 ||
+           ((long long)stride * esize) % 16 != 0;
+  };
+  if (std::is_same<T, int8_t>::value != (scales != nullptr) || d % 8 ||
+      d > 8 * 32 * KVW_MAXU || batch < 1 || kvh < 1 || ring < 1 ||
+      odd(k, k_bs) || odd(k, k_hs) || odd(v, v_bs) || odd(v, v_hs))
     return (int)cudaErrorInvalidValue;
-  const KvWriteArgs p = {rows, nsc, pool, scales, pos, valid, n_layers,
-                         layer, kvh, s_alloc, d, ring};
-  const dim3 grid(batch * 2 * kvh), block(128);
-  if constexpr (std::is_same<T, int8_t>::value)
-    kv_write_i8_kernel<<<grid, block, 0, st>>>(p);
-  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    kv_write_bf16_kernel<<<grid, block, 0, st>>>(p);
-  else
-    kv_write_f32_kernel<<<grid, block, 0, st>>>(p);
+  const KvWriteArgs p = {k, v, k_bs, k_hs, v_bs, v_hs, pool, scales, pos,
+                         valid, batch * 2 * kvh, n_layers, layer, kvh,
+                         s_alloc, d, ring};
+  void (*kernel)(KvWriteArgs) = in_bf16 ? kv_write_kernel<T, __nv_bfloat16>()
+                                        : kv_write_kernel<T, float>();
+  kernel<<<(p.rows + KVW_WARPS - 1) / KVW_WARPS, KVW_WARPS * 32, 0, st>>>(p);
   *launched = 1;
   return (int)cudaGetLastError();
 }
 
+// K9: the raw rows k and v through their strides (elements), f32 or bf16
+// (in_bf16); the pool's scales for i8 (else null).
 extern "C" int gemma_kv_write_i8(
-    const int8_t* rows, const float* nsc, int8_t* pool, float* scales,
-    const int* pos, const bool* valid, int batch, int n_layers, int layer,
-    int kvh, int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
-  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
-                  kvh, s_alloc, d, ring, launched, st);
+    const void* k, const void* v, int k_bs, int k_hs, int v_bs, int v_hs,
+    int in_bf16, int8_t* pool, float* scales, const int* pos,
+    const bool* valid, int batch, int n_layers, int layer, int kvh,
+    int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
+  return kv_write(k, v, k_bs, k_hs, v_bs, v_hs, in_bf16, pool, scales, pos,
+                  valid, batch, n_layers, layer, kvh, s_alloc, d, ring,
+                  launched, st);
 }
 
 extern "C" int gemma_kv_write_bf16(
-    const __nv_bfloat16* rows, const float* nsc, __nv_bfloat16* pool,
-    float* scales, const int* pos, const bool* valid, int batch,
-    int n_layers, int layer, int kvh, int s_alloc, int d, int ring,
-    int* launched, cudaStream_t st) {
-  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
-                  kvh, s_alloc, d, ring, launched, st);
+    const void* k, const void* v, int k_bs, int k_hs, int v_bs, int v_hs,
+    int in_bf16, __nv_bfloat16* pool, float* scales, const int* pos,
+    const bool* valid, int batch, int n_layers, int layer, int kvh,
+    int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
+  return kv_write(k, v, k_bs, k_hs, v_bs, v_hs, in_bf16, pool, scales, pos,
+                  valid, batch, n_layers, layer, kvh, s_alloc, d, ring,
+                  launched, st);
 }
 
 extern "C" int gemma_kv_write_f32(
-    const float* rows, const float* nsc, float* pool, float* scales,
-    const int* pos, const bool* valid, int batch, int n_layers, int layer,
-    int kvh, int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
-  return kv_write(rows, nsc, pool, scales, pos, valid, batch, n_layers, layer,
-                  kvh, s_alloc, d, ring, launched, st);
+    const void* k, const void* v, int k_bs, int k_hs, int v_bs, int v_hs,
+    int in_bf16, float* pool, float* scales, const int* pos,
+    const bool* valid, int batch, int n_layers, int layer, int kvh,
+    int s_alloc, int d, int ring, int* launched, cudaStream_t st) {
+  return kv_write(k, v, k_bs, k_hs, v_bs, v_hs, in_bf16, pool, scales, pos,
+                  valid, batch, n_layers, layer, kvh, s_alloc, d, ring,
+                  launched, st);
 }
 
 // ---------------------------------------------------------------------------

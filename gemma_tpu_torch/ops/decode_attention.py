@@ -18,8 +18,10 @@ CPU tensors.
     `pick_s_block`, it runs K11 instead: the same split over runs of the
     live positions (`sblock_split`), one block a run, their softmax
     partials merged by the last block to finish.
-  - `kv_write_decode` (K9): the row write alone (i8 rows are quantized by
-    torch ops first, as the JAX package quantizes outside its kernel).
+  - `kv_write_decode` (K9): the row write alone, from the raw f32 or
+    bf16 rows through their strides; the kernel encodes them (i8 codes
+    and scales, bf16 rounding) where the JAX package quantizes outside
+    its kernel.
   - `decode_attention` (K10): single-token attention, no write.
 
 GEMMA_FUSED_DECODE=0 sends `decode_attention_write` to the composed pair
@@ -82,9 +84,12 @@ DECODE_WRITE_ATTEND = _per_kind("decode_write_attend", _WRITE_ARGS)
 # K11: K8's parameters, then the partials, their capacity in floats and
 # the tickets.
 DECODE_SBLOCKED = _per_kind("decode_sblocked", _WRITE_ARGS + [_P, _I, _P])
-# K9: new, new_scales, pool, scales, pos, valid; batch, n_layers, layer,
-# kvh, s_alloc, d, ring.
-KV_WRITE = _per_kind("kv_write", [_P] * 6 + [_I] * 7)
+# K9: k, v; k_bs, k_hs, v_bs, v_hs, in_bf16; pool, scales, pos, valid;
+# batch, n_layers, layer, kvh, s_alloc, d, ring.
+KV_WRITE = _per_kind("kv_write", [_P] * 2 + [_I] * 5 + [_P] * 4 + [_I] * 7)
+# K9 reads 8 elements of a row at a time, 16 bytes for f32 rows, and up to
+# 512 elements a row.
+KV_WRITE_MAX_D = 512
 # K10: q, pool, scales, pos, out; batch, n_layers, layer, kvh, heads,
 # s_alloc, d, ring, window, q_bs; att_cap.
 DECODE_ATTEND = _per_kind("decode_attend", [_P] * 5 + [_I] * 10 + [_F])
@@ -585,20 +590,43 @@ def decode_attention_write_packed(cache, layer_idx, qkv_all, positions,
     return out
 
 
+def _raw_rows(k, v, b, kvh, d):
+    """k, v [B, 1, KVH, D] as K9 reads them: f32 or bf16 (both of one
+    type, else both f32), each through its own batch and head strides;
+    a row whose units of 8 elements are not 16-byte aligned is copied
+    contiguous.  Returns (k, v, in_bf16)."""
+    if k.dtype != v.dtype or k.dtype not in (torch.float32, torch.bfloat16):
+        k, v = k.float(), v.float()
+    if d % 8 or d > KV_WRITE_MAX_D:
+        raise ValueError(f"K9 takes rows of a multiple of 8 up to "
+                         f"{KV_WRITE_MAX_D} elements, got D={d}")
+    out = []
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_cuda or tuple(t.shape) != (b, 1, kvh, d):
+            raise ValueError(f"{name} must be a CUDA [{b}, 1, {kvh}, {d}] "
+                             f"tensor, got {tuple(t.shape)} on {t.device}")
+        if (t.stride(3) != 1 or t.data_ptr() % 16
+                or (t.stride(0) * t.element_size()) % 16
+                or (t.stride(2) * t.element_size()) % 16):
+            t = t.contiguous()
+        out.append(t)
+    return out[0], out[1], int(k.dtype == torch.bfloat16)
+
+
 def kv_write_decode(cache, layer_idx, positions, k, v, valid=None):
     """Write one ring row per batch slot, in place (decode_attention.py:
-    176-204).  positions [B, 1]; k, v [B, 1, KVH, D] f32 (or bf16): cast
-    to the pool's type, or for an i8 pool quantized by `quantize_rows`
-    (torch ops), then written with their scales by K9.  Invalid slots
-    write the garbage row."""
+    176-204).  positions [B, 1]; k, v [B, 1, KVH, D] f32 or bf16, any
+    batch and head strides: K9 reads them raw and writes them in the
+    pool's type (i8: codes and scales as `quantize_rows` makes them) in
+    one launch.  Invalid slots write the garbage row."""
     if not k.is_cuda:
         return kv_write_decode_plain(cache, layer_idx, positions, k, v, valid)
     kernel, pool, sc, idx, ring = _pool_operands(cache, layer_idx, KV_WRITE)
     b, n_layers, _, kvh, s_alloc, d = pool.shape
-    new, scale = _pool_rows(cache, torch.stack([k[:, 0], v[:, 0]], dim=1))
-    _cuda.check(new, "k, v", pool.dtype, (b, 2, kvh, d))
+    k, v, in_bf16 = _raw_rows(k, v, b, kvh, d)
     pos, valid = _pos_valid(positions, valid, b)
-    kernel.launch(new.data_ptr(), _cuda.ptr(scale), pool.data_ptr(),
+    kernel.launch(k.data_ptr(), v.data_ptr(), k.stride(0), k.stride(2),
+                  v.stride(0), v.stride(2), in_bf16, pool.data_ptr(),
                   _cuda.ptr(sc), pos.data_ptr(), _cuda.ptr(valid), b,
                   n_layers, idx, kvh, s_alloc, d, ring)
 

@@ -17,7 +17,11 @@ KV_QMAX = 127.0
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [..., D] -> (codes i8 [..., D], scale f32 [...]); zero rows get scale 0."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / KV_QMAX
+    amax = xf.abs().amax(dim=-1)
+    # Divided by a tensor, not a Python number: torch's CUDA kernels
+    # multiply by a scalar divisor's reciprocal instead, which can land one
+    # ulp off the division the JAX package and the kernels compute.
+    scale = amax / torch.full_like(amax, KV_QMAX)
     inv = torch.where(scale > 0.0, 1.0 / scale, torch.zeros_like(scale))
     # torch.round rounds half to even, as jnp.rint does.
     codes = torch.round(xf * inv[..., None]).to(torch.int8)

@@ -1,5 +1,5 @@
-"""Time the attention kernels (K4, K5, K8, K10, K11) of a checkout of the
-port on the card, so that two checkouts can be compared in one run:
+"""Time the attention kernels (K4, K5, K8, K9, K10, K11) of a checkout of
+the port on the card, so that two checkouts can be compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_attention.py [--root DIR]
 
@@ -18,6 +18,13 @@ caches of random rows, batch 4:
     `pick_s_block` takes K11 for the pool: i8 on a seq_len 8191 cache,
     whose global pool has 128-row blocks and whose local one none), and at
     batch 1, position 8000 (8001 live rows) on the global pool;
+  - K9 through its wrapper `kv_write_decode` (whatever the checkout runs
+    around the kernel: the parent of the raw-row K9 stacked and encoded
+    the rows in torch ops first) on the global pool at those positions
+    with slot 2 invalid, for i8, bf16 and f32 pools at 2B's and 27B's
+    heads: f32 rows as path M has them (k contiguous, RoPE's output; v a
+    view into the fused qkv row) and bf16 rows, and the device activities
+    (kernels, copies, sets) of one call, by torch.profiler;
   - K5 (flash_prefill_attention) on a 512-token chunk: at positions 0 and
     512 on the global pool, 3584 on the global pool and 4352 on the local
     one (its live range wraps the 4608-row ring), for i8, bf16 and f32
@@ -124,6 +131,41 @@ def cases(torch, model, cfg, kinds, time_ms, out):
         torch.cuda.empty_cache()
 
 
+def kv_writes(torch, model, cfg, time_ms, out):
+    """The K9 wrapper per pool kind (see the module's note), and the
+    device activities of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gemma_tpu_torch.ops import decode_attention as da
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4343)
+    lc = cfg.layer_configs[0]
+    heads, kvh, hd, b = lc.heads, lc.kv_heads, lc.qkv_dim, 4
+    pos = torch.tensor([[300], [450], [600], [700]], device=dev)
+    valid = torch.tensor([[True], [True], [False], [True]], device=dev)
+    qkv = torch.randn(b, (heads + 2 * kvh) * hd, generator=gen,
+                      device=dev) * 2
+    kvp = qkv[:, heads * hd:].reshape(b, 1, kvh, 2, hd)
+    rows = {"f32": (kvp[..., 0, :].contiguous(), kvp[..., 1, :]),
+            "bf16 rows": (kvp[..., 0, :].to(torch.bfloat16),
+                          kvp[..., 1, :].to(torch.bfloat16))}
+    for kind in ("i8", "bf16", "f32"):
+        cache = random_cache(torch, cfg, kind, gen)
+        for what, (k, v) in rows.items():
+            out[f"K9 {kind} {model} {what}"] = time_ms(
+                lambda: da.kv_write_decode(cache, 1, pos, k, v, valid))
+            # The device activities (kernels, copies, sets) of one call.
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                da.kv_write_decode(cache, 1, pos, k, v, valid)
+                torch.cuda.synchronize()
+            out[f"K9 activities {kind} {model} {what}"] = sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        del cache
+        torch.cuda.empty_cache()
+
+
 def sblocked(torch, da, cfg, kind, model, cache, gen, time_ms, out, rope,
              q_raw, kv_raw, pos, valid):
     """K11 beside K8 on the same inputs: batch 4 on both pools (i8 on a
@@ -188,6 +230,8 @@ def main() -> int:
           time_ms, ms)
     cases(torch, "9B", cut(config_gemma2_9b()), ("bf16",), time_ms, ms)
     cases(torch, "27B", cut(config_gemma2_27b()), ("bf16",), time_ms, ms)
+    kv_writes(torch, "2B", cut(config_gemma2_2b()), time_ms, ms)
+    kv_writes(torch, "27B", cut(config_gemma2_27b()), time_ms, ms)
     print(json.dumps({"root": root, "card": card, "ms": ms}), flush=True)
     return 0
 

@@ -1,23 +1,26 @@
-"""Decode speed of five serving paths of chip_smoke.py (A: Gemma2-2B with
+"""Decode speed of six serving paths of chip_smoke.py (A: Gemma2-2B with
 i8 weights, 26 layers; E: A sampled, top_k 64, temperature 0.8, seed 1;
-N: A under GEMMA_SBLOCK_DECODE=1; I: Gemma2-27B with i4 weights, 46
-layers; J: Gemma2-9B with nuq4 weights, 42 layers) for a checkout of the
-port on the card, so that two checkouts can be compared in one run:
+N: A under GEMMA_SBLOCK_DECODE=1; M: A with an i8 KV cache under
+GEMMA_FUSED_DECODE=0, RoPE in torch ops, then K9 and K10; I: Gemma2-27B
+with i4 weights, 46 layers; J: Gemma2-9B with nuq4 weights, 42 layers)
+for a checkout of the port on the card, so that two checkouts can be
+compared in one run:
 
     python3 gemma_tpu_torch/scripts/time_decode.py [--root DIR] [--runs N]
 
 --root: the checkout whose `gemma_tpu_torch` is imported (default: the one
 this file is in); its kernels build under DIR/build/.  Each path is
 chip_smoke.py's: synthetic weights made on the card from seed 0, the
-default RuntimeConfig (bf16 KV, chunks of 4 decode steps), batch 4 with
+default RuntimeConfig (bf16 KV but on M, chunks of 4 decode steps), batch 4 with
 prompts of 17, 130, 300 and 700 tokens.  Per path: `--runs` calls of
 generate_batch with 16 new tokens after a warm-up, each one's decode
 tok/s (TimingInfo); then two chunks of 4 decode steps under
 torch.profiler: the host wall per step, and per step the device time and
 the number of device activities (kernels, copies, sets) by kernel: the
 decode GEMMs (K1, K2: any kernel of the decode tile), the heads (K3; K6
-with its selection), decode attention (K4, K8, K11), the prologue pass
-and the rest (the draw, the torch ops).  Prints one JSON line.
+with its selection), decode attention (K4, K8, K11; on M the row write K9
+and the attention K10), the prologue pass and the rest (the draw, the
+torch ops).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ import time
 
 CLASSES = (("top1_", "K3"), ("topk_", "K6"), ("decode_sblocked_", "K11"),
            ("decode_attention_", "K4"), ("decode_write_attend_", "K8"),
+           ("kv_write_", "K9"), ("decode_attend_", "K10"),
            ("prenorm_kernel", "prenorm"))
+
+
+SWITCHES = ("GEMMA_SBLOCK_DECODE", "GEMMA_FUSED_DECODE")
 
 
 def kernel_class(name: str) -> str:
@@ -72,13 +79,17 @@ def main() -> int:
     sampled = dict(top_k=64, temperature=0.8, seed=1)
     params = None
     for label, config, kind, extra, env in (
-            ("A", config_gemma2_2b(), "i8", {}, "0"),
-            ("E", config_gemma2_2b(), "i8", sampled, "0"),
-            ("N", config_gemma2_2b(), "i8", {}, "1"),
-            ("I", config_gemma2_27b(), "i4", {}, "0"),
-            ("J", config_gemma2_9b(), "nuq4", {}, "0")):
-        os.environ["GEMMA_SBLOCK_DECODE"] = env
-        if label not in ("E", "N"):  # E and N reuse A's weights
+            ("A", config_gemma2_2b(), "i8", {}, {}),
+            ("E", config_gemma2_2b(), "i8", sampled, {}),
+            ("N", config_gemma2_2b(), "i8", {}, {"GEMMA_SBLOCK_DECODE": "1"}),
+            ("M", config_gemma2_2b(), "i8", {"kv_kind": "i8"},
+             {"GEMMA_FUSED_DECODE": "0"}),
+            ("I", config_gemma2_27b(), "i4", {}, {}),
+            ("J", config_gemma2_9b(), "nuq4", {}, {})):
+        for name in SWITCHES:
+            os.environ.pop(name, None)
+        os.environ.update(env)
+        if label not in ("E", "N", "M"):  # E, N and M reuse A's weights
             params = synth_params(config, kind=kind, seed=0, device="cuda")
         engine = GemmaEngine(params, config,
                              RuntimeConfig(seq_len=8192, **extra))
@@ -124,10 +135,11 @@ def main() -> int:
                 k: v / steps for k, v in count.items()},
         }
         del engine, cache
-        if label not in ("A", "E"):
+        if label not in ("A", "E", "N"):
             params = None
         torch.cuda.empty_cache()
-    os.environ.pop("GEMMA_SBLOCK_DECODE", None)
+    for name in SWITCHES:
+        os.environ.pop(name, None)
     print(json.dumps(res), flush=True)
     return 0
 

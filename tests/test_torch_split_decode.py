@@ -10,7 +10,8 @@ cases):
   - K8 `decode_attention_write` vs `_decode_fused_kernel`: i8, bf16 and f32
     pools, rows pre-encoded and with RoPE (and QK norms) in the kernel,
     ring wrap, a local window, an invalid slot;
-  - K9 `kv_write_decode` vs `_kv_write_pallas` / `_kv_write_q_pallas`;
+  - K9 `kv_write_decode` vs `_kv_write_pallas` / `_kv_write_q_pallas`, on
+    f32 rows, bf16 rows and strided views of one interleaved kv row;
   - K10 `decode_attention` vs `_decode_att_pallas` / `_decode_att_q_pallas`;
   - K11: both packages under GEMMA_SBLOCK_DECODE=1;
   - `pick_s_block` and the pools' sizes it reads.
@@ -233,6 +234,49 @@ def test_kv_write_matches_jax_kernel(kind, n_pos, with_valid):
     moved = changed[:, 0].any(-1).any(1).any(1)  # [B, S]
     for b in range(B):  # only each slot's target row
         assert set(np.nonzero(moved[b].numpy())[0]) <= {int(rows[b])}
+
+
+@pytest.mark.parametrize("kind", ["i8", "bf16", "f32"])
+@pytest.mark.parametrize("rows", ["bf16", "strided f32", "strided bf16"])
+def test_kv_write_raw_rows_match_jax_kernel(kind, rows):
+    """K9 on the rows it takes raw: bf16 rows, and k / v as strided views
+    into one [B, 1, KVH, 2, D] row (the fused qkv row's interleave), the
+    same values through the JAX kernels; an invalid slot."""
+    rng = np.random.default_rng(90 + len(rows))
+    jcache, tcache = _prefilled(rng, kind, 24)
+    kv = rng.normal(0, 0.5, (B, 1, KVH, 2, D)).astype(np.float32)
+    kv[0, 0, 1, 0] = 0.0  # an all-zero K row: scale 0
+    dt = jnp.bfloat16 if "bf16" in rows else jnp.float32
+    jk = jnp.asarray(kv[..., 0, :]).astype(dt)
+    jv = jnp.asarray(kv[..., 1, :]).astype(dt)
+    positions = np.array([[24], [30]], np.int32)
+    valid = np.array([[True], [False]])
+    pool, idx, ring = jcache.pool(0)
+    jrows = jnp.where(jnp.asarray(valid[:, 0]),
+                      jnp.asarray(positions[:, 0] % ring, jnp.int32), ring)
+    newkv = jnp.stack([jk[:, 0], jv[:, 0]], axis=1)
+    if kind == "i8":
+        from gemma_tpu.ops.kv_quant import quantize_rows
+
+        codes, scale = quantize_rows(newkv)
+        jpool, jsc = jda._kv_write_q_pallas(pool, jcache.kv_scale, codes,
+                                            scale, jrows, idx, interpret=True)
+        jcache = dataclasses.replace(jcache, kv=jpool, kv_scale=jsc)
+    else:
+        jpool = jda._kv_write_pallas(pool, newkv.astype(pool.dtype), jrows,
+                                     idx, interpret=True)
+        jcache = dataclasses.replace(jcache, kv=jpool)
+    tkv = torch.from_numpy(kv)
+    if "bf16" in rows:
+        tkv = tkv.to(torch.bfloat16)
+    if "strided" in rows:
+        k, v = tkv[..., 0, :], tkv[..., 1, :]
+        assert k.stride(2) == 2 * D
+    else:
+        k, v = tkv[..., 0, :].contiguous(), tkv[..., 1, :].contiguous()
+    tda.kv_write_decode(tcache, 0, torch.from_numpy(positions), k, v,
+                        valid=torch.from_numpy(valid))
+    _assert_pools(tcache, jcache, kind, exact=True, valid=valid)
 
 
 @pytest.mark.parametrize("kind", ["i8", "bf16", "f32"])

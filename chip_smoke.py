@@ -130,9 +130,25 @@ Phases (any failure exits non-zero before the result line):
        O. GEMMA_SCAN_DECODE=1: the scan-over-layers decode, stacked GEMMs
           (K12) and K8 (`phase_scan_path` says what it runs), with its
           decode speed, device busy and idle share beside path A's;
+     and the serving frontends on path A's model with path E's flat
+     embedding (`phase_batcher` and `phase_http` say what each runs):
+       P. `ContinuousBatcher`, 4 slots, bf16 KV: 7 requests (prompts of
+          17-1100 tokens) in two waves and a session's second turn; each
+          tick's launches (79 K1, 26 K2, 26 K4; an admission round the
+          prefill tile's 78 K1 + 26 K2 and 26 K5), the admitting slots'
+          ring rows unchanged by the decode step bit for bit, every
+          request's tokens and logits rows against its alone run, two
+          ticks under torch.profiler, one under sync debug mode "warn",
+          tok/s and the host wall per tick;
+       Q. the HTTP API server (continuous, 16 slots) over a 256000-piece
+          tokenizer, from handler threads and the batcher's thread: 5
+          concurrent generateContent, 1 streamGenerateContent and a
+          two-turn session, every answer equal to generate_text alone;
+          then `python3 -m gemma_tpu_torch.run` on a 2-layer .sbs holding
+          the tokenizer, and ContextGemma and GemmaModel on it;
   5. every timed case as one JSON line, one `kernels` JSON line (each
      kernel's primary case; launches summed over the counted runs of
-     4A-O; the diagnostic's and the norm passes', on no path, 0),
+     4A-Q; the diagnostic's and the norm passes', on no path, 0),
      then nvidia-smi's line, then the result line.
 
 It needs the repository around it (the package and its csrc/) and a card:
@@ -144,6 +160,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -200,6 +217,7 @@ def main() -> int:
     results = phase_kernels(torch)
     phase_two_layers(torch)
     counts = phase_main_path(torch)
+    phase_serving(torch, counts)
 
     # Every timed case of every kernel, on a line of its own; the `kernels`
     # line below carries each kernel's primary case and stays short.
@@ -262,8 +280,9 @@ REPLACES = {
         "gemma_tpu/ops/flash_attention.py:39 (_flash_kernel, f32 pool)",
 }
 LIBRARY_NOTE = {
-    "matmul_prenorm": "torch.nn.functional.rms_norm has no (1 + w) form "
-                      "and no bf16 rounding of its f32 result in one call",
+    "matmul_prenorm": "torch.nn.functional.rms_norm on the same rows, its "
+                      "weight 1 + w made beforehand; it does not round its "
+                      "f32 result to bf16",
     "matmul_postnorm_add": "torch.nn.functional.rms_norm has no (1 + w) "
                            "form and no residual add in one call",
     "topk_merge": "no single PyTorch call merges sorted (value, index) "
@@ -875,10 +894,15 @@ def phase_kernels(torch):
     f = lambda: mm.prenorm(x, norm)  # noqa: E731
     p = lambda: mm.prenorm_plain(x, norm)  # noqa: E731
     want = p()
+    # The library call: rms_norm over the same rows, its weight 1 + norm
+    # made beforehand (f32 out: it has no bf16 rounding).
+    w1 = 1.0 + norm
+    lib = lambda: torch.nn.functional.rms_norm(  # noqa: E731
+        x, (d,), w1, 1e-6)
     # bf16 output: a one-ulp flip (2^-8) where the f32 sums reorder.
     record(res, torch, "matmul_prenorm", "decode M=4 K=2304", f(), want,
            rel_tol(want, 2 ** -8), f, p, b * d * 4 + d * 4 + b * d * 2, 0,
-           primary=True)
+           primary=True, library=lib)
     f = lambda: mm.matmul(x, w_qkv, prologue_norm=norm)  # noqa: E731
     p = lambda: mm.matmul_plain(x, w_qkv, prologue_norm=norm)  # noqa: E731
     want = p()
@@ -2741,8 +2765,69 @@ def phase_two_layers(torch):
     phase_loader(torch)
 
 
+# SentencePiece piece types (sentencepiece_model.proto)
+SPM_NORMAL, SPM_UNKNOWN, SPM_CONTROL, SPM_BYTE = 1, 2, 3, 6
+SPM_CONTROL_PIECES = (("<pad>", SPM_CONTROL), ("<eos>", SPM_CONTROL),
+                      ("<bos>", SPM_CONTROL), ("<unk>", SPM_UNKNOWN),
+                      ("<start_of_turn>", SPM_CONTROL),
+                      ("<end_of_turn>", SPM_CONTROL),
+                      ("<start_of_image>", SPM_CONTROL),
+                      ("<end_of_image>", SPM_CONTROL))
+
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((v & 0x7F) | (0x80 if v > 0x7F else 0))
+        v >>= 7
+        if not v:
+            return bytes(out)
+
+
+def spm_model_proto(pieces, model_type: int = 1, unk_id: int = 3) -> bytes:
+    """A sentencepiece ModelProto in its wire format (this host may have no
+    protobuf): pieces [(piece, score, type)], every field written, then the
+    trainer spec (model_type, vocab_size, byte_fallback, unk_id) and an
+    identity normalizer without the dummy prefix, escaping whitespace:
+    the layout of tests/test_tokenizer.py:tiny_proto, byte for byte."""
+    def key(num, wire):
+        return _pb_varint(num << 3 | wire)
+
+    def blob(num, data):
+        return key(num, 2) + _pb_varint(len(data)) + data
+
+    def num(field, v):
+        return key(field, 0) + _pb_varint(v)
+
+    out = b"".join(blob(1, blob(1, p.encode()) + key(2, 5)
+                        + struct.pack("<f", score) + num(3, kind))
+                   for p, score, kind in pieces)
+    out += blob(2, num(3, model_type) + num(4, len(pieces)) + num(35, 1)
+                + num(40, unk_id))
+    return out + blob(3, blob(1, b"identity") + num(3, 0) + num(5, 1))
+
+
+def gemma_layout_pieces(n: int) -> list:
+    """n pieces in Gemma's layout: the 8 control pieces of tiny_proto, the
+    256 byte pieces, then "▁", "\n" and words of 1-4 lowercase letters,
+    each with and without the leading "▁", at falling scores."""
+    pieces = [(p, 0.0, kind) for p, kind in SPM_CONTROL_PIECES]
+    pieces += [(f"<0x{b:02X}>", 0.0, SPM_BYTE) for b in range(256)]
+    words = ["▁", "\n"]
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    level = [""]
+    while len(pieces) + len(words) < n:
+        level = [w + c for w in level for c in letters]
+        for w in level:
+            words += ["▁" + w, w]
+    words = words[:n - len(pieces)]
+    pieces += [(w, -1.0 - i / 1000.0, SPM_NORMAL) for i, w in enumerate(words)]
+    return pieces
+
+
 def write_synth_sbs(torch, path, cfg, type_name: str, seed: int,
-                    split: bool = False) -> int:
+                    split: bool = False, tokenizer_proto: bytes | None = None
+                    ) -> int:
     """Write `cfg`'s tensors (the stacked names a converted checkpoint
     holds: qkv_ein, gating_ein, att_ein, linear_w and the norms; with
     `split` the split ones: qkv1_w, qkv2_w, gating1_w, gating2_w, att_w)
@@ -2751,7 +2836,8 @@ def write_synth_sbs(torch, path, cfg, type_name: str, seed: int,
     bytes drawn on the card (rms 0.42) under a tensor scale that brings the
     weights to rms 1/sqrt(K) (qkv2_w to 1.25 times that: a tensor scale of
     its own, as a file whose kv weights pass 1.875 has).  NUQ-typed:
-    N(0, 1/sqrt(K)) values clustered by the numpy encoder."""
+    N(0, 1/sqrt(K)) values clustered by the numpy encoder.  The file holds
+    `tokenizer_proto` when given (else the mock tokenizer)."""
     import numpy as np
 
     from gemma_tpu_torch.compression import (PackedTensor, Type,
@@ -2793,7 +2879,7 @@ def write_synth_sbs(torch, path, cfg, type_name: str, seed: int,
             vals = torch.randn(rows, cols, generator=gen, device="cuda") * rms
             tensors.append(compress_tensor(Type.NUQ, name,
                                            vals.cpu().numpy()))
-    write_model(path, cfg, tensors)
+    write_model(path, cfg, tensors, tokenizer_proto=tokenizer_proto)
     return count
 
 
@@ -3902,6 +3988,547 @@ def phase_scan_path(torch, cfg, prompts, counted_generate, sampled,
     finally:
         _set_env("GEMMA_SCAN_DECODE", old)
     print(f"[4O] GEMMA_SCAN_DECODE restored to {old!r}", flush=True)
+
+
+# --- P and Q: the serving frontends ---------------------------------------
+
+SERVING_LENS = (17, 130, 300, 700, 1100, 45, 9)
+SERVING_MAX_TOKENS = (32, 8, 24, 16, 12, 32, 8)
+SESSION = 5        # the request that carries a session cache (45 tokens)
+WAVE2_TICK = 3     # the tick before which requests 4-6 are submitted
+
+
+def phase_serving(torch, totals: dict) -> None:
+    """Paths P (the continuous batcher) and Q (the HTTP API server, the
+    REPL, ContextGemma and GemmaModel) on path A's model (Gemma2-2B, 26
+    layers, i8 weights made on the card) with path E's flat embedding.
+    Their counted launches join `totals`."""
+    from gemma_tpu_torch.models.configs import config_gemma2_2b
+    from gemma_tpu_torch.utils.synth import synth_params
+
+    cfg = config_gemma2_2b()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    # Path A's weights, with path E's flat embedding: the greedy token is
+    # then a near tie among many (the default embedding repeats the last
+    # prompt token), so any difference in a row's bits shows in the tokens.
+    params = synth_params(cfg, seed=0, device="cuda",
+                          embedding_rms=FLAT_EMBEDDING_RMS)
+    torch.cuda.synchronize()
+    print(f"[4P] Gemma2-2B, {cfg.num_layers} layers, synthetic i8 weights "
+          f"(embedding rms {FLAT_EMBEDDING_RMS}) on the card in "
+          f"{time.monotonic() - t0:.2f} s", flush=True)
+
+    def add(counts):
+        for name, c in counts.items():
+            totals[name] = totals.get(name, 0) + c
+
+    phase_batcher(torch, params, cfg, add)
+    phase_http(torch, params, cfg, add)
+    del params
+    torch.cuda.empty_cache()
+
+
+def serving_schedule(layers: int) -> tuple[dict, dict]:
+    """The launches of one decode tick (3 GEMMs + the gated GEMM with their
+    norms folded in and K4 per layer, then the "last" head as one more
+    decode-tile GEMM with the final norm folded in) and of one admission
+    round (phase 4's prefill schedule for one round: the prefill tile's 3
+    GEMMs, its gated GEMM and K5 per layer)."""
+    tick = {"matmul_i8": 3 * layers + 1, "gated_i8": layers,
+            "decode_attention_bf16": layers}
+    admission = {"matmul_sm90_i8": 3 * layers, "gated_sm90_i8": layers,
+                 "flash_attention_bf16": layers}
+    return tick, admission
+
+
+def batcher_traffic(torch, batcher, prompts, turn2, tick_fn):
+    """P's requests: the first four, the other three before tick
+    WAVE2_TICK (slots free and are reused meanwhile), the session's second
+    turn once its first retired.  tick_fn(batcher) runs one tick.
+    Returns (requests, second turn, host wall seconds per tick)."""
+    from gemma_tpu_torch.engine.serving import Request
+
+    session = batcher.session_cache()
+    reqs = [Request(p, max_tokens=m, cache=session if i == SESSION else None)
+            for i, (p, m) in enumerate(zip(prompts, SERVING_MAX_TOKENS))]
+    for r in reqs[:4]:
+        batcher.submit(r)
+    second, walls = None, []
+    while second is None or batcher.pending or batcher.active:
+        if len(walls) == WAVE2_TICK:
+            for r in reqs[4:]:
+                batcher.submit(r)
+        if second is None and reqs[SESSION].done:
+            second = batcher.submit(Request(
+                turn2, max_tokens=8, cache=session,
+                start_pos=reqs[SESSION].end_pos))
+        t0 = time.monotonic()
+        tick_fn(batcher)
+        walls.append(time.monotonic() - t0)
+        if len(walls) > 500:
+            fail("path P: the batcher did not drain in 500 ticks")
+    return reqs, second, walls
+
+
+def phase_batcher(torch, params, cfg, add) -> None:
+    """P: `ContinuousBatcher` with 4 slots, greedy, bf16 KV, the default
+    admission chunk; 7 requests (prompts of 17, 130, 300, 700, 1100, 45
+    and 9 tokens, 32, 8, 24, 16, 12, 32 and 8 new tokens) in two waves;
+    the 45-token request carries a session cache, whose second turn of 9
+    tokens continues from its end_pos.  The counted run checks each tick's
+    launches against `serving_schedule` and, on every tick that decodes
+    while a slot admits, that the admitting slot's ring rows (all but the
+    garbage row) come out of the decode step bit for bit as they went in.
+    Every request's tokens, and the bits of its logits row at every decode
+    step, must equal the same prompt run alone through GemmaEngine.generate
+    (same runtime, decode_chunk=1, a batch-1 cache of the batcher's layout;
+    the second turn with cache= and start_pos=).
+    Then two decode ticks under torch.profiler, one under sync debug mode
+    "warn", and the traffic again for tok/s and the host wall per tick."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from gemma_tpu_torch.engine import GemmaEngine, RuntimeConfig
+    from gemma_tpu_torch.engine.serving import ContinuousBatcher, Request
+    from gemma_tpu_torch.models.kv_cache import new_like
+    from gemma_tpu_torch.ops import _cuda
+
+    layers = cfg.num_layers
+    engine = GemmaEngine(params, cfg, RuntimeConfig(seq_len=8192,
+                                                    decode_chunk=1))
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in SERVING_LENS]
+    turn2 = torch.randint(2, cfg.vocab_size, (9,), generator=gen).tolist()
+    tick_want, round_want = serving_schedule(layers)
+    kernels = _cuda.all_kernels()
+
+    # Warm the shapes once (a short run through every code path).
+    warm = ContinuousBatcher(engine, slots=4)
+    for p in prompts[:4]:
+        warm.submit(Request(p[:40], max_tokens=2))
+    warm.run_until_idle()
+    del warm
+
+    # Every decode step's "last" logits, by request: the batcher's rows and
+    # the alone runs' are compared bit for bit below.
+    picked: list = []
+    sample = engine._sample
+
+    def recording_sample(logits, pos, accept_token, allowed_mask=None):
+        picked.append(logits.clone())
+        return sample(logits, pos, accept_token, allowed_mask)
+
+    engine._sample = recording_sample
+    batcher = ContinuousBatcher(engine, slots=4)
+    print(f"[4P] ContinuousBatcher: {batcher.slots} slots, admission chunk "
+          f"{batcher.admission_chunk}, cache rings {batcher.cache.seq_len} / "
+          f"{batcher.cache.seq_len_local} (local slack "
+          f"{batcher.cache.local_slack})", flush=True)
+    stats = {"ticks": 0, "decode": 0, "admission": 0, "padding": 0}
+    last: dict = {}
+    rows: dict = {}  # request id -> its logits row of each decode step
+
+    def checked_tick(b):
+        b._admit()
+        admits = any(s.admitting for s in b._slots)
+        b._advance_admissions()
+        decodes = b.decoding > 0
+        pools = [(t, ring) for t, ring in ((b.cache.kv, b.cache.seq_len),
+                                           (b.cache.kv_local,
+                                            b.cache.seq_len_local))
+                 if t is not None]
+        snaps = {i: [t[i].clone() for t, _ in pools]
+                 for i, s in enumerate(b._slots) if s.admitting and decodes}
+        owners = [s.request if s.request is not None and not s.admitting
+                  else None for s in b._slots]
+        picked.clear()
+        b._decode_tick()
+        for i, req in enumerate(owners):
+            if req is not None:
+                rows.setdefault(req.request_id, []).append(picked[0][i])
+        for i, before in snaps.items():
+            for (t, ring), was in zip(pools, before):
+                now = t[i]
+                for lo, hi in ((0, ring), (ring + 1, now.shape[-2])):
+                    if not torch.equal(was[..., lo:hi, :].view(torch.int16),
+                                       now[..., lo:hi, :].view(torch.int16)):
+                        fail(f"path P tick {stats['ticks']}: the decode step "
+                             f"changed ring rows {lo}-{hi} of slot {i}, "
+                             "which was admitting (padding)")
+            stats["padding"] += 1
+        counts = {kn.name: kn.launches for kn in kernels}
+        delta = {n: c - last.get(n, 0) for n, c in counts.items()
+                 if c != last.get(n, 0)}
+        last.update(counts)
+        want = {}
+        if admits:
+            want.update(round_want)
+            stats["admission"] += 1
+        if decodes:
+            want.update(tick_want)
+            stats["decode"] += 1
+        if delta != want:
+            fail(f"path P tick {stats['ticks']} (admission {admits}, decode "
+                 f"{decodes}): launches {delta} != schedule {want}")
+        stats["ticks"] += 1
+
+    (reqs, second, _), counts = counted_run(torch, lambda: batcher_traffic(
+        torch, batcher, prompts, turn2, checked_tick))
+    add(counts)
+    print(f"[4P] counted run: {stats['ticks']} ticks, {stats['decode']} "
+          f"decode ticks (each {json.dumps(tick_want)}), "
+          f"{stats['admission']} admission rounds (each "
+          f"{json.dumps(round_want)}); launches {json.dumps(counts)}",
+          flush=True)
+    print(f"[4P] padding slots: {stats['padding']} (tick, admitting slot) "
+          "pairs, each slot's ring rows but the garbage row unchanged by the "
+          "decode step, bit for bit, in every layer's pool", flush=True)
+    if not stats["padding"]:
+        fail("path P: no tick decoded while a slot was admitting")
+    if stats["admission"] < 2 or stats["decode"] < 30:
+        fail(f"path P: too few ticks of each kind {stats}")
+
+    # Each request alone through GemmaEngine.generate: its tokens, and the
+    # bits of each step's logits row.
+    same_rows = [0, 0, 0.0]  # bit-equal steps, steps, max |difference|
+
+    def alone(label, req, prompt, m, **kw):
+        picked.clear()
+        want = engine.generate(prompt, max_generated_tokens=m, **kw)
+        mine = rows[req.request_id]
+        print(f"[4P] {label} ({len(prompt)} tokens): {len(req.output)} "
+              f"tokens {req.output[:6]}... alone {want[:6]}...", flush=True)
+        if req.output != want:
+            fail(f"path P: {label}'s tokens {req.output} != alone {want}")
+        if len(picked) != len(mine):
+            fail(f"path P: {label}: {len(mine)} batched steps, "
+                 f"{len(picked)} alone")
+        for got, ref in zip(mine, picked):
+            same_rows[0] += int(torch.equal(got, ref[0]))
+            same_rows[1] += 1
+            same_rows[2] = max(same_rows[2],
+                               float((got - ref[0]).abs().max()))
+
+    oracle = new_like(batcher.cache, 1)
+    for i, (p, m, r) in enumerate(zip(prompts, SERVING_MAX_TOKENS, reqs)):
+        alone(f"request {i}", r, p, m,
+              cache=oracle if i == SESSION else new_like(batcher.cache, 1))
+    if reqs[SESSION].end_pos != len(prompts[SESSION]) + len(
+            reqs[SESSION].output):
+        fail(f"path P: session end_pos {reqs[SESSION].end_pos}")
+    alone("the session's second turn", second, turn2, 8, cache=oracle,
+          start_pos=reqs[SESSION].end_pos)
+    engine._sample = sample
+    want2 = second.output
+    print(f"[4P] logits rows of every decode step, batched against alone: "
+          f"{same_rows[0]} of {same_rows[1]} bit-equal, max |difference| "
+          f"{same_rows[2]:.4g}", flush=True)
+    if same_rows[0] != same_rows[1]:
+        fail("path P: a request's logits depend on the other rows of its "
+             "batch")
+    print(f"[4P] every request's tokens equal its alone run; the session's "
+          f"second turn (9 tokens at position {reqs[SESSION].end_pos}) "
+          f"equals generate(cache=, start_pos=) {want2}", flush=True)
+
+    # Two decode ticks under the profiler, one under sync debug "warn".
+    b = ContinuousBatcher(engine, slots=4)
+    for p in prompts[:4]:
+        b.submit(Request(p, max_tokens=64))
+    while b.pending or any(s.admitting for s in b._slots):
+        b.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        b.step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.monotonic()
+        for _ in range(2):
+            b.step()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3 / 2
+        prof.step()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 2
+    if busy > wall:
+        fail(f"path P: device busy {busy:.3f} ms exceeds the host wall "
+             f"{wall:.3f} ms of the same ticks")
+    print(f"[4P] decode tick profile (4 slots decoding, 2 ticks): host wall "
+          f"{wall:.3f} ms/tick, device busy {busy:.3f} ms/tick, idle share "
+          f"{1 - busy / wall:.3f}, device activities "
+          f"{sum(e.count for e in kern) / 2:.1f}/tick", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[4P]   {e.self_device_time_total / 1e3 / 2:9.4f} ms/tick "
+              f"{e.count / 2:6.2f}/tick  {e.key[:90]}", flush=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            b.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"[4P] one decode tick under sync debug mode 'warn': {len(syncs)} "
+          "host syncs (the tick copies its tokens, positions and valid mask "
+          "to the card and reads the pick of its logits back, by design)",
+          flush=True)
+    del b
+
+    # The traffic again, timed.
+    torch.cuda.synchronize()
+    timed = ContinuousBatcher(engine, slots=4)
+    reqs2, second2, walls = batcher_traffic(torch, timed, prompts, turn2,
+                                            lambda x: x.step())
+    if [r.output for r in reqs2] + [second2.output] != \
+            [r.output for r in reqs] + [second.output]:
+        fail("path P: the timed run's tokens differ from the counted run's")
+    new = sum(len(r.output) for r in reqs2) + len(second2.output)
+    ms = sorted(w * 1e3 for w in walls)
+    print(f"[4P] timed run: {new} tokens in {len(walls)} ticks, "
+          f"{sum(walls):.4f} s = {new / sum(walls):.1f} tok/s; host wall per "
+          f"tick median {_med(ms):.3f} ms, p90 {ms[int(0.9 * len(ms))]:.3f} "
+          f"ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del batcher, timed, engine
+    torch.cuda.empty_cache()
+
+
+SERVING_TEXTS = (
+    "Write a short poem about the sea at night.",
+    "Explain in two sentences why the sky is blue.",
+    "List three uses of a paper clip.",
+    "What is the capital of France? Answer briefly.",
+    "Translate 'good morning' into Spanish and German.",
+)
+
+
+def post_json(base, verb, body, timeout=300):
+    """POST a generateContent-style body; (reply as JSON, seconds)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"{base}/v1beta/models/gemma:{verb}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        if r.status != 200:
+            fail(f"path Q: {verb} returned HTTP {r.status}")
+        return json.loads(r.read()), time.monotonic() - t0
+
+
+def phase_http(torch, params, cfg, add) -> None:
+    """Q: the port's HTTP API server over a `Gemma` with a 256000-piece
+    tokenizer (chip_smoke's own proto writer, Gemma's layout) and the
+    26-layer model, `continuous=True` (16 slots: the decode tile at M = 16),
+    on a ThreadingHTTPServer at 127.0.0.1 in a thread.  Through the port's
+    api_client functions: 5 concurrent generateContent requests, one
+    streamGenerateContent and one sessionId conversation of two turns, 16
+    new tokens each.  Every answer must equal `generate_text` of the same
+    prompt run alone (decode_chunk=1, as the batcher picks on "last"
+    logits; a batch-1 cache of the batcher's layout), the session's second
+    turn with the cache and the position; the SSE chunks must join to the
+    non-streamed answer.  Then `python3 -m gemma_tpu_torch.run` on a
+    2-layer full-width .sbs holding the proto, and ContextGemma.create and
+    GemmaModel on the same file."""
+    import concurrent.futures
+    import dataclasses
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from gemma_tpu_torch import api_client
+    from gemma_tpu_torch.api_server import GemmaService, make_handler
+    from gemma_tpu_torch.engine import RuntimeConfig
+    from gemma_tpu_torch.gemma import Gemma
+    from gemma_tpu_torch.models.tokenizer import GemmaTokenizer
+    from gemma_tpu_torch.ops import _cuda
+
+    t0 = time.monotonic()
+    proto = spm_model_proto(gemma_layout_pieces(cfg.vocab_size))
+    tokenizer = GemmaTokenizer(proto)
+    print(f"[4Q] tokenizer: {len(proto) / 1e6:.2f} MB proto of "
+          f"{cfg.vocab_size} pieces written and read in "
+          f"{time.monotonic() - t0:.2f} s (available "
+          f"{tokenizer.available})", flush=True)
+    gemma = Gemma(cfg, params, tokenizer,
+                  RuntimeConfig(seq_len=8192, decode_chunk=1))
+    service = GemmaService(gemma, model_name="gemma", continuous=True)
+    batcher = service.batcher
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    n_new = 16
+    tick_want, round_want = serving_schedule(cfg.num_layers)
+    try:
+        with urllib.request.urlopen(f"{base}/v1beta/models") as r:
+            models = json.loads(r.read())
+        if models["models"][0]["name"] != "models/gemma":
+            fail(f"path Q: /v1beta/models lists {models}")
+        # Warm the server's shapes with one request.
+        post_json(base, "generateContent", api_client.build_request(
+            "warm up", None, 1.0, 1, 2))
+
+        def ask(i):
+            body = api_client.build_request(SERVING_TEXTS[i], None, 1.0, 1,
+                                            n_new)
+            return post_json(base, "generateContent", body)
+
+        def stream():
+            body = api_client.build_request(SERVING_TEXTS[0], None, 1.0, 1,
+                                            n_new)
+            req = urllib.request.Request(
+                f"{base}/v1beta/models/gemma:streamGenerateContent",
+                data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            first, events = None, []
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if r.status != 200:
+                    fail(f"path Q: streamGenerateContent HTTP {r.status}")
+                for e in api_client.iter_sse(r):
+                    if first is None:
+                        first = time.monotonic() - t0
+                    events.append(e)
+            return events, first, time.monotonic() - t0
+
+        def session():
+            out = []
+            for text in ("Tell me a fact about owls.", "And one more?"):
+                out.append(post_json(base, "generateContent", {
+                    **api_client.build_request(text, "owls", 1.0, 1, n_new)}))
+            return out
+
+        def traffic():
+            with concurrent.futures.ThreadPoolExecutor(7) as pool:
+                asks = [pool.submit(ask, i) for i in range(5)]
+                st = pool.submit(stream)
+                se = pool.submit(session)
+                res = ([a.result() for a in asks], st.result(), se.result())
+            while batcher.pending or batcher.active:
+                time.sleep(0.01)
+            return res
+
+        (answers, (events, ttfc, st_wall), turns), counts = counted_run(
+            torch, traffic)
+        add(counts)
+        d = counts["decode_attention_bf16"] // cfg.num_layers
+        a = counts["flash_attention_bf16"] // cfg.num_layers
+        want = {n: c * d for n, c in tick_want.items()}
+        for n, c in round_want.items():
+            want[n] = want.get(n, 0) + c * a
+        check_counts("4Q", counts, want)
+        print(f"[4Q] {d} decode ticks and {a} admission rounds on the "
+              "batcher's thread, each as path P's schedule", flush=True)
+
+        # Each answer against generate_text alone, on this thread while the
+        # batcher's thread waits.
+        def alone(text, pos=0, cache=None):
+            """The answer's pieces as the server joins them: each token
+            decoded alone (generate_text's stream)."""
+            wrapped = service.wrap_messages(
+                [{"role": "user", "parts": [{"text": text}]}])
+            pieces = []
+            gemma.generate_text(
+                wrapped, pos=pos, max_generated_tokens=n_new,
+                stream=lambda piece: pieces.append(piece) or True,
+                cache=cache if cache is not None
+                else batcher.session_cache())
+            return "".join(pieces)
+
+        for i, (resp, secs) in enumerate(answers):
+            got = api_client.extract_text(resp)
+            want_text = alone(SERVING_TEXTS[i])
+            print(f"[4Q] generateContent {i}: {secs:.3f} s, "
+                  f"{resp['usageMetadata']['candidatesTokenCount']} tokens, "
+                  f"text {got[:40]!r}", flush=True)
+            if got != want_text:
+                fail(f"path Q: request {i}'s answer {got!r} != "
+                     f"generate_text alone {want_text!r}")
+        joined = "".join(api_client.extract_text(e) for e in events[:-1])
+        if events[-1]["candidates"][0].get("finishReason") != "STOP" or \
+                joined != api_client.extract_text(answers[0][0]):
+            fail(f"path Q: the SSE chunks join to {joined!r}, the "
+                 "non-streamed answer is "
+                 f"{api_client.extract_text(answers[0][0])!r}")
+        print(f"[4Q] streamGenerateContent: {len(events)} events, first "
+              f"chunk after {ttfc:.3f} s, done in {st_wall:.3f} s; the chunks "
+              "join to the non-streamed answer", flush=True)
+        cache, pos = batcher.session_cache(), 0
+        for turn, ((resp, secs), text) in enumerate(zip(
+                turns, ("Tell me a fact about owls.", "And one more?"))):
+            got = api_client.extract_text(resp)
+            want_text = alone(text, pos=pos, cache=cache)
+            print(f"[4Q] session turn {turn}: {secs:.3f} s at position {pos}"
+                  f", text {got[:40]!r}", flush=True)
+            if got != want_text:
+                fail(f"path Q: session turn {turn}'s answer {got!r} != "
+                     f"generate_text(cache=, pos={pos}) {want_text!r}")
+            pos = resp["usageMetadata"]["totalTokenCount"]
+        print("[4Q] every status 200; every answer equals generate_text "
+              "alone; /v1beta/models lists the model", flush=True)
+    finally:
+        server.shutdown()
+        server.server_close()
+    # The batcher's thread waits for requests forever: free its cache.
+    batcher.cache = None
+    del service, batcher, gemma
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    full = dataclasses.replace(  # two layers, widths and vocab kept
+        cfg, num_layers=2, layer_configs=cfg.layer_configs[:2],
+        attention_window_sizes=cfg.attention_window_sizes[:2])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "repl.sbs")
+        t0 = time.monotonic()
+        write_synth_sbs(torch, path, full, "sfp", seed=40,
+                        tokenizer_proto=proto)
+        print(f"[4Q] wrote a 2-layer full-width sfp .sbs with the tokenizer "
+              f"({os.path.getsize(path) / 1e6:.1f} MB) in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        env = dict(os.environ, PYTHONPATH=root)
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gemma_tpu_torch.run", "--weights", path,
+             "--prompt", "Write a haiku about autumn.",
+             "--max_generated_tokens", "8", "--verbosity", "1"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        took = time.monotonic() - t0
+        lines = [ln for ln in proc.stdout.splitlines() if "[ Timing ]" in ln]
+        print(f"[4Q] python3 -m gemma_tpu_torch.run --prompt ...: exit "
+              f"{proc.returncode} in {took:.1f} s; {lines}", flush=True)
+        if proc.returncode != 0 or len(lines) < 2:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+            fail("path Q: the REPL subprocess failed or printed no timing "
+                 "lines")
+        from gemma_tpu_torch.bindings.context import ContextGemma
+        from gemma_tpu_torch.gemma_py import GemmaModel
+
+        ctx = ContextGemma.create(path, max_generated_tokens=8)
+        text = ctx.generate("Write a haiku about autumn.")
+        model = GemmaModel("", path, max_generated_tokens=8)
+        tok, mcfg = model._gemma.tokenizer, model._gemma.config
+        text2 = "".join(tok.decode([t]) for t in model.generate_ex(
+            "Write a haiku about autumn.", max_generated_tokens=8)
+            if not mcfg.is_eos(t))
+        on = (ctx.gemma.params.device.type, model._gemma.params.device.type)
+        print(f"[4Q] ContextGemma.create: {text[:40]!r}; GemmaModel: "
+              f"{text2[:40]!r}; params on {on}", flush=True)
+        if on != ("cuda", "cuda") or text != text2:
+            fail("path Q: ContextGemma and GemmaModel disagree or left the "
+                 "card")
+        del ctx, model
+    torch.cuda.empty_cache()
+
+
 
 
 if __name__ == "__main__":

@@ -2,11 +2,14 @@
 
 The JAX package `gemma_tpu` stays the reference; this package imports
 nothing from it.  Layout mirrors it: `gemma.py` (the `Gemma` facade:
-load a `.sbs`, generate), `models/` (configs, KV cache, the forward pass,
-the loader), `ops/` (elementwise ops, attention references, the
-quantized-weight GEMMs and the hand-written CUDA kernels behind them),
-`compression/` and `io/` (the weight codecs and the `.sbs` file format,
-numpy), `engine/` (the serving loop and the scan-over-layers decode),
+load a `.sbs`, generate ids or text), `models/` (configs, KV cache, the
+forward pass, the loader, the tokenizer), `ops/` (elementwise ops,
+attention references, the quantized-weight GEMMs and the hand-written
+CUDA kernels behind them), `compression/` and `io/` (the weight codecs and
+the `.sbs` file format, numpy), `engine/` (the serving loop, the
+continuous batcher and the scan-over-layers decode), the frontends
+(`run.py` the REPL, `api_server.py` / `api_client.py` the HTTP API,
+`gemma_py.py`, `bindings/`, `args.py`, `evals/benchmark_helper.py`),
 `scripts/` (diagnostics and timings run on the card) and `utils/`.
 
 Every entry point runs on CUDA unless the caller passes `device="cpu"`;

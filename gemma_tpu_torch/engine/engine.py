@@ -61,11 +61,16 @@ class RuntimeConfig:
     # 0 = auto: 1024 at batch 1, 512 at batch >= 2, capped to the next
     # power of two >= the prompt length (engine.py:332-347).
     prefill_tbatch_size: int = 0
+    # Slots of the continuous batcher (engine/serving.py) and the batch
+    # its admission chunk is sized for.
+    decode_qbatch_size: int = 16
     # Sampling: the top_k largest logits, their softmax raised to
     # 1/temperature (0 = argmax), drawn from the stream of `seed`.
     temperature: float = 1.0
     top_k: int = 1
     seed: int = 0
+    # 0 = minimal output, 1 = standard (timing lines), 2 = debug.
+    verbosity: int = 1
     seq_len: int = 8192
     # Decode steps per host round trip; streaming callbacks fire in bursts
     # of up to this many tokens (tokens equal stepwise decode's).
@@ -316,6 +321,17 @@ class GemmaEngine:
                         non_eos[qi] = False
             done += k
         return outputs
+
+    def decode_step(self, prev_tokens: torch.Tensor, positions: torch.Tensor,
+                    cache: KVCache, valid: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, KVCache]:
+        """One decode step with "last" logits: the call the continuous
+        batcher makes each tick (engine.py:180-241, `_decode_fn(batch,
+        with_valid=True)`).  prev_tokens, positions: int32 [B, 1] on the
+        device; valid: bool [B, 1], False sends that slot's KV row write
+        to the garbage row.  Returns (logits f32 [B, vocab], cache)."""
+        return self._decoder(cache)(prev_tokens, positions, cache,
+                                    return_logits="last", valid=valid)
 
     def _on_device(self, values) -> torch.Tensor:
         """int32 [B] copy of host values on the engine's device."""

@@ -135,6 +135,25 @@ class KVCache:
             self, kv=self.kv.clone(), kv_local=cp(self.kv_local),
             kv_scale=cp(self.kv_scale), kv_local_scale=cp(self.kv_local_scale))
 
+    def assign(self, other: "KVCache") -> None:
+        """Adopt another cache's tensors (the rebinding of caller-held
+        conversation caches, kv_cache.py:204-210)."""
+        self.kv = other.kv
+        self.kv_local = other.kv_local
+        self.kv_scale = other.kv_scale
+        self.kv_local_scale = other.kv_local_scale
+
+    def tensors(self) -> tuple:
+        """The pool and scale tensors, None where absent."""
+        return (self.kv, self.kv_local, self.kv_scale, self.kv_local_scale)
+
+    def layout(self) -> tuple:
+        """What must match for two caches to share a batcher's layout: the
+        ring lengths, the pool split, the local slack and which tensors
+        exist (the JAX cache's pytree structure)."""
+        return (self.seq_len, self.seq_len_local, self.layer_map,
+                self.local_slack, tuple(t is not None for t in self.tensors()))
+
     def k_layer(self, layer_idx: int) -> torch.Tensor:
         """[batch, kv_heads, s_alloc, qkv_dim] keys (dequantized for i8)."""
         return self._panel(layer_idx, 0)
@@ -175,3 +194,47 @@ class KVCache:
             # pool[:, idx, kv] is [B, KVH, S, D]; index (b, row) over [B, S].
             pool[:, idx, kv].permute(0, 2, 1, 3)[bi, rows] = \
                 new[:, kv].to(pool.dtype)
+
+
+def check_session_layout(batched: KVCache, single: KVCache) -> None:
+    """Raise unless `single` is a batch-1 cache with `batched`'s per-slot
+    layout (the continuous batcher's submit check, serving.py:117-136)."""
+    if single.layout() != batched.layout():
+        raise ValueError(
+            "session cache layout differs from the batcher's "
+            "(seq_len / kv kind / pool split must match the "
+            "engine runtime the batcher was built with)")
+    bad = [(tuple(s.shape), tuple(b.shape))
+           for s, b in zip(single.tensors(), batched.tensors())
+           if s is not None and (tuple(s.shape) != (1,) + tuple(b.shape[1:])
+                                 or s.dtype != b.dtype
+                                 or s.device != b.device)]
+    if bad:
+        raise ValueError(f"session cache must be batch-1 with the "
+                         f"batcher's per-slot shape; got {bad}")
+
+
+def new_like(cache: KVCache, batch: int = 1) -> KVCache:
+    """A zeroed cache of `batch` slots with `cache`'s layout (its rings,
+    pool split, slack and kind), on its device."""
+    z = lambda a: None if a is None else a.new_zeros(  # noqa: E731
+        (batch,) + tuple(a.shape[1:]))
+    return dataclasses.replace(
+        cache, kv=z(cache.kv), kv_local=z(cache.kv_local),
+        kv_scale=z(cache.kv_scale), kv_local_scale=z(cache.kv_local_scale))
+
+
+def insert_slot(batched: KVCache, single: KVCache, i: int) -> None:
+    """Copy a batch-1 cache's rows into slot i of `batched`, in place."""
+    for b, s in zip(batched.tensors(), single.tensors()):
+        if b is not None:
+            b[i:i + 1].copy_(s)
+
+
+def extract_slot(batched: KVCache, i: int) -> KVCache:
+    """Slot i's rows as a new batch-1 cache (a copy; `batched` is read)."""
+    cp = lambda a: None if a is None else a[i:i + 1].clone()  # noqa: E731
+    return dataclasses.replace(
+        batched, kv=cp(batched.kv), kv_local=cp(batched.kv_local),
+        kv_scale=cp(batched.kv_scale),
+        kv_local_scale=cp(batched.kv_local_scale))

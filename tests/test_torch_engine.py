@@ -133,6 +133,51 @@ def test_entry_points_default_to_cuda(engines, entry):
             make(None)
 
 
+@pytest.fixture(scope="module")
+def model_file(tmp_path_factory):
+    from tests.test_frontends import tiny_model_file
+
+    return tiny_model_file(tmp_path_factory.mktemp("model"))
+
+
+@pytest.mark.parametrize("entry", ["gemma_load", "context_create",
+                                   "gemma_model", "cli"])
+def test_frontends_default_to_cuda(model_file, entry):
+    """Gemma.load, ContextGemma.create, GemmaModel and the CLIs' --device
+    (args.load_gemma, which run.py and api_server.py call) put the model on
+    CUDA unless the caller names a device, and raise when CUDA is absent."""
+    import argparse
+
+    from gemma_tpu_torch import args as targs
+    from gemma_tpu_torch.bindings.context import ContextGemma
+    from gemma_tpu_torch.gemma import Gemma
+    from gemma_tpu_torch.gemma_py import GemmaModel
+
+    def cli(dev):
+        parser = argparse.ArgumentParser()
+        targs.add_args(parser, targs.LoaderArgs, targs.InferenceArgs)
+        argv = ["--weights", model_file, "--seq_len", "64"]
+        ns = parser.parse_args(argv + (["--device", dev] if dev else []))
+        return targs.load_gemma(targs.extract(ns, targs.LoaderArgs),
+                                targs.extract(ns, targs.InferenceArgs))
+
+    make = {
+        "gemma_load": lambda dev: Gemma.load(model_file, device=dev),
+        "context_create": lambda dev: ContextGemma.create(
+            model_file, device=dev).gemma,
+        "gemma_model": lambda dev: GemmaModel("", model_file, seq_len=64,
+                                              device=dev)._gemma,
+        "cli": cli,
+    }[entry]
+    g = make("cpu")
+    assert g.params.device.type == g.engine.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert make(None).params.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(None)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(kind="i4"), "slice 4"),
     (dict(kind="nuq4"), "slice 4"),

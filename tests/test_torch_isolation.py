@@ -1,5 +1,6 @@
 """The port stands alone: neither `gemma_tpu_torch` nor `chip_smoke.py`
-imports JAX or any module of the JAX package `gemma_tpu`."""
+imports JAX, any module of the JAX package `gemma_tpu`, or `transformers`
+(the port's tokenizer reads the SentencePiece proto itself)."""
 
 import ast
 import os
@@ -25,7 +26,8 @@ def _imports(path):
 def test_no_jax_or_gemma_tpu_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "gemma_tpu"), (path, name)
+        assert top not in ("jax", "jaxlib", "gemma_tpu", "transformers",
+                           "tokenizers"), (path, name)
 
 
 def test_importing_the_port_loads_no_jax():
@@ -36,7 +38,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'gemma_tpu')]\n"
+              "('jax', 'jaxlib', 'gemma_tpu', 'transformers')]\n"
               "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, env=env,

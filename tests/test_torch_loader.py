@@ -454,9 +454,12 @@ def test_gemma_facade_loads_and_generates(files, override):
                             max_generated_tokens=2)[0] == out[:2]
     cache = g.new_cache(2, seq_len=32)
     assert cache.kv.shape[0] == 2 or cache.kv.shape[1] == 2
-    for call in (lambda: g.generate_text("hi"), lambda: g.chat("hi")):
-        with pytest.raises(NotImplementedError, match="frontends slice"):
-            call()
+    # The file holds the mock tokenizer: text in gives no ids.
+    assert not g.tokenizer.available
+    assert g.tokenizer.serialize() == b"unavailable"
+    text, n_prompt, n_out = g.generate_text("hi", max_generated_tokens=2)
+    assert (n_prompt, n_out) == (len(g.chat_template.apply(0, [])), 2)
+    assert text == "" and g.chat("hi", max_generated_tokens=2) == ""
     if override is None:
         from gemma_tpu.engine import GemmaEngine as JEngine
         from gemma_tpu.engine import RuntimeConfig as JRuntime
@@ -477,7 +480,7 @@ def test_gemma_save_round_trips(files, tmp_path):
     assert_same_params(j_load_params(store, kind_override="nuq4"),
                        Gemma.load(out, kind_override="nuq4",
                                   device="cpu").params)
-    bare = Gemma(g.config, g.params, device="cpu")
+    bare = Gemma(g.config, g.params, g.tokenizer, device="cpu")
     with pytest.raises(ValueError, match="store-backed"):
         bare.save(out)
 
